@@ -2,17 +2,28 @@
 
 Phases, each printing a flushed line with the seconds since start:
   1. device: needs CUDA; prints the card and its power limit.
-  2. build: compiles every CUDA kernel of the serving path with nvcc.
+  2. build: compiles every CUDA kernel with nvcc, one process per source,
+     all started together, and prints ptxas's register and spill lines.
   3. kernels: holds each kernel to its plain PyTorch version at every shape
-     the serving path gives it, and times kernel, plain version and the
-     PyTorch library call that computes the same function.
+     its path gives it (the forward at the serving shapes, the backward at
+     the training shapes, with a fully masked row), and times kernel, plain
+     version and the PyTorch library call that computes the same function.
   4. serving: a flagship-width L=128 Server with seeded random weights
      answers requests (different captions and lengths, one seeded) over a
      short PC trajectory; every map must be finite, (5, 128, 128), with the
      length mask as its last channel, and the kernels' launch counts must be
-     exactly what the path makes.
+     exactly what the path makes (36 forward launches per PC step, no
+     backward launch).
   5. reference: one score evaluation on the GPU (kernels) against the same
      model on the CPU (plain versions).
+  6. training: `cli/train.main` trains the bench_l128 configuration at batch
+     16 on records written here (enough that the 12 steps fall in one
+     epoch, so the loader reads ahead as on a real dataset), 2 warm-up and
+     10 timed steps; losses finite, exactly 16 backward and 18 forward
+     launches per step, the weights moved, the EMA apart from them. A Server loads the EMA weights
+     it wrote and answers a request.
+  7. train reference: one flagship train step at B=1 (dropout 0, injected
+     draws) on the GPU against the CPU: loss and every gradient.
 
 float32 throughout, with TF32 off for matmuls and cuDNN convolutions (both
 packages compute the model in full f32). The last line of stdout is
@@ -32,10 +43,37 @@ import traceback
 from pathlib import Path
 
 T0 = time.perf_counter()
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
 STEPS = 20           # PC steps per request batch (the full schedule is 2000)
 BATCH = 4            # serving batch size
-TOL = 1e-4           # kernel vs plain version, f32, max abs error
+TOL = 1e-4           # forward kernel vs plain version, f32, max abs error
+# backward kernel vs plain version: max abs error over 1e-4 of the largest
+# |gradient| of the call (or 1e-4 absolute below 1): sums of up to 256 f32
+# products in another order, on gradients up to ~100
+BWD_TOL = 1e-4
 E2E_TOL = 1e-4       # GPU vs CPU score, relative max diff
+# GPU vs CPU train step: loss relative diff, and each gradient's max diff
+# over its own max |grad| (floored at 1e-3 of the model's largest, as the
+# attention key biases have a gradient of 0 in exact arithmetic). f32
+# through ~100 layers of backward with the card's convolution, matmul and
+# reduction orders: with the attention backward on its plain version the
+# card already differs from the CPU by up to 2.5e-3 (GroupNorm scales of
+# the 16x16 level; the median gradient 5e-4), hence 5e-3. The kernel's own
+# share is held apart, on the card: the same step with the attention
+# backward through its plain version, within 1e-3 (cuDNN's backward
+# algorithms also sum in a different order from run to run).
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 5e-3
+TRAIN_KERNEL_TOL = 1e-3
+TRAIN_BATCH = 16     # configs/bench_l128.yml training.batch_size
+TRAIN_WARMUP = 2     # train steps before the timed ones
+TRAIN_TIMED = 10
+# the 95/5 split leaves 198 train records: 12 batches of 16, so every step
+# of the run is in one epoch and the loader's thread reads ahead (a split of
+# one batch would start a new loader, unread, on every step); the 10 eval
+# records are filled to one batch
+N_RECORDS = 208
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_S = 67e12       # H100 SXM f32 outside the tensor cores
 
@@ -50,6 +88,23 @@ PATH_SHAPES = [
     ("cross_mid_4x4", 8, 16, 64, 32, True, 2),
 ]
 LAUNCHES_PER_STEP = sum(s[-1] for s in PATH_SHAPES)  # 36
+
+# (name, H, Tq, Tk, D, masked, calls per train step, route) of the
+# flagship training step at B=16, one forward and one backward per call
+# (no remat). Tk=64 is the hash encoder's caption bucket
+# (text.pad_to_bucket). `supports_bwd` sends Tk=16 to the fallback, which
+# recomputes the einsum attention and differentiates it.
+TRAIN_SHAPES = [
+    ("attnblock_16x16", 1, 256, 256, 256, False, 5, "kernel"),
+    ("self_16x16", 8, 256, 256, 32, False, 5, "kernel"),
+    ("cross_16x16", 8, 256, 64, 32, True, 5, "kernel"),
+    ("attnblock_mid_4x4", 1, 16, 16, 256, False, 1, "fallback"),
+    ("self_mid_4x4", 8, 16, 16, 32, False, 1, "fallback"),
+    ("cross_mid_4x4", 8, 16, 64, 32, True, 1, "kernel"),
+]
+FWD_PER_TRAIN_STEP = sum(s[6] for s in TRAIN_SHAPES)  # 18
+BWD_PER_TRAIN_STEP = sum(s[6] for s in TRAIN_SHAPES
+                         if s[7] == "kernel")  # 16
 
 
 def log(msg):
@@ -74,8 +129,9 @@ def cuda_ms(torch, fn, iters=50, warmup=3):
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: this script needs a GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from text2protein_tpu_torch import use_full_f32
+
+    use_full_f32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -83,16 +139,28 @@ def phase_device(torch):
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda} | TF32 off for matmul and cuDNN")
+        f"cuda {torch.version.cuda} | TF32 off for matmul and cuDNN, "
+        f"cudnn.benchmark on")
     return kind, smi
 
 
+def bound(nbytes, flops):
+    """(least ms, what bounds it) at the H100's HBM and f32 rates."""
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from text2protein_tpu_torch.ops import _build
 
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
+    # one nvcc process per source, all at once
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(_build.build, sources))
     for src in sources:
-        _build.build(src)
         info = _build.BUILD_LOG[src]
         ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -138,18 +206,104 @@ def phase_kernels(torch):
         nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + b * h * tq
                       + (b * tk if masked else 0))
         flops = 4 * b * h * tq * tk * d
-        bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_S * 1e3
+        bound_ms, bound_by = bound(nbytes, flops)
         rows.append(dict(
             shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
             per_step=per_step, max_abs_err=err, ms=kernel_ms,
             plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-            flops=flops, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations"))
+            flops=flops, bound_ms=bound_ms, bound_by=bound_by))
         log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
             f"mask={masked}: max_abs_err {err:.2e} (tol {TOL:.0e}) "
             f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms(sdpa) {library_ms:.4f} "
-            f"bound_ms {max(bytes_ms, ops_ms):.5f}")
+            f"library_ms(sdpa) {library_ms:.4f} bound_ms {bound_ms:.5f}")
+    return rows
+
+
+def phase_kernels_bwd(torch):
+    """The backward at the training shapes, B=16: the kernel against its
+    plain version on the same residuals (from the forward kernel), with the
+    serving masks plus one fully masked row; the fallback shapes time the
+    fallback instead."""
+    import torch.nn.functional as F
+
+    from text2protein_tpu_torch.ops import attention, flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b = TRAIN_BATCH
+    rows = []
+    for name, h, tq, tk, d, masked, per_step, route in TRAIN_SHAPES:
+        q, k, v, g = (torch.randn((b, h, t, d), device=dev, generator=gen)
+                      for t in (tq, tk, tk, tq))
+        mask = None
+        if masked:
+            lengths = torch.tensor([5, 12, 37] + [tk] * (b - 4) + [0],
+                                   device=dev)
+            mask = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+        scale = d**-0.5
+        out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
+        if route == "kernel":
+            got = flash.flash_attention_bwd(q, k, v, out, lse, g, scale, mask)
+            torch.cuda.synchronize()
+            want = flash.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                       scale, mask)
+            err = max((x - w).abs().max().item() for x, w in zip(got, want))
+            ref_scale = max(w.abs().max().item() for w in want)
+            finite = all(torch.isfinite(x).all() for x in got)
+            if not (finite and err <= BWD_TOL * max(1.0, ref_scale)):
+                raise AssertionError(
+                    f"{name}: backward kernel vs plain max abs error "
+                    f"{err:.3e} > {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}")
+            kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd(
+                q, k, v, out, lse, g, scale, mask))
+            plain_ms = cuda_ms(
+                torch, lambda: flash.flash_attention_bwd_reference(
+                    q, k, v, out, lse, g, scale, mask))
+        else:
+            assert not flash.supports_bwd(q, k, v)
+            err, ref_scale, plain_ms = None, None, None
+            xs = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def fallback():
+                with torch.enable_grad():
+                    ref = attention._xla_attention(*xs, scale, kv_mask=mask)
+                    return torch.autograd.grad(ref, xs, g)
+
+            kernel_ms = cuda_ms(torch, fallback)
+        # the library's backward: autograd of SDPA, fwd+bwd minus fwd
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        attn_mask = None if mask is None else mask[:, None, None, :]
+
+        def sdpa():
+            with torch.enable_grad():
+                return F.scaled_dot_product_attention(
+                    *xs, attn_mask=attn_mask, scale=scale)
+
+        sdpa_fwd = cuda_ms(torch, sdpa)
+        sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), xs, g))
+        library_ms = sdpa_both - sdpa_fwd
+        # bytes: q, k, v, out, dO, lse (and mask) read once, dq, dk, dv
+        # written once; FLOPs: 10 B H Tq Tk D (the JAX cost estimate)
+        nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
+                      + g.numel() + b * h * tq + (b * tk if masked else 0))
+        flops = 10 * b * h * tq * tk * d
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append(dict(
+            shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
+            dead_row=masked, per_step=per_step, route=route,
+            max_abs_err=err, grad_scale=ref_scale, ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+            flops=flops, bound_ms=bound_ms, bound_by=bound_by))
+        what = ("kernel" if route == "kernel"
+                else "fallback (einsum recompute + autograd)")
+        log(f"kernel flash_bwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
+            f"mask={masked}{' +dead row' if masked else ''} [{what}]: "
+            + (f"max_abs_err {err:.2e} (tol {BWD_TOL:.0e} x "
+               f"{max(1.0, ref_scale):.3g}) " if err is not None else "")
+            + f"ms {kernel_ms:.4f} "
+            + (f"plain_ms {plain_ms:.4f} " if plain_ms is not None else "")
+            + f"library_ms(sdpa bwd) {library_ms:.4f} "
+            f"bound_ms {bound_ms:.5f}")
     return rows
 
 
@@ -181,6 +335,7 @@ def phase_serving(torch):
     seconds = []
     for reqs in batches:
         flash.flash_attention_fwd.launches = 0
+        flash.flash_attention_bwd.launches = 0
         t = time.perf_counter()
         results = server.run_batch(reqs)
         seconds.append(time.perf_counter() - t)
@@ -190,6 +345,8 @@ def phase_serving(torch):
             raise AssertionError(f"flash_fwd launched {got} times in a "
                                  f"batch, expected {LAUNCHES_PER_STEP} x "
                                  f"{STEPS}")
+        if flash.flash_attention_bwd.launches:
+            raise AssertionError("serving launched the backward kernel")
         for req, res in zip(reqs, results):
             cnn = decode_coords(res)
             L = req["length"]
@@ -246,42 +403,266 @@ def phase_reference(torch, server):
     return diff
 
 
+def phase_training(torch, records, weights):
+    """cli/train.main at bench_l128_config(), batch 16, from seeded random
+    weights; then a Server answers one request from the EMA weights it
+    wrote."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.cli.serve import Server, decode_coords
+    from text2protein_tpu_torch.config import bench_l128_config
+    from text2protein_tpu_torch.data.helix_records import CAPTIONS
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+
+    steps = TRAIN_WARMUP + TRAIN_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    flash.flash_attention_fwd.launches = 0
+    flash.flash_attention_bwd.launches = 0
+    res = train.main(["--data", str(records), "--max_steps", str(steps),
+                      "--out", str(weights)])
+    fwd = flash.flash_attention_fwd.launches
+    bwd = flash.flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs, state = res["losses"], res["step_seconds"], res["state"]
+    eval_loss = res["eval_loss"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train losses {losses}")
+    if not np.isfinite(eval_loss):
+        raise AssertionError(f"eval loss {eval_loss}")
+    if bwd != BWD_PER_TRAIN_STEP * steps:
+        raise AssertionError(f"flash_bwd launched {bwd} times, expected "
+                             f"{BWD_PER_TRAIN_STEP} x {steps}")
+    # 18 per train step and 18 per eval batch (the eval split is filled to
+    # one batch)
+    if fwd != FWD_PER_TRAIN_STEP * (steps + 1):
+        raise AssertionError(f"flash_fwd launched {fwd} times, expected "
+                             f"{FWD_PER_TRAIN_STEP} x ({steps} + 1)")
+    lrs = res["lrs"]
+    if lrs[0] != 0.0 or not lrs[1] > 0.0:
+        raise AssertionError(f"learning rates {lrs[:3]}: the first update "
+                             "must run at lr 0")
+    config = bench_l128_config()
+    if config.training.batch_size != TRAIN_BATCH:
+        raise AssertionError("bench_l128_config() trains at batch "
+                             f"{config.training.batch_size}")
+    start = init_random_weights(build_model(config, device="cpu"),
+                                config.seed)
+    start = dict(start.named_parameters())
+    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    moved = sum(not torch.equal(params[k], start[k]) for k in params)
+    ema_apart = sum(not torch.equal(params[k], state.ema.params[k].cpu())
+                    for k in params)
+    if moved < len(params) // 2 or ema_apart < len(params) // 2:
+        raise AssertionError(f"{moved} of {len(params)} params moved, "
+                             f"{ema_apart} EMA params differ from them")
+    timed = np.asarray(secs[TRAIN_WARMUP:]) * 1e3
+    ms = float(np.median(timed))
+    log(f"training: bench_l128 at batch {TRAIN_BATCH}, {steps} steps on "
+        f"{res['records']} records: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (all finite), eval (EMA) {eval_loss:.4f}; "
+        f"flash_bwd launches {bwd} (= {BWD_PER_TRAIN_STEP} x {steps}), "
+        f"flash_fwd {fwd} (= {FWD_PER_TRAIN_STEP} x ({steps} + 1 eval)); "
+        f"lr {lrs[0]} then {lrs[1]:.1e}; {moved}/{len(params)} "
+        f"params moved, {ema_apart} EMA params apart from them")
+    log(f"training: {ms:.2f} ms per train step (median of the last "
+        f"{TRAIN_TIMED}, range {timed.min():.2f}-{timed.max():.2f}; first "
+        f"{TRAIN_WARMUP}: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in secs[:TRAIN_WARMUP])} ms), "
+        f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    del state, res
+
+    server = Server(bench_l128_config(), batch_size=1, num_steps=STEPS,
+                    weights=str(weights), device="cuda")
+    flash.flash_attention_fwd.launches = 0
+    reply = server.run_batch([{"caption": CAPTIONS[0], "length": 90}])
+    cnn = decode_coords(reply[0])
+    served = flash.flash_attention_fwd.launches
+    if cnn.shape != (5, 128, 128) or not np.isfinite(cnn).all():
+        raise AssertionError(f"bad map {cnn.shape} from the trained weights")
+    if served != LAUNCHES_PER_STEP * STEPS:
+        raise AssertionError(f"serving the trained weights launched "
+                             f"flash_fwd {served} times")
+    log(f"training: a Server loaded the EMA weights it wrote (strict) and "
+        f"answered a request: finite (5, 128, 128) map, flash_fwd launches "
+        f"{served}")
+    weights.unlink()
+    return dict(steps=steps, losses=losses, step_seconds=secs,
+                ms_per_step=ms, ms_per_step_range=[float(timed.min()),
+                                                   float(timed.max())],
+                samples_per_s=TRAIN_BATCH / ms * 1e3,
+                eval_loss=eval_loss, peak_bytes=peak, lrs=lrs[:3],
+                fwd_launches=fwd, bwd_launches=bwd)
+
+
+def worst_grad_diff(got, want):
+    """(max over tensors of max|got - want| / max|want|, its name), each
+    scale floored at 1e-3 of the largest gradient of `want`."""
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    worst, key = 0.0, None
+    for k, w in want.items():
+        if not bool(got[k].isfinite().all()):
+            raise AssertionError(f"non-finite gradient {k}")
+        d = ((got[k] - w).abs().max() / max(w.abs().max().item(),
+                                            floor)).item()
+        if d >= worst:
+            worst, key = d, k
+    return worst, key
+
+
+def phase_train_reference(torch, records):
+    """One flagship train step at B=1, dropout 0 and injected t, z, from the
+    same weights: on the GPU (kernels) against the CPU (plain versions),
+    and on the GPU against itself with the attention backward through its
+    plain version: the loss and every gradient."""
+    import copy
+
+    import numpy as np
+
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.config import bench_l128_config
+    from text2protein_tpu_torch.data.dataset import (
+        ProteinProcessedDataset,
+        make_batch,
+    )
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+
+    config = bench_l128_config()
+    config.model.dropout = 0.0
+    sde, _ = get_sde(config)
+    gpu_model = init_random_weights(build_model(config, device="cuda"), 1)
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    rec = ProteinProcessedDataset(records)[3]
+    host = make_batch([rec], config.data.max_res_num)
+    ctx, ctx_mask = build_text_encoder(config).encode(host["caption"])
+    rng = np.random.default_rng(2)
+    t = torch.from_numpy(rng.uniform(0.05, 1.0, 1).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((1, 128, 128, 5))
+                         .astype(np.float32))
+    kernel_bwd = flash.flash_attention_bwd
+
+    def step(model, dev):
+        batch = batch_to_device_arrays(host, config, device=dev)
+        batch["context"] = torch.from_numpy(ctx).to(dev)
+        batch["context_mask"] = torch.from_numpy(ctx_mask).to(dev)
+        loss_fn = get_sde_loss_fn(sde, model, train=True,
+                                  condition=tuple(config.model.condition))
+        model.zero_grad(set_to_none=True)
+        before = kernel_bwd.launches
+        loss = loss_fn(None, batch, t=t.to(dev), z=z.to(dev))
+        loss.backward()
+        launched = kernel_bwd.launches - before
+        return loss.item(), {k: p.grad.detach().cpu() for k, p in
+                             model.named_parameters()}, launched
+
+    g_loss, g_grads, g_launch = step(gpu_model, "cuda")
+    flash.flash_attention_bwd = flash.flash_attention_bwd_reference
+    try:
+        _, p_grads, _ = step(gpu_model, "cuda")
+    finally:
+        flash.flash_attention_bwd = kernel_bwd
+    c_loss, c_grads, c_launch = step(cpu_model, "cpu")
+    if g_launch != BWD_PER_TRAIN_STEP or c_launch != 0:
+        raise AssertionError(f"backward launches GPU {g_launch}, CPU "
+                             f"{c_launch}; expected {BWD_PER_TRAIN_STEP}, 0")
+    loss_diff = abs(g_loss - c_loss) / abs(c_loss)
+    worst, worst_key = worst_grad_diff(g_grads, c_grads)
+    plain_worst, plain_key = worst_grad_diff(p_grads, c_grads)
+    kernel_worst, kernel_key = worst_grad_diff(g_grads, p_grads)
+    log(f"train reference: flagship train step at B=1, GPU (kernels) vs "
+        f"CPU: loss {g_loss:.6f} vs {c_loss:.6f} (rel {loss_diff:.2e}, tol "
+        f"{TRAIN_LOSS_TOL:.0e}); worst of {len(c_grads)} gradients "
+        f"{worst_key} {worst:.2e} (tol {TRAIN_GRAD_TOL:.0e}; with the "
+        f"attention backward on its plain version {plain_worst:.2e} at "
+        f"{plain_key}); GPU kernels vs GPU plain attention backward: worst "
+        f"{kernel_key} {kernel_worst:.2e} (tol {TRAIN_KERNEL_TOL:.0e}); GPU "
+        f"backward launches {g_launch}")
+    if not (loss_diff < TRAIN_LOSS_TOL and worst < TRAIN_GRAD_TOL
+            and kernel_worst < TRAIN_KERNEL_TOL):
+        raise AssertionError("the GPU train step disagrees (line above)")
+    return dict(loss_gpu=g_loss, loss_cpu=c_loss, loss_rel_diff=loss_diff,
+                worst_grad=worst_key, worst_grad_rel_diff=worst,
+                plain_bwd_worst_grad_rel_diff=plain_worst,
+                kernel_vs_plain_bwd_worst=kernel_worst,
+                kernel_vs_plain_bwd_worst_grad=kernel_key)
+
+
 def main():
     import torch
+
+    from text2protein_tpu_torch.data import helix_records
 
     kind, smi = phase_device(torch)
     sources = phase_build()
     rows = phase_kernels(torch)
+    bwd_rows = phase_kernels_bwd(torch)
     server, launches, seconds = phase_serving(torch)
     e2e = phase_reference(torch, server)
+    del server
+    records = OUT / "train_records"
+    helix_records.write_records(records, N_RECORDS)
+    weights = ROOT / "build" / "t2p_torch" / "chip_smoke_ema.pt"
+    weights.parent.mkdir(parents=True, exist_ok=True)
+    training = phase_training(torch, records, weights)
+    train_ref = phase_train_reference(torch, records)
 
-    def per_step(key):
-        return sum(r[key] * r["per_step"] for r in rows)
+    def per_step(rs, key):
+        return sum(r[key] * r["per_step"] for r in rs)
 
-    bytes_ms = sum(r["bytes"] / PEAK_BYTES_S * 1e3 * r["per_step"]
-                   for r in rows)
-    ops_ms = sum(r["flops"] / PEAK_F32_S * 1e3 * r["per_step"] for r in rows)
+    def bound_by(rs):
+        bytes_ms = sum(r["bytes"] / PEAK_BYTES_S * r["per_step"] for r in rs)
+        ops_ms = sum(r["flops"] / PEAK_F32_S * r["per_step"] for r in rs)
+        return "bytes" if bytes_ms >= ops_ms else "operations"
+
+    kernel_rows = [r for r in bwd_rows if r["route"] == "kernel"]
     kernels = [{
         "name": "flash_fwd_f32",
         "route": "cuda",
-        "source": "text2protein_tpu_torch/ops/csrc/" + sources[0],
+        "source": "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "text2protein_tpu/ops/flash.py:50",
-        "launches": launches,
+        # launches on the main paths: serving, then training (+ its eval)
+        "launches": launches + training["fwd_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # times: the kernel's share of one PC step at batch BATCH, the sum
-        # over the path's shapes of (launches per step x time per launch)
-        "ms": per_step("ms"),
-        "plain_ms": per_step("plain_ms"),
-        "bound_ms": per_step("bound_ms"),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": per_step("library_ms"),
+        # over the serving path's shapes of (launches per step x time)
+        "ms": per_step(rows, "ms"),
+        "plain_ms": per_step(rows, "plain_ms"),
+        "bound_ms": per_step(rows, "bound_ms"),
+        "bound_by": bound_by(rows),
+        "library_ms": per_step(rows, "library_ms"),
+    }, {
+        "name": "flash_bwd_f32",
+        "route": "cuda",
+        "source": "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
+        "replaces": "text2protein_tpu/ops/flash.py:168",
+        "launches": training["bwd_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
+        # times: the kernel's share of one train step at batch 16, summed
+        # over the kernel-route shapes (launches per step x time)
+        "ms": per_step(kernel_rows, "ms"),
+        "plain_ms": per_step(kernel_rows, "plain_ms"),
+        "bound_ms": per_step(kernel_rows, "bound_ms"),
+        "bound_by": bound_by(kernel_rows),
+        "library_ms": per_step(kernel_rows, "library_ms"),
     }]
-    out = Path(__file__).resolve().parent / "chiprun_out"
-    out.mkdir(exist_ok=True)
-    (out / "chip_smoke.json").write_text(json.dumps({
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "steps": STEPS, "batch": BATCH,
-        "shapes": rows, "kernels": kernels, "batch_seconds": seconds,
-        "e2e_rel_diff": e2e,
+        "shapes": rows, "bwd_shapes": bwd_rows, "kernels": kernels,
+        "batch_seconds": seconds, "e2e_rel_diff": e2e,
+        "training": training, "train_reference": train_ref,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

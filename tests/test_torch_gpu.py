@@ -105,9 +105,89 @@ def test_flash_wrapper_checks_its_inputs(cuda):
         tflash.flash_attention_fwd(t, t, t)
     with pytest.raises(ValueError):
         tflash.flash_attention_fwd(q, q.cpu(), q)
+    # a call that needs a gradient goes through the autograd Function, and
+    # the backward wrapper checks its inputs as the forward's does
     w = torch.zeros((1, 1, 16, 32), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tattn.dot_product_attention(w, w, w)
+    assert tattn.dot_product_attention(w, w, w).grad_fn is not None
+    x = torch.zeros((1, 1, 64, 32), device=cuda)
+    lse = torch.zeros((1, 64, 1), device=cuda)
+    with pytest.raises(ValueError, match="backward"):  # Tk % 64 != 0
+        tflash.flash_attention_bwd(x, x[:, :, :16], x[:, :, :16], x, lse, x)
+    with pytest.raises(TypeError):
+        tflash.flash_attention_bwd(x, x, x, x, lse.double(), x)
+    with pytest.raises(ValueError, match="lse"):
+        tflash.flash_attention_bwd(x, x, x, x, lse[:, :8], x)
+
+
+# (H, Tq, Tk, D, masked) that `supports_bwd` takes: the L=128 training
+# path's kernel route, the N=256 widths, ragged tiles and the extremes of D
+BWD_SHAPES = [
+    (1, 256, 256, 256, False),
+    (8, 256, 256, 32, False),
+    (8, 256, 64, 32, True),
+    (8, 16, 64, 32, True),
+    (4, 64, 64, 64, True),
+    (1, 256, 256, 512, False),
+    (1, 24, 128, 8, True),
+    (1, 64, 64, 1024, False),
+    (2, 40, 128, 136, True),
+]
+
+
+def _bwd_case(cuda, b, h, tq, tk, d, masked, dead_row=False):
+    q, k, v, mask = _inputs(cuda, b, h, tq, tk, d, masked or dead_row)
+    if dead_row:
+        mask[-1] = False
+    out, lse = tflash.flash_attention_fwd_reference(q, k, v, kv_mask=mask)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    g = torch.randn(out.shape, device=cuda, generator=gen)
+    return q, k, v, out, lse, g, mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,tq,tk,d,masked", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain_version(cuda, h, tq, tk, d, masked):
+    """f32 on both sides, sums over up to 256 terms in another order:
+    atol/rtol 1e-4, on gradients of magnitude up to ~100."""
+    args = _bwd_case(cuda, 4, h, tq, tk, d, masked)
+    before = tflash.flash_attention_bwd.launches
+    got = tflash.flash_attention_bwd(*args[:6], kv_mask=args[6])
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd.launches == before + 1
+    want = tflash.flash_attention_bwd_reference(*args[:6], kv_mask=args[6])
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_fully_masked_row(cuda):
+    """The dead row keeps the JAX kernel's numbers (P = 1 on every key)."""
+    args = _bwd_case(cuda, 3, 8, 256, 64, 32, True, dead_row=True)
+    got = tflash.flash_attention_bwd(*args[:6], kv_mask=args[6])
+    want = tflash.flash_attention_bwd_reference(*args[:6], kv_mask=args[6])
+    assert got[0][-1].abs().max() > 0.1
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,tq,tk,d,masked", [BWD_SHAPES[2],
+                                             (8, 16, 16, 32, False)])
+def test_attention_grad_on_gpu_matches_cpu(cuda, h, tq, tk, d, masked):
+    """Autograd through `dot_product_attention` on the card (kernel route,
+    and the Tk = 16 fallback) against the CPU (plain versions):
+    atol/rtol 1e-4."""
+    q, k, v, mask = _inputs(cuda, 2, h, tq, tk, d, masked)
+    g = torch.randn_like(q)
+    grads = []
+    for dev in (cuda, "cpu"):
+        xs = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        m = None if mask is None else mask.to(dev)
+        out = tattn.dot_product_attention(*xs, kv_mask=m)
+        grads.append(torch.autograd.grad(out, xs, g.to(dev)))
+    for x, w in zip(*grads):
+        torch.testing.assert_close(x.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
 def _tiny_models(cuda):
@@ -166,3 +246,49 @@ def test_pc_trajectory_on_gpu_matches_cpu(cuda):
         outs.append(out.cpu().numpy())
     assert np.isfinite(outs[1]).all()
     assert rel_max_diff(outs[1], outs[0]) < 1e-3
+
+
+@pytest.mark.gpu
+def test_train_step_gradients_on_gpu_match_cpu(cuda):
+    """One tiny train step (dropout 0, injected t and z, a 64-token caption
+    so every attention backward takes the kernel) on the GPU and the CPU:
+    loss within rtol 1e-5, each gradient within 1e-3 of its own max abs
+    (floored at 1e-3 of the largest; key-bias gradients are 0 in exact
+    arithmetic)."""
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+
+    cpu, gpu = _tiny_models(cuda)
+    cfg = load_config(tiny_config_dict())
+    sde, _ = tsde.get_sde(cfg)
+    rng = np.random.default_rng(3)
+    lengths = torch.tensor([11, N])
+    row = torch.arange(N)[None, :] < lengths[:, None]
+    mask_pair = row[:, :, None] & row[:, None, :]
+    coords = torch.from_numpy(rng.uniform(-1, 1, (2, N, N, C))
+                              .astype(np.float32)) * mask_pair[..., None]
+    ctx_mask = torch.ones((2, 64), dtype=torch.bool)
+    ctx_mask[0, 20:] = False
+    batch = {"coords_6d": coords, "mask_pair": mask_pair,
+             "context": torch.from_numpy(rng.standard_normal(
+                 (2, 64, CONTEXT_DIM)).astype(np.float32)),
+             "context_mask": ctx_mask}
+    t = torch.tensor([0.3, 0.8])
+    z = torch.from_numpy(rng.standard_normal((2, N, N, C))
+                         .astype(np.float32))
+    out = []
+    for model, dev in ((gpu, cuda), (cpu, "cpu")):
+        loss_fn = get_sde_loss_fn(sde, model, train=True,
+                                  condition=("length",))
+        before = tflash.flash_attention_bwd.launches
+        loss = loss_fn(None, {k: v.to(dev) for k, v in batch.items()},
+                       t=t.to(dev), z=z.to(dev))
+        loss.backward()
+        out.append((loss.item(), tflash.flash_attention_bwd.launches - before,
+                    {k: p.grad.cpu() for k, p in model.named_parameters()}))
+    (gl, glaunch, gg), (cl, claunch, cg) = out
+    assert glaunch == 18 and claunch == 0
+    assert abs(gl - cl) <= 1e-5 * abs(cl)
+    floor = 1e-3 * max(g.abs().max().item() for g in cg.values())
+    for k, want in cg.items():
+        diff = (gg[k] - want).abs().max().item()
+        assert diff <= 1e-3 * max(want.abs().max().item(), floor), k

@@ -25,6 +25,25 @@ REPO = Path(__file__).resolve().parents[2]
 _PROFILER_ROWS = {"Buffer Flush", "Activity Buffer Request"}
 
 
+def device_kernels(prof):
+    """Device time and calls by kernel name, largest first. Device kernels
+    only: the operators' rows repeat their kernels' time, and neither the
+    profiler's own bookkeeping rows nor the ranges that annotate the device
+    track (e.g. `Optimizer.step#Adam.step`) are work of the device."""
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.events():
+        if (e.device_type != DeviceType.CUDA or e.name in _PROFILER_ROWS
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        row = kernels.setdefault(e.name, {"name": e.name, "calls": 0,
+                                          "device_ms": 0.0})
+        row["calls"] += 1
+        row["device_ms"] += e.device_time / 1e3
+    return sorted(kernels.values(), key=lambda r: -r["device_ms"])
+
+
 def conv_ms(torch, b, c, hw, iters=20):
     conv = torch.nn.Conv2d(c, c, 3, padding=1).cuda().requires_grad_(False)
     x = torch.randn(b, c, hw, hw, device="cuda")
@@ -49,7 +68,6 @@ def main():
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..config import flagship_config
@@ -79,10 +97,8 @@ def main():
             print(f"conv3x3 B=4 C=128 128x128 {key}: {ms:.3f} ms, "
                   f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
 
-    # the serving step as the port runs it: full f32 (the Server turns
-    # cudnn.benchmark on)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # the serving step as the port runs it (the Server sets the port's
+    # precision policy: full f32, cudnn.benchmark on)
     server = Server(flagship_config(), batch_size=4, num_steps=args.steps,
                     device="cuda", weight_seed=0)
     reqs = [{"caption": "A small alpha-helical bundle.", "length": 64}]
@@ -92,17 +108,7 @@ def main():
         t0 = time.perf_counter()
         server.run_batch(reqs)
         wall = time.perf_counter() - t0
-    # device kernels only: the operators' rows repeat their kernels' time,
-    # and the profiler's own bookkeeping rows are not work of the device
-    kernels = {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in _PROFILER_ROWS:
-            continue
-        row = kernels.setdefault(e.name, {"name": e.name, "calls": 0,
-                                          "device_ms": 0.0})
-        row["calls"] += 1
-        row["device_ms"] += e.device_time / 1e3
-    rows = sorted(kernels.values(), key=lambda r: -r["device_ms"])
+    rows = device_kernels(prof)
     busy = sum(r["device_ms"] for r in rows) / 1e3
     events = prof.key_averages()
     result.update({

@@ -31,7 +31,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, use_full_f32
 from ..conditioning import length_mask
 from ..config import flagship_config, load_config
 from ..diffusion.sampling import get_sampling_fn
@@ -47,12 +47,8 @@ class Server:
                  weight_seed=0, device=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            # Every call has the same shapes, so cuDNN's per-shape search
-            # pays once. Without it, cuDNN's heuristic takes an FFT
-            # algorithm for some f32 convolutions of this UNet that launches
-            # ~200k small kernels per PC step (70x slower on an H100).
-            # This is a process-wide setting.
-            torch.backends.cudnn.benchmark = True
+            # every call has the same shapes, so cuDNN's search pays once
+            use_full_f32()
         self.n = config.data.max_res_num
         self.c = config.data.num_channels
         self.b = batch_size

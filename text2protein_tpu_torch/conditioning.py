@@ -1,7 +1,9 @@
-"""Length masks (counterpart of text2protein_tpu/conditioning.py:92-96,162-171)."""
+"""Length masks and training batches (counterpart of
+text2protein_tpu/conditioning.py:92-96,162-171,173-240)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -18,3 +20,28 @@ def get_mask_all_lengths(config, batch_size=16, device="cpu"):
     lengths = torch.arange(config.data.min_res_num, n + 1, device=device)
     masks = length_mask(lengths, n)  # (L_all, N, N)
     return masks[:, None].expand(len(lengths), batch_size, n, n).clone()
+
+
+def batch_to_device_arrays(batch, config, device="cpu"):
+    """Host batch (from data.make_batch) -> the tensors the loss takes, on
+    `device`: coords_6d transposed to NHWC, mask_pair, ss_spans, length.
+
+    The JAX package's `inpainting` condition (random training masks) and
+    `data.featurize_on_device` (featurizing on the device from backbones)
+    are not ported yet and raise."""
+    if config.data.get("featurize_on_device", False):
+        raise NotImplementedError(
+            "data.featurize_on_device is not ported yet; featurize on the "
+            "host (the default)")
+    if "inpainting" in config.model.condition:
+        raise NotImplementedError(
+            "training with the inpainting condition is not ported yet")
+    coords = np.ascontiguousarray(
+        np.asarray(batch["coords_6d"]).transpose(0, 2, 3, 1))  # -> NHWC
+    arrays = {
+        "coords_6d": coords,
+        "mask_pair": np.asarray(batch["mask_pair"], dtype=bool),
+        "ss_spans": np.asarray(batch["ss_spans"], dtype=np.int32),
+        "length": np.asarray(batch["length"], dtype=np.int32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}

@@ -1,8 +1,8 @@
 """Config: attribute-access dict with the JAX package's schema and defaults.
 
 Counterpart of text2protein_tpu/config.py. The GPU machine has no PyYAML, so
-the flagship config is built in Python (`flagship_config`) and `yaml` is
-imported only when a YAML file is loaded.
+the flagship configs are built in Python (`flagship_config`,
+`bench_l128_config`) and `yaml` is imported only when a YAML file is loaded.
 """
 
 from __future__ import annotations
@@ -55,7 +55,13 @@ class ConfigDict(dict):
 # The keys the port reads, with the JAX package's defaults
 # (text2protein_tpu/config.py `_DEFAULTS`).
 _DEFAULTS = {
-    "training": {"sde": "vesde", "batch_size": 8},
+    "training": {
+        "sde": "vesde",
+        "n_iters": 1_000_000,
+        "batch_size": 8,
+        "log_freq": 50,
+        "epochs": 1000,
+    },
     "sampling": {
         "n_steps_each": 1,
         "noise_removal": True,
@@ -65,7 +71,12 @@ _DEFAULTS = {
         "predictor": "reverse_diffusion",
         "corrector": "langevin",
     },
-    "data": {"min_res_num": 40, "max_res_num": 128, "num_channels": 5},
+    "data": {
+        "processed_dataset_path": "",
+        "min_res_num": 40,
+        "max_res_num": 128,
+        "num_channels": 5,
+    },
     "model": {
         "condition": [],
         "sigma_max": 100.0,
@@ -76,6 +87,7 @@ _DEFAULTS = {
         "dropout": 0.1,
         "name": "ncsnpp",
         "scale_by_sigma": True,
+        "ema_rate": 0.999,
         "nonlinearity": "swish",
         "nf": 128,
         "ch_mult": [1, 1, 2, 2, 2, 2],
@@ -85,6 +97,15 @@ _DEFAULTS = {
         "resblock_type": "biggan",
         "n_heads": 8,
         "context_dim": 4096,
+    },
+    "optim": {
+        "weight_decay": 0,
+        "optimizer": "Adam",
+        "lr": 1e-4,
+        "beta1": 0.9,
+        "eps": 1e-8,
+        "warmup": 5000,
+        "grad_clip": 1.0,
     },
     "text": {
         "encoder": "hash",
@@ -154,3 +175,14 @@ def flagship_config() -> ConfigDict:
         },
         "text": {"encoder": "hash", "pad_to_bucket": 64},
     })
+
+
+def bench_l128_config() -> ConfigDict:
+    """configs/bench_l128.yml as the port reads it: the flagship widths with
+    its training settings (batch 16, dropout 0.1, and the defaults' Adam lr
+    1e-4 with 5000 warmup steps and clip 1.0, EMA 0.999), computed in
+    float32 (the yml's `norm_dtype: bfloat16` is not ported yet)."""
+    cfg = flagship_config()
+    cfg.training.batch_size = 16
+    cfg.data.processed_dataset_path = "./data/processed"
+    return cfg

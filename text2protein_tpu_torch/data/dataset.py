@@ -1,0 +1,138 @@
+"""Processed records -> padded numpy batches (counterpart of
+text2protein_tpu/data/dataset.py: `save_record`, `load_record`,
+`ProteinProcessedDataset`, `PaddingCollate`, `make_batch`).
+
+Record schema, one .npz per protein:
+  {id, coords (L,3,3), coords_6d (C,L,L), aa (L,), aa_str, mask_pair (L,L),
+   ss_indices, caption}
+Building records from a PDB tree (`ProteinDataset`) waits for the PDB
+reader.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
+
+from .ss import parse_ss_spans
+from .vocab import AA_PAD_CHAR, AA_PAD_ID
+
+MAX_SS_BLOCKS = 32  # fixed-shape bound for SS block dropout
+
+
+def save_record(record: dict, path) -> None:
+    np.savez_compressed(
+        path,
+        id=np.asarray(record["id"]),
+        coords=record["coords"].astype(np.float32),
+        coords_6d=record["coords_6d"].astype(np.float32),
+        aa=np.asarray(record["aa"], dtype=np.int64),
+        aa_str=np.asarray(record["aa_str"]),
+        mask_pair=record["mask_pair"].astype(bool),
+        ss_indices=np.asarray(record["ss_indices"]),
+        caption=np.asarray(record["caption"]),
+    )
+
+
+def load_record(path) -> dict:
+    with np.load(str(path), allow_pickle=False) as z:
+        return {
+            "id": str(z["id"]),
+            "coords": z["coords"],
+            "coords_6d": z["coords_6d"],
+            "aa": z["aa"],
+            "aa_str": str(z["aa_str"]),
+            "mask_pair": z["mask_pair"],
+            "ss_indices": str(z["ss_indices"]),
+            "caption": str(z["caption"]),
+        }
+
+
+class ProteinProcessedDataset:
+    """Loads saved .npz records from a directory, in sorted name order."""
+
+    def __init__(self, root_path):
+        self.root_path = Path(root_path)
+        self.data_paths = sorted(
+            p for p in os.listdir(root_path) if p.endswith(".npz"))
+
+    def __len__(self):
+        return len(self.data_paths)
+
+    def __getitem__(self, idx):
+        return load_record(self.root_path / self.data_paths[idx])
+
+
+class PaddingCollate:
+    """Pad records to `max_len`. Square (..., N, N) maps are padded on both
+    trailing dims; `aa` pads with 21, `aa_str` with '_', others with 0.
+    Captions are left as they are."""
+
+    def __init__(self, max_len=None):
+        self.max_len = max_len
+
+    @staticmethod
+    def _pad_last(x, n, value=0):
+        if isinstance(x, np.ndarray) and x.ndim > 0 and x.dtype.kind != "U":
+            if x.ndim >= 2 and x.shape[-1] != 3 and x.shape[-1] == x.shape[-2]:
+                pad = [(0, 0)] * (x.ndim - 2) + [
+                    (0, n - x.shape[-2]),
+                    (0, n - x.shape[-1]),
+                ]
+                return np.pad(x, pad, constant_values=value)
+            if x.shape[0] > n:
+                raise ValueError(f"record of length {x.shape[0]} > {n}")
+            pad = [(0, n - x.shape[0])] + [(0, 0)] * (x.ndim - 1)
+            return np.pad(x, pad, constant_values=value)
+        if isinstance(x, str):
+            return x + value * (n - len(x))
+        return x
+
+    @staticmethod
+    def _get_value(k):
+        if k == "aa_str":
+            return AA_PAD_CHAR
+        if k == "aa":
+            return AA_PAD_ID
+        if k in ("id", "ss_indices"):
+            return ""
+        return 0
+
+    def __call__(self, records: list[dict]) -> list[dict]:
+        n = self.max_len or max(len(r["aa"]) for r in records)
+        out = []
+        for r in records:
+            padded = {}
+            for k, v in r.items():
+                if k != "caption":
+                    v = self._pad_last(v, n, value=self._get_value(k))
+                padded[k] = v
+            out.append(padded)
+        return out
+
+
+def make_batch(records: list[dict], max_len: int) -> dict:
+    """Collate records into a dict of stacked numpy arrays, with the real
+    residue count per sample (`length`, (B,) int32) and the parsed SS spans
+    (`ss_spans`, (B, MAX_SS_BLOCKS, 2) int32, -1-padded)."""
+    padded = PaddingCollate(max_len)(records)
+    return {
+        "id": [r["id"] for r in padded],
+        "coords": np.stack([r["coords"] for r in padded]).astype(np.float32),
+        "coords_6d": np.stack([r["coords_6d"] for r in padded]
+                              ).astype(np.float32),
+        "mask_pair": np.stack([r["mask_pair"] for r in padded]).astype(bool),
+        "aa": np.stack([r["aa"] for r in padded]).astype(np.int32),
+        "aa_str": [r["aa_str"] for r in padded],
+        "caption": [r["caption"] for r in padded],
+        "ss_indices": [r["ss_indices"] for r in padded],
+        "length": np.asarray(
+            [sum(1 for a in r["aa_str"] if a != AA_PAD_CHAR) for r in padded],
+            dtype=np.int32,
+        ),
+        "ss_spans": np.stack(
+            [parse_ss_spans(r["ss_indices"], MAX_SS_BLOCKS) for r in padded]
+        ),
+    }

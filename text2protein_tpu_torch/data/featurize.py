@@ -1,0 +1,109 @@
+"""trRosetta-style 6D inter-residue geometry (counterpart of the numpy half
+of text2protein_tpu/data/featurize.py).
+
+For a protein of length L, per residue pair:
+  dist  : Cb-Cb distance, clamped at dmax (20 A), normalized to [-1, 1]
+  omega : Ca-Cb-Cb-Ca dihedral / pi
+  theta : N-Ca-Cb-Cb dihedral / pi
+  phi   : Ca-Cb-Cb planar angle, normalized to [-1, 1]
+Pairs farther than dmax (and the diagonal) keep dist = dmax and angles 0
+before normalization; NaNs are zeroed afterwards.
+
+Only the host (numpy) featurizer and the C=5 channel layout are here; the
+on-device batched featurizer and the C=8 SS channels wait for a later
+change.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+# Virtual-Cb reconstruction constants (ideal geometry, from trRosetta)
+CB_A = -0.58273431
+CB_B = 0.56802827
+CB_C = -0.54067466
+
+DMAX_DEFAULT = 20.0
+
+
+def _dihedral_pairs(a, b, c, d):
+    """Dihedral angle for broadcastable point arrays (..., 3) -> (...,)."""
+    b0 = -1.0 * (b - a)
+    b1 = c - b
+    b2 = d - c
+    b1 = b1 / np.linalg.norm(b1, axis=-1, keepdims=True)
+    v = b0 - np.sum(b0 * b1, axis=-1, keepdims=True) * b1
+    w = b2 - np.sum(b2 * b1, axis=-1, keepdims=True) * b1
+    x = np.sum(v * w, axis=-1)
+    y = np.sum(np.cross(b1, v) * w, axis=-1)
+    return np.arctan2(y, x)
+
+
+def _planar_angle(a, b, c):
+    """Planar angle at b for broadcastable point arrays (..., 3) -> (...,)."""
+    v = a - b
+    v = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    w = c - b
+    w = w / np.linalg.norm(w, axis=-1, keepdims=True)
+    return np.arccos(np.sum(v * w, axis=-1))
+
+
+def virtual_cb(xyz):
+    """Rebuild virtual Cb from N/CA/C backbone coords (..., 3 atoms, 3)."""
+    n, ca, c = xyz[..., 0, :], xyz[..., 1, :], xyz[..., 2, :]
+    b = ca - n
+    cc = c - ca
+    a = np.cross(b, cc)
+    return CB_A * a + CB_B * b + CB_C * cc + ca
+
+
+def get_coords6d(xyz, dmax=DMAX_DEFAULT, normalize=True):
+    """xyz: (L, 3, 3) N/CA/C coords -> (L, L, 4) [dist, omega, theta, phi]."""
+    xyz = np.asarray(xyz, dtype=np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        n, ca = xyz[:, 0], xyz[:, 1]
+        cb = virtual_cb(xyz)
+        L = xyz.shape[0]
+        d = np.linalg.norm(cb[None, :, :] - cb[:, None, :], axis=-1)
+        # a closed ball (d <= dmax), the diagonal excluded
+        contact = (d <= dmax) & (~np.eye(L, dtype=bool))
+        ca_i, ca_j = ca[:, None, :], ca[None, :, :]
+        cb_i, cb_j = cb[:, None, :], cb[None, :, :]
+        n_i = n[:, None, :]
+        omega = _dihedral_pairs(ca_i, cb_i, cb_j, ca_j)
+        theta = _dihedral_pairs(n_i, ca_i, cb_i, cb_j)
+        phi = _planar_angle(ca_i, cb_i, cb_j)
+        zeros = np.zeros_like(d)
+        dist6d = np.where(contact, d, dmax)
+        omega6d = np.where(contact, omega, zeros)
+        theta6d = np.where(contact, theta, zeros)
+        phi6d = np.where(contact, phi, zeros)
+        if normalize:
+            dist6d = (dist6d / dmax * 2) - 1
+            omega6d = omega6d / math.pi
+            theta6d = theta6d / math.pi
+            phi6d = (phi6d / math.pi * 2) - 1
+        return np.stack([dist6d, omega6d, theta6d, phi6d], axis=-1)
+
+
+def featurize_structure(bb_coords, mask, ss_constraints: bool,
+                        dmax: float = DMAX_DEFAULT, ca_coords=None):
+    """6D maps + padding channel, masked, channel-first: the C=5 layout
+    [dist, omega, theta, phi, padding-mask].
+
+    Returns (coords_6d (5, L, L) float32, mask_pair (L, L) bool,
+    ss_indices "")."""
+    if ss_constraints:
+        raise NotImplementedError(
+            "the C=8 layout (SS block channels) is not ported yet")
+    nres = bb_coords.shape[0]
+    coords_6d = np.nan_to_num(get_coords6d(bb_coords, dmax=dmax,
+                                           normalize=True))
+    coords_6d = np.concatenate([coords_6d, np.ones((nres, nres, 1))],
+                               axis=-1)
+    mask = np.asarray(mask)
+    mask_pair = (mask.reshape(1, -1) * mask.reshape(-1, 1)).astype(bool)
+    coords_6d = coords_6d * mask_pair.reshape(nres, nres, 1)
+    return coords_6d.transpose(2, 0, 1).astype(np.float32), mask_pair, ""

@@ -1,0 +1,67 @@
+"""Shuffled epoch batching with one background prefetch thread
+(counterpart of text2protein_tpu/data/loader.py)."""
+
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+from .dataset import make_batch
+
+
+class PrefetchLoader:
+    """Iterate batches of records; one thread reads and collates ahead.
+
+    Args:
+      dataset: indexable record source (ProteinProcessedDataset).
+      indices: index array of this split.
+      batch_size, max_len: batch geometry.
+      seed: the shuffle's seed (an explicit numpy RandomState).
+    """
+
+    def __init__(self, dataset, indices, batch_size, max_len, seed=0,
+                 prefetch=2, shuffle=True, drop_last=True):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+        self.batch_size = batch_size
+        self.max_len = max_len
+        self.prefetch = prefetch
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.rng = np.random.RandomState(seed)
+
+    def __len__(self):
+        n = len(self.indices)
+        return (n // self.batch_size if self.drop_last
+                else -(-n // self.batch_size))
+
+    def _produce(self, order, q):
+        try:
+            for i in range(0, len(order), self.batch_size):
+                chunk = order[i: i + self.batch_size]
+                if len(chunk) < self.batch_size and self.drop_last:
+                    break
+                recs = [self.dataset[int(j)] for j in chunk]
+                q.put(make_batch(recs, self.max_len))
+        except Exception as e:  # surface worker errors to the consumer
+            q.put(e)
+        finally:
+            q.put(None)
+
+    def __iter__(self):
+        order = (self.rng.permutation(self.indices) if self.shuffle
+                 else self.indices)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        t = threading.Thread(target=self._produce, args=(order, q),
+                             daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is None:
+                break
+            if isinstance(item, Exception):
+                raise item
+            yield item
+        t.join()

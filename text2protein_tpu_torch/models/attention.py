@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import GroupNormF32Stats
+from .layers import Dropout, GroupNormF32Stats
 
 
 class LayerNorm(nn.Module):
@@ -52,11 +52,11 @@ class FeedForward(nn.Module):
         first = (GEGLU(dim, inner) if glu
                  else nn.Sequential(nn.Linear(dim, inner),
                                     nn.GELU(approximate="tanh")))
-        self.net = nn.Sequential(first, nn.Dropout(dropout),
+        self.net = nn.Sequential(first, Dropout(dropout),
                                  nn.Linear(inner, dim))
 
-    def forward(self, x):
-        return self.net(x)
+    def forward(self, x, generator=None):
+        return self.net[2](self.net[1](self.net[0](x), generator))
 
 
 class CrossAttention(nn.Module):
@@ -72,9 +72,9 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(context_dim, inner, bias=False)
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim),
-                                    nn.Dropout(dropout))
+                                    Dropout(dropout))
 
-    def forward(self, x, context=None, context_mask=None):
+    def forward(self, x, context=None, context_mask=None, generator=None):
         b, n, _ = x.shape
         ctx = x if context is None else context
         tk = ctx.shape[1]
@@ -88,7 +88,7 @@ class CrossAttention(nn.Module):
         out = dot_product_attention(q, k, v, scale=self.dim_head**-0.5,
                                     kv_mask=context_mask)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)
-        return self.to_out(out)
+        return self.to_out[1](self.to_out[0](out), generator)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -102,11 +102,11 @@ class BasicTransformerBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
 
-    def forward(self, x, context=None, context_mask=None):
-        x = self.attn1(self.norm1(x)) + x
+    def forward(self, x, context=None, context_mask=None, generator=None):
+        x = self.attn1(self.norm1(x), generator=generator) + x
         x = self.attn2(self.norm2(x), context=context,
-                       context_mask=context_mask) + x
-        return self.ff(self.norm3(x)) + x
+                       context_mask=context_mask, generator=generator) + x
+        return self.ff(self.norm3(x), generator) + x
 
 
 class SpatialTransformer(nn.Module):
@@ -127,13 +127,13 @@ class SpatialTransformer(nn.Module):
         )
         self.proj_out = nn.Conv2d(inner, in_ch, 1)
 
-    def forward(self, x, context=None, context_mask=None):
+    def forward(self, x, context=None, context_mask=None, generator=None):
         b, c, h, w = x.shape
         x_in = x
         x = self.proj_in(self.norm(x))
         inner = x.shape[1]
         x = x.flatten(2).transpose(1, 2)  # (B, HW, inner), row-major
         for block in self.transformer_blocks:
-            x = block(x, context, context_mask)
+            x = block(x, context, context_mask, generator)
         x = x.transpose(1, 2).reshape(b, inner, h, w)
         return self.proj_out(x) + x_in

@@ -47,6 +47,31 @@ def get_timestep_embedding(timesteps, embedding_dim, max_positions=10000):
     return emb
 
 
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in train mode keep each element with probability
+    1 - p and scale it by 1 / (1 - p); in eval mode the identity. The keep
+    mask is drawn from the `generator` the caller passes, so every draw of
+    a training step comes from one explicit, seeded generator."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x, generator=None):
+        if not self.training or self.p == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("dropout in train mode needs a torch.Generator")
+        keep_prob = 1.0 - self.p
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                            device=x.device))
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
 def conv3x3(in_ch, out_ch, stride=1):
     """3x3 convolution with the JAX package's SAME padding at stride 1."""
     return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
@@ -160,7 +185,7 @@ class ResnetBlockDDPM(nn.Module):
         self.Dense_0 = (nn.Linear(temb_dim, out_ch)
                         if temb_dim is not None else None)
         self.GroupNorm_1 = group_norm(out_ch)
-        self.Dropout_0 = nn.Dropout(dropout)
+        self.Dropout_0 = Dropout(dropout)
         self.Conv_1 = conv3x3(out_ch, out_ch)
         self.Conv_2 = self.NIN_0 = None
         if in_ch != out_ch:
@@ -169,13 +194,13 @@ class ResnetBlockDDPM(nn.Module):
             else:
                 self.NIN_0 = nin(in_ch, out_ch)
 
-    def forward(self, x, temb=None):
+    def forward(self, x, temb=None, generator=None):
         h = self.act(self.GroupNorm_0(x))
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
         h = self.act(self.GroupNorm_1(h))
-        h = self.Conv_1(self.Dropout_0(h))
+        h = self.Conv_1(self.Dropout_0(h, generator))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         elif self.NIN_0 is not None:
@@ -199,12 +224,12 @@ class ResnetBlockBigGAN(nn.Module):
         self.Dense_0 = (nn.Linear(temb_dim, out_ch)
                         if temb_dim is not None else None)
         self.GroupNorm_1 = group_norm(out_ch)
-        self.Dropout_0 = nn.Dropout(dropout)
+        self.Dropout_0 = Dropout(dropout)
         self.Conv_1 = conv3x3(out_ch, out_ch)
         self.Conv_2 = (conv1x1(in_ch, out_ch)
                        if in_ch != out_ch or up or down else None)
 
-    def forward(self, x, temb=None):
+    def forward(self, x, temb=None, generator=None):
         h = self.act(self.GroupNorm_0(x))
         if self.up:
             h = naive_upsample_2d(h)
@@ -216,7 +241,7 @@ class ResnetBlockBigGAN(nn.Module):
         if temb is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
         h = self.act(self.GroupNorm_1(h))
-        h = self.Conv_1(self.Dropout_0(h))
+        h = self.Conv_1(self.Dropout_0(h, generator))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         out = x + h

@@ -1,4 +1,4 @@
-"""Score UNet (counterpart of text2protein_tpu/models/unet.py), eval path.
+"""Score UNet (counterpart of text2protein_tpu/models/unet.py).
 
 Same topology block for block: sinusoidal time embedding -> two Linears with
 no act between; stem conv; down path of BigGAN resblocks with AttnBlock +
@@ -118,17 +118,21 @@ class ScoreUNet(nn.Module):
             persistent=False,
         )
 
-    def _run(self, blocks, h, temb, context, context_mask):
+    def _run(self, blocks, h, temb, context, context_mask, generator):
         for m in blocks:
             if isinstance(m, SpatialTransformer):
-                h = m(h, context, context_mask)
+                h = m(h, context, context_mask, generator)
             elif isinstance(m, layers.AttnBlock):
                 h = m(h)
             else:
-                h = m(h, temb)
+                h = m(h, temb, generator)
         return h
 
-    def forward(self, x, time_cond, context=None, context_mask=None):
+    def forward(self, x, time_cond, context=None, context_mask=None,
+                generator=None):
+        """x (B, N, N, C), time_cond (B,) labels; `generator` feeds every
+        dropout mask in train mode (`model.train()`) and is unused in eval
+        mode."""
         if x.shape[-1] != self.num_channels:
             raise ValueError(f"expected NHWC input with "
                              f"C={self.num_channels}, got {tuple(x.shape)}")
@@ -138,12 +142,13 @@ class ScoreUNet(nn.Module):
         h = self.pre_conv(x.to(torch.float32).permute(0, 3, 1, 2))
         hs = [h]
         for blk in self.input_blocks:
-            h = self._run(blk, h, temb, context, context_mask)
+            h = self._run(blk, h, temb, context, context_mask, generator)
             hs.append(h)
-        h = self._run(self.mid_blocks, h, temb, context, context_mask)
+        h = self._run(self.mid_blocks, h, temb, context, context_mask,
+                      generator)
         for blk in self.out_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
-            h = self._run(blk, h, temb, context, context_mask)
+            h = self._run(blk, h, temb, context, context_mask, generator)
         assert not hs
 
         h = self.out[2](self.out[1](self.out[0](h)))

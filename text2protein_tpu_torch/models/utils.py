@@ -8,25 +8,36 @@
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call
 
 from ..diffusion import sde as sde_lib
 from ..diffusion.sde import bcast
 
 
-def get_model_fn(model, train=False):
+def get_model_fn(model, params=None, train=False, generator=None):
     """Put the module in train or eval mode and return it as a callable
-    model_fn(x, labels, context, context_mask)."""
+    model_fn(x, labels, context, context_mask).
+
+    `params` (a {name: tensor} dict, e.g. the EMA params) replaces the
+    module's own parameters for the call, as the JAX package's `apply` takes
+    a params tree; None uses the module's own. In train mode every dropout
+    mask is drawn from `generator`."""
     model.train(train)
+    extra = {"generator": generator} if train else {}
 
     def model_fn(x, labels, context=None, context_mask=None):
-        return model(x, labels, context=context, context_mask=context_mask)
+        kwargs = dict(context=context, context_mask=context_mask, **extra)
+        if params is None:
+            return model(x, labels, **kwargs)
+        return functional_call(model, params, (x, labels), kwargs)
 
     return model_fn
 
 
-def get_score_fn(sde, model, train=False, continuous=False):
+def get_score_fn(sde, model, params=None, train=False, continuous=False,
+                 generator=None):
     """Wrap the model into a time-dependent score function score(x, t, ctx)."""
-    model_fn = get_model_fn(model, train=train)
+    model_fn = get_model_fn(model, params, train=train, generator=generator)
 
     if isinstance(sde, (sde_lib.VPSDE, sde_lib.subVPSDE)):
 

@@ -1,12 +1,16 @@
 """Multi-head attention dispatch (counterpart of text2protein_tpu/ops/attention.py).
 
-Shapes inside `flash.supports` go to the flash forward: the CUDA kernel for a
-tensor on the GPU, its plain version for a tensor on the CPU. Other shapes
-take the einsum path (`_xla_attention`), as they do in the JAX package. No
-shape of the L=128 serving path falls outside `supports`.
+Shapes inside `flash.supports` go to the flash kernels: the CUDA kernels for
+tensors on the GPU, their plain versions for tensors on the CPU. Other
+shapes take the einsum path (`_xla_attention`), as they do in the JAX
+package.
 
-The backward kernel is not ported yet, so a GPU call that needs a gradient
-raises instead of going anywhere else.
+A call that needs a gradient goes through `_FlashAttention`, the counterpart
+of the JAX package's custom VJP (`_flash_op`): its backward is the flash
+backward kernel where `flash.supports_bwd` holds, and otherwise recomputes
+the einsum path and differentiates it, as the JAX package does. A call
+without a gradient (serving, under `inference_mode`) calls the forward
+alone.
 
 Layout: q (B, H, Tq, D), k/v (B, H, Tk, D); optional kv_mask (B, Tk) bool.
 """
@@ -29,6 +33,37 @@ def _xla_attention(q, k, v, scale, kv_mask=None):
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Flash forward; backward by the flash backward kernel, or by
+    recomputing the einsum path where the kernel's gate refuses the shape
+    (JAX `_flash_op_fwd` / `_flash_op_bwd`). The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, kv_mask):
+        out, lse = flash.flash_attention_fwd(q, k, v, scale=scale,
+                                             kv_mask=kv_mask)
+        ctx.scale = scale
+        ctx.masked = kv_mask is not None
+        ctx.save_for_backward(q, k, v, out, lse,
+                              *([kv_mask] if ctx.masked else []))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, *rest = ctx.saved_tensors
+        kv_mask = rest[0] if ctx.masked else None
+        g = g.contiguous()
+        if flash.supports_bwd(q, k, v):
+            dq, dk, dv = flash.flash_attention_bwd(
+                q, k, v, out, lse, g, scale=ctx.scale, kv_mask=kv_mask)
+        else:
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_() for t in (q, k, v)]
+                ref = _xla_attention(*inputs, ctx.scale, kv_mask=kv_mask)
+                dq, dk, dv = torch.autograd.grad(ref, inputs, g)
+        return dq, dk, dv, None, None
+
+
 def dot_product_attention(q, k, v, scale=None, kv_mask=None):
     """Scaled dot-product attention.
 
@@ -43,14 +78,10 @@ def dot_product_attention(q, k, v, scale=None, kv_mask=None):
         scale = q.shape[-1] ** -0.5
     if not flash.supports(q, k, v):
         return _xla_attention(q, k, v, scale, kv_mask=kv_mask)
-    if q.is_cuda and torch.is_grad_enabled() and (
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad
     ):
-        raise NotImplementedError(
-            "the flash-attention backward kernel is not ported yet; run "
-            "under torch.no_grad() or torch.inference_mode()"
-        )
-    return flash.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), scale=float(scale),
-        kv_mask=kv_mask,
-    )
+        return _FlashAttention.apply(q, k, v, float(scale), kv_mask)
+    return flash.flash_attention(q, k, v, scale=float(scale),
+                                 kv_mask=kv_mask)
