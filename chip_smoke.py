@@ -3,11 +3,17 @@
 Phases, each printing a flushed line with the seconds since start:
   1. device: needs CUDA; prints the card and its power limit.
   2. build: compiles every CUDA kernel with nvcc, one process per source,
-     all started together, and prints ptxas's register and spill lines.
+     all started together, and prints each instantiation's registers,
+     stack frame and spills from ptxas; a spill or a stack frame fails.
   3. kernels: holds each kernel to its plain PyTorch version at every shape
      its path gives it (the forward at the serving shapes, the backward at
-     the training shapes, with a fully masked row), and times kernel, plain
-     version and the PyTorch library call that computes the same function.
+     the training shapes, with a fully masked row), prints each launch's
+     plan (tile, blocks, shared memory, blocks per SM), and times kernel,
+     plain version and the PyTorch library call that computes the same
+     function, beside two bounds: f32 on the CUDA cores, and 3xTF32 on the
+     tensor cores (the kernels' route); also each wrapper's host time per
+     call and the kernel's device time alone (calls replayed from a CUDA
+     graph).
   4. serving: a flagship-width L=128 Server with seeded random weights
      answers requests (different captions and lengths, one seeded) over a
      short PC trajectory; every map must be finite, (5, 128, 128), with the
@@ -19,7 +25,7 @@ Phases, each printing a flushed line with the seconds since start:
   6. training: `cli/train.main` trains the bench_l128 configuration at batch
      16 on records written here (enough that the 12 steps fall in one
      epoch, so the loader reads ahead as on a real dataset), 2 warm-up and
-     10 timed steps; losses finite, exactly 16 backward and 18 forward
+     10 timed steps; losses finite, exactly 18 backward and 18 forward
      launches per step, the weights moved, the EMA apart from them. A Server loads the EMA weights
      it wrote and answers a request.
   7. train reference: one flagship train step at B=1 (dropout 0, injected
@@ -76,6 +82,7 @@ TRAIN_TIMED = 10
 N_RECORDS = 208
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_S = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_TF32_S = 495e12     # H100 SXM TF32 tensor cores, dense
 
 # (name, H, Tq, Tk, D, masked, launches per PC step): the attention calls of
 # the flagship score UNet, 2 evaluations per PC step (corrector, predictor).
@@ -89,22 +96,21 @@ PATH_SHAPES = [
 ]
 LAUNCHES_PER_STEP = sum(s[-1] for s in PATH_SHAPES)  # 36
 
-# (name, H, Tq, Tk, D, masked, calls per train step, route) of the
-# flagship training step at B=16, one forward and one backward per call
-# (no remat). Tk=64 is the hash encoder's caption bucket
-# (text.pad_to_bucket). `supports_bwd` sends Tk=16 to the fallback, which
-# recomputes the einsum attention and differentiates it.
+# (name, H, Tq, Tk, D, masked, calls per train step) of the flagship
+# training step at B=16, one forward and one backward per call (no remat).
+# Tk=64 is the hash encoder's caption bucket (text.pad_to_bucket). Every
+# backward takes the kernel: the unmasked Tk=16 calls, which the JAX rule
+# (`supports_bwd`) sends to the einsum fallback, pass `supports_bwd_cuda`.
 TRAIN_SHAPES = [
-    ("attnblock_16x16", 1, 256, 256, 256, False, 5, "kernel"),
-    ("self_16x16", 8, 256, 256, 32, False, 5, "kernel"),
-    ("cross_16x16", 8, 256, 64, 32, True, 5, "kernel"),
-    ("attnblock_mid_4x4", 1, 16, 16, 256, False, 1, "fallback"),
-    ("self_mid_4x4", 8, 16, 16, 32, False, 1, "fallback"),
-    ("cross_mid_4x4", 8, 16, 64, 32, True, 1, "kernel"),
+    ("attnblock_16x16", 1, 256, 256, 256, False, 5),
+    ("self_16x16", 8, 256, 256, 32, False, 5),
+    ("cross_16x16", 8, 256, 64, 32, True, 5),
+    ("attnblock_mid_4x4", 1, 16, 16, 256, False, 1),
+    ("self_mid_4x4", 8, 16, 16, 32, False, 1),
+    ("cross_mid_4x4", 8, 16, 64, 32, True, 1),
 ]
 FWD_PER_TRAIN_STEP = sum(s[6] for s in TRAIN_SHAPES)  # 18
-BWD_PER_TRAIN_STEP = sum(s[6] for s in TRAIN_SHAPES
-                         if s[7] == "kernel")  # 16
+BWD_PER_TRAIN_STEP = FWD_PER_TRAIN_STEP  # 18
 
 
 def log(msg):
@@ -151,6 +157,83 @@ def bound(nbytes, flops):
                                    else "operations")
 
 
+def tc_bound(nbytes, flops):
+    """Least ms of the kernels' route: 3xTF32 does three TF32 products per
+    f32 product on the tensor cores."""
+    return max(nbytes / PEAK_BYTES_S, 3 * flops / PEAK_TF32_S) * 1e3
+
+
+def host_us(fn, iters=50):
+    """Microseconds of host time per call of fn(), the device not waited
+    for (the wrapper's checks, allocations and launch)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def graph_us(torch, fn, calls=20, replays=5):
+    """Microseconds of device time per call of fn(): `calls` calls captured
+    in one CUDA graph and replayed, so the host's time per call (which
+    paces back-to-back calls of the small shapes) drops out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls) * 1e3
+
+
+def ptxas_functions(log_text):
+    """{kernel instantiation: {registers, stack, spill_stores,
+    spill_loads}} from `nvcc -Xptxas -v` output."""
+    import re
+
+    out, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", ln)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"(flash_[a-z_]*kernel)I((?:Li\d+E)+)", mangled)
+            name = (k.group(1) + "<" + ",".join(
+                re.findall(r"Li(\d+)E", k.group(2))) + ">") if k else mangled
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
@@ -160,14 +243,22 @@ def phase_build():
     # one nvcc process per source, all at once
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(_build.build, sources))
+    ptxas = {}
     for src in sources:
         info = _build.BUILD_LOG[src]
-        ptxas = [ln.strip() for ln in info["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln]
         log(f"build: {src} in {info['seconds']:.2f}s")
-        for ln in ptxas:
-            log(f"  ptxas: {ln}")
-    return sources
+        for fn, r in ptxas_functions(info["ptxas"]).items():
+            ptxas[fn] = r
+            log(f"  ptxas: {fn}: {r.get('registers')} registers, "
+                f"{r.get('stack')} bytes stack frame, "
+                f"{r.get('spill_stores')}/{r.get('spill_loads')} bytes spill "
+                f"stores/loads")
+    bad = [fn for fn, r in ptxas.items()
+           if r.get("stack") or r.get("spill_stores") or r.get("spill_loads")]
+    if not ptxas or bad:
+        raise AssertionError(f"ptxas: a stack frame or spills in {bad}"
+                             if bad else "ptxas reported no kernel")
+    return ptxas
 
 
 def phase_kernels(torch):
@@ -199,40 +290,49 @@ def phase_kernels(torch):
         attn_mask = None if mask is None else mask[:, None, None, :]
         kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd(
             q, k, v, scale, mask))
+        host = host_us(lambda: flash.flash_attention_fwd(q, k, v, scale,
+                                                         mask))
+        device = graph_us(torch, lambda: flash.flash_attention_fwd(
+            q, k, v, scale, mask))
         plain_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd_reference(
             q, k, v, scale, mask))
         library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, scale=scale))
-        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel() + b * h * tq
-                      + (b * tk if masked else 0))
+        nbytes = (4 * (2 * q.numel() + k.numel() + v.numel() + b * h * tq)
+                  + (b * tk if masked else 0))
         flops = 4 * b * h * tq * tk * d
         bound_ms, bound_by = bound(nbytes, flops)
+        plan = flash.launch_plan("fwd", b, h, tq, tk, d)
         rows.append(dict(
             shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
             per_step=per_step, max_abs_err=err, ms=kernel_ms,
-            plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-            flops=flops, bound_ms=bound_ms, bound_by=bound_by))
+            host_us=host, device_ms=device / 1e3, plain_ms=plain_ms,
+            library_ms=library_ms,
+            bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
         log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
             f"mask={masked}: max_abs_err {err:.2e} (tol {TOL:.0e}) "
-            f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
-            f"library_ms(sdpa) {library_ms:.4f} bound_ms {bound_ms:.5f}")
+            f"kernel_ms {kernel_ms:.4f} host_us {host:.1f} device_us "
+            f"{device:.1f} plain_ms {plain_ms:.4f} library_ms(sdpa) "
+            f"{library_ms:.4f} bound_ms "
+            f"{bound_ms:.5f} (f32) {tc_bound(nbytes, flops):.5f} (3xTF32) "
+            f"plan {plan}")
     return rows
 
 
 def phase_kernels_bwd(torch):
     """The backward at the training shapes, B=16: the kernel against its
     plain version on the same residuals (from the forward kernel), with the
-    serving masks plus one fully masked row; the fallback shapes time the
-    fallback instead."""
+    serving masks plus one fully masked row."""
     import torch.nn.functional as F
 
-    from text2protein_tpu_torch.ops import attention, flash
+    from text2protein_tpu_torch.ops import flash
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     b = TRAIN_BATCH
     rows = []
-    for name, h, tq, tk, d, masked, per_step, route in TRAIN_SHAPES:
+    for name, h, tq, tk, d, masked, per_step in TRAIN_SHAPES:
         q, k, v, g = (torch.randn((b, h, t, d), device=dev, generator=gen)
                       for t in (tq, tk, tk, tq))
         mask = None
@@ -242,34 +342,27 @@ def phase_kernels_bwd(torch):
             mask = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
         scale = d**-0.5
         out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
-        if route == "kernel":
-            got = flash.flash_attention_bwd(q, k, v, out, lse, g, scale, mask)
-            torch.cuda.synchronize()
-            want = flash.flash_attention_bwd_reference(q, k, v, out, lse, g,
-                                                       scale, mask)
-            err = max((x - w).abs().max().item() for x, w in zip(got, want))
-            ref_scale = max(w.abs().max().item() for w in want)
-            finite = all(torch.isfinite(x).all() for x in got)
-            if not (finite and err <= BWD_TOL * max(1.0, ref_scale)):
-                raise AssertionError(
-                    f"{name}: backward kernel vs plain max abs error "
-                    f"{err:.3e} > {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}")
-            kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd(
-                q, k, v, out, lse, g, scale, mask))
-            plain_ms = cuda_ms(
-                torch, lambda: flash.flash_attention_bwd_reference(
-                    q, k, v, out, lse, g, scale, mask))
-        else:
-            assert not flash.supports_bwd(q, k, v)
-            err, ref_scale, plain_ms = None, None, None
-            xs = [t.detach().requires_grad_() for t in (q, k, v)]
-
-            def fallback():
-                with torch.enable_grad():
-                    ref = attention._xla_attention(*xs, scale, kv_mask=mask)
-                    return torch.autograd.grad(ref, xs, g)
-
-            kernel_ms = cuda_ms(torch, fallback)
+        if not flash.supports_bwd_cuda(q, k, v, masked):
+            raise AssertionError(f"{name}: the backward gate refuses it")
+        got = flash.flash_attention_bwd(q, k, v, out, lse, g, scale, mask)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                   scale, mask)
+        err = max((x - w).abs().max().item() for x, w in zip(got, want))
+        ref_scale = max(w.abs().max().item() for w in want)
+        finite = all(torch.isfinite(x).all() for x in got)
+        if not (finite and err <= BWD_TOL * max(1.0, ref_scale)):
+            raise AssertionError(
+                f"{name}: backward kernel vs plain max abs error "
+                f"{err:.3e} > {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}")
+        kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd(
+            q, k, v, out, lse, g, scale, mask))
+        host = host_us(lambda: flash.flash_attention_bwd(
+            q, k, v, out, lse, g, scale, mask))
+        device = graph_us(torch, lambda: flash.flash_attention_bwd(
+            q, k, v, out, lse, g, scale, mask))
+        plain_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd_reference(
+            q, k, v, out, lse, g, scale, mask))
         # the library's backward: autograd of SDPA, fwd+bwd minus fwd
         xs = [t.detach().requires_grad_() for t in (q, k, v)]
         attn_mask = None if mask is None else mask[:, None, None, :]
@@ -284,26 +377,27 @@ def phase_kernels_bwd(torch):
         library_ms = sdpa_both - sdpa_fwd
         # bytes: q, k, v, out, dO, lse (and mask) read once, dq, dk, dv
         # written once; FLOPs: 10 B H Tq Tk D (the JAX cost estimate)
-        nbytes = 4 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
-                      + g.numel() + b * h * tq + (b * tk if masked else 0))
+        nbytes = (4 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
+                       + g.numel() + b * h * tq) + (b * tk if masked else 0))
         flops = 10 * b * h * tq * tk * d
         bound_ms, bound_by = bound(nbytes, flops)
+        plan = flash.launch_plan("bwd", b, h, tq, tk, d)
         rows.append(dict(
             shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
-            dead_row=masked, per_step=per_step, route=route,
-            max_abs_err=err, grad_scale=ref_scale, ms=kernel_ms,
+            dead_row=masked, per_step=per_step, max_abs_err=err,
+            grad_scale=ref_scale, ms=kernel_ms, host_us=host,
+            device_ms=device / 1e3,
             plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
-            flops=flops, bound_ms=bound_ms, bound_by=bound_by))
-        what = ("kernel" if route == "kernel"
-                else "fallback (einsum recompute + autograd)")
+            flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+            tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
         log(f"kernel flash_bwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
-            f"mask={masked}{' +dead row' if masked else ''} [{what}]: "
-            + (f"max_abs_err {err:.2e} (tol {BWD_TOL:.0e} x "
-               f"{max(1.0, ref_scale):.3g}) " if err is not None else "")
-            + f"ms {kernel_ms:.4f} "
-            + (f"plain_ms {plain_ms:.4f} " if plain_ms is not None else "")
-            + f"library_ms(sdpa bwd) {library_ms:.4f} "
-            f"bound_ms {bound_ms:.5f}")
+            f"mask={masked}{' +dead row' if masked else ''}: max_abs_err "
+            f"{err:.2e} (tol {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}) "
+            f"ms {kernel_ms:.4f} host_us {host:.1f} device_us {device:.1f} "
+            f"plain_ms "
+            f"{plain_ms:.4f} library_ms(sdpa bwd) {library_ms:.4f} bound_ms "
+            f"{bound_ms:.5f} (f32) {tc_bound(nbytes, flops):.5f} (3xTF32) "
+            f"plan {plan}")
     return rows
 
 
@@ -605,7 +699,7 @@ def main():
     from text2protein_tpu_torch.data import helix_records
 
     kind, smi = phase_device(torch)
-    sources = phase_build()
+    ptxas = phase_build()
     rows = phase_kernels(torch)
     bwd_rows = phase_kernels_bwd(torch)
     server, launches, seconds = phase_serving(torch)
@@ -626,41 +720,45 @@ def main():
         ops_ms = sum(r["flops"] / PEAK_F32_S * r["per_step"] for r in rs)
         return "bytes" if bytes_ms >= ops_ms else "operations"
 
-    kernel_rows = [r for r in bwd_rows if r["route"] == "kernel"]
-    kernels = [{
-        "name": "flash_fwd_f32",
-        "route": "cuda",
-        "source": "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "text2protein_tpu/ops/flash.py:50",
+    def kernel(name, source, replaces, launches, rs, what):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            # times: the kernel's share of one step (`what`), the sum over
+            # the path's shapes of (launches per step x time)
+            "ms": per_step(rs, "ms"),
+            "plain_ms": per_step(rs, "plain_ms"),
+            "bound_ms": per_step(rs, "bound_ms"),
+            "bound_by": bound_by(rs),
+            "library_ms": per_step(rs, "library_ms"),
+            # the bound of the kernels' route, 3xTF32 on the tensor cores
+            "tc_bound_ms": per_step(rs, "tc_bound_ms"),
+            # the kernels' device time alone (CUDA graph replay): `ms`
+            # less what the wrapper's host time adds to back-to-back calls
+            "device_ms": per_step(rs, "device_ms"),
+            "per": what,
+        }
+
+    kernels = [
         # launches on the main paths: serving, then training (+ its eval)
-        "launches": launches + training["fwd_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        # times: the kernel's share of one PC step at batch BATCH, the sum
-        # over the serving path's shapes of (launches per step x time)
-        "ms": per_step(rows, "ms"),
-        "plain_ms": per_step(rows, "plain_ms"),
-        "bound_ms": per_step(rows, "bound_ms"),
-        "bound_by": bound_by(rows),
-        "library_ms": per_step(rows, "library_ms"),
-    }, {
-        "name": "flash_bwd_f32",
-        "route": "cuda",
-        "source": "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
-        "replaces": "text2protein_tpu/ops/flash.py:168",
-        "launches": training["bwd_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        # times: the kernel's share of one train step at batch 16, summed
-        # over the kernel-route shapes (launches per step x time)
-        "ms": per_step(kernel_rows, "ms"),
-        "plain_ms": per_step(kernel_rows, "plain_ms"),
-        "bound_ms": per_step(kernel_rows, "bound_ms"),
-        "bound_by": bound_by(kernel_rows),
-        "library_ms": per_step(kernel_rows, "library_ms"),
-    }]
+        kernel("flash_fwd_f32", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
+               "text2protein_tpu/ops/flash.py:50",
+               launches + training["fwd_launches"], rows,
+               f"PC step at batch {BATCH}"),
+        kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
+               "text2protein_tpu/ops/flash.py:168",
+               training["bwd_launches"], bwd_rows,
+               f"train step at batch {TRAIN_BATCH}"),
+    ]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi, "steps": STEPS, "batch": BATCH,
         "shapes": rows, "bwd_shapes": bwd_rows, "kernels": kernels,
+        "ptxas": ptxas,
         "batch_seconds": seconds, "e2e_rel_diff": e2e,
         "training": training, "train_reference": train_ref,
     }, indent=1))

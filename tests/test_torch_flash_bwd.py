@@ -206,6 +206,31 @@ def test_supports_bwd_matches_jax(shape_q, shape_k):
     assert tflash.supports_bwd(tq, tk, tk) == jflash.supports_bwd(jq, jk, jk)
 
 
+@pytest.mark.parametrize("shape_q,shape_k", [
+    ((2, 1, 256, 256), (2, 1, 256, 256)),
+    ((2, 8, 256, 32), (2, 8, 64, 32)),
+    ((2, 1, 16, 256), (2, 1, 16, 256)),    # Tk % 64 != 0
+    ((2, 8, 16, 32), (2, 8, 64, 32)),
+    ((1, 1, 12, 32), (1, 1, 64, 32)),      # Tq % 8 != 0
+    ((1, 1, 64, 32), (1, 1, 72, 32)),      # Tk % 64 != 0
+    ((1, 1, 4096, 64), (1, 1, 4096, 64)),  # over the 10 MB budget
+    ((1, 1, 64, 12), (1, 1, 64, 12)),      # D % 8 != 0: refused by both
+    ((1, 1, 4, 32), (1, 1, 64, 32)),       # Tq < 8: refused by both
+    ((1, 1, 264, 32), (1, 1, 64, 32)),     # no clean q block: refused
+])
+@pytest.mark.parametrize("masked", [True, False])
+def test_cuda_bwd_gate(shape_q, shape_k, masked):
+    """The CUDA route's backward gate is a function of the shapes and of
+    whether a mask is given: `supports_bwd` with a mask, `supports`
+    without one."""
+    q, k = torch.zeros(shape_q), torch.zeros(shape_k)
+    got = tflash.supports_bwd_cuda(q, k, k, masked)
+    want = (tflash.supports_bwd(q, k, k) if masked
+            else tflash.supports(q, k, k))
+    assert got == want
+    assert tflash.supports_bwd(q, k, k) <= got <= tflash.supports(q, k, k)
+
+
 def test_cpu_tensor_takes_plain_bwd_without_launch():
     q, k, v, g, mask = _inputs(1, 8, 16, 64, 32, True)
     out, lse = tflash.flash_attention_fwd_reference(_t(q), _t(k), _t(v),

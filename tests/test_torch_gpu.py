@@ -111,8 +111,17 @@ def test_flash_wrapper_checks_its_inputs(cuda):
     assert tattn.dot_product_attention(w, w, w).grad_fn is not None
     x = torch.zeros((1, 1, 64, 32), device=cuda)
     lse = torch.zeros((1, 64, 1), device=cuda)
-    with pytest.raises(ValueError, match="backward"):  # Tk % 64 != 0
-        tflash.flash_attention_bwd(x, x[:, :, :16], x[:, :, :16], x, lse, x)
+    mask16 = torch.ones((1, 16), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="backward"):  # masked, Tk % 64 != 0
+        tflash.flash_attention_bwd(x, x[:, :, :16], x[:, :, :16], x, lse, x,
+                                   kv_mask=mask16)
+    with pytest.raises(TypeError):  # the kernels read the mask as bytes
+        tflash.flash_attention_fwd(x, x, x, kv_mask=torch.ones(
+            (1, 64), device=cuda))
+    with pytest.raises(ValueError, match="aligned"):
+        y = torch.zeros(1 * 1 * 64 * 32 + 1, device=cuda)[1:]
+        y = y.view(1, 1, 64, 32)
+        tflash.flash_attention_fwd(y, y, y)
     with pytest.raises(TypeError):
         tflash.flash_attention_bwd(x, x, x, x, lse.double(), x)
     with pytest.raises(ValueError, match="lse"):
@@ -175,9 +184,9 @@ def test_flash_bwd_kernel_fully_masked_row(cuda):
 @pytest.mark.parametrize("h,tq,tk,d,masked", [BWD_SHAPES[2],
                                              (8, 16, 16, 32, False)])
 def test_attention_grad_on_gpu_matches_cpu(cuda, h, tq, tk, d, masked):
-    """Autograd through `dot_product_attention` on the card (kernel route,
-    and the Tk = 16 fallback) against the CPU (plain versions):
-    atol/rtol 1e-4."""
+    """Autograd through `dot_product_attention` on the card (the kernel,
+    at Tk = 16 too, which the CPU sends to the einsum fallback) against the
+    CPU: atol/rtol 1e-4."""
     q, k, v, mask = _inputs(cuda, 2, h, tq, tk, d, masked)
     g = torch.randn_like(q)
     grads = []
@@ -188,6 +197,98 @@ def test_attention_grad_on_gpu_matches_cpu(cuda, h, tq, tk, d, masked):
         grads.append(torch.autograd.grad(out, xs, g.to(dev)))
     for x, w in zip(*grads):
         torch.testing.assert_close(x.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+# (H, Tq, Tk, D, masked, dead row): the tile edges of the 3xTF32 kernels
+# (Tq and Tk off the 16-row block, the 8-column mma tile and the inner
+# tiles; D over the column chunks) and a fully masked row in both kernels
+EDGE_SHAPES = [
+    (1, 17, 9, 8, True, True),
+    (2, 33, 47, 32, False, False),
+    (1, 40, 64, 64, True, True),
+    (1, 31, 100, 256, False, False),
+    (1, 24, 72, 512, True, False),
+    (1, 9, 17, 1024, False, False),
+    (3, 256, 64, 32, True, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,tq,tk,d,masked,dead", EDGE_SHAPES)
+def test_kernels_at_tile_edges_match_plain_versions(cuda, h, tq, tk, d,
+                                                    masked, dead):
+    """Both kernels against their plain versions, f32: atol/rtol 1e-4. The
+    unmasked ragged shapes take the backward kernel through
+    `supports_bwd_cuda`; the masked ones are inside `supports_bwd` or are
+    called on the forward alone."""
+    q, k, v, mask = _inputs(cuda, 3, h, tq, tk, d, masked or dead)
+    if dead:
+        mask[-1] = False
+    got_o, got_l = tflash.flash_attention_fwd(q, k, v, kv_mask=mask)
+    want_o, want_l = tflash.flash_attention_fwd_reference(q, k, v,
+                                                          kv_mask=mask)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_l, want_l, atol=1e-4, rtol=1e-4)
+    if dead:
+        assert torch.all(got_o[-1] == 0)
+    if not tflash.supports_bwd_cuda(q, k, v, mask is not None):
+        assert tflash.supports(q, k, v) and mask is not None
+        return
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn(q.shape, device=cuda, generator=gen)
+    before = tflash.flash_attention_bwd.launches
+    got = tflash.flash_attention_bwd(q, k, v, want_o, want_l, g,
+                                     kv_mask=mask)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd.launches == before + 1
+    want = tflash.flash_attention_bwd_reference(q, k, v, want_o, want_l, g,
+                                                kv_mask=mask)
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,d", [(1, 256), (8, 32)])
+def test_unmasked_tk16_backward_takes_the_kernel(cuda, h, d):
+    """The 4x4 mid-block shapes (Tq = Tk = 16, no mask), which the JAX rule
+    sends to the einsum fallback, launch the backward kernel on the card and
+    match autograd of the einsum path (`_xla_attention`) there:
+    atol/rtol 1e-4."""
+    q, k, v, _ = _inputs(cuda, 16, h, 16, 16, d, False)
+    assert not tflash.supports_bwd(q, k, v)
+    assert tflash.supports_bwd_cuda(q, k, v, False)
+    g = torch.randn_like(q)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = tflash.flash_attention_bwd.launches
+    got = torch.autograd.grad(tattn.dot_product_attention(*xs), xs, g)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd.launches == before + 1
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        tattn._xla_attention(*xs, d**-0.5), xs, g)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_masked_shape_outside_supports_bwd_takes_the_fallback(cuda):
+    """A masked call that `supports_bwd` refuses (Tk = 16) keeps the JAX
+    route on the card: no backward launch, gradients of the einsum path
+    (atol/rtol 1e-4)."""
+    q, k, v, mask = _inputs(cuda, 4, 8, 16, 16, 32, True)
+    assert not tflash.supports_bwd_cuda(q, k, v, True)
+    g = torch.randn_like(q)
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = tflash.flash_attention_bwd.launches
+    got = torch.autograd.grad(
+        tattn.dot_product_attention(*xs, kv_mask=mask), xs, g)
+    assert tflash.flash_attention_bwd.launches == before
+    xs = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(
+        tattn._xla_attention(*xs, 32**-0.5, kv_mask=mask), xs, g)
+    for x, w in zip(got, want):
+        torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
 
 
 def _tiny_models(cuda):

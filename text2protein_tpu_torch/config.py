@@ -156,6 +156,33 @@ def validate_config(cfg: ConfigDict) -> None:
         raise ValueError("ss conditioning needs 8 channels")
 
 
+def check_ported_model(cfg: ConfigDict) -> None:
+    """Raise NotImplementedError for a model setting the port does not
+    compute yet, rather than building a different model without a word.
+
+    - `model.dtype` other than float32: the port computes the UNet in f32.
+    - `model.remat_resblocks: true`: the port keeps every activation.
+    - `model.norm_dtype: bfloat16` is accepted, since `model.dtype` is then
+      float32: the JAX GroupNorm with `follow_input_dtype` normalizes in the
+      input's dtype (text2protein_tpu/models/layers.py, `apply_dtype =
+      x.dtype`), and in an f32 network that is f32, the function the port
+      computes. Its statistics are f32 in both modes.
+    """
+    m = cfg.model
+    dtype = str(m.get("dtype", "float32"))
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"model.dtype: {dtype} is not ported yet; the port computes the "
+            "model in float32")
+    if m.get("remat_resblocks", False):
+        raise NotImplementedError(
+            "model.remat_resblocks: true is not ported yet; the port keeps "
+            "every activation for the backward")
+    norm = str(m.get("norm_dtype", "float32"))
+    if norm not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown model.norm_dtype {norm}")
+
+
 def flagship_config() -> ConfigDict:
     """The flagship L=128 text-conditioned model: the widths of
     configs/bench_l128.yml, as the JAX package's `__graft_entry__` builds
@@ -181,7 +208,8 @@ def bench_l128_config() -> ConfigDict:
     """configs/bench_l128.yml as the port reads it: the flagship widths with
     its training settings (batch 16, dropout 0.1, and the defaults' Adam lr
     1e-4 with 5000 warmup steps and clip 1.0, EMA 0.999), computed in
-    float32 (the yml's `norm_dtype: bfloat16` is not ported yet)."""
+    float32. The yml's `norm_dtype: bfloat16` is left out: with
+    `model.dtype` float32 it is the same function (`check_ported_model`)."""
     cfg = flagship_config()
     cfg.training.batch_size = 16
     cfg.data.processed_dataset_path = "./data/processed"

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..config import check_ported_model
 from ..diffusion.sde import get_sigmas
 from . import layers
 from .attention import LayerNorm, SpatialTransformer
@@ -186,7 +187,10 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
 
 def build_model(config, device=None) -> ScoreUNet:
     """Construct the score model named by `config.model.name`, in eval
-    mode, on `device` (CUDA unless the caller asks for the CPU)."""
+    mode, on `device` (CUDA unless the caller asks for the CPU). Raises
+    NotImplementedError for a model setting not ported yet
+    (`config.check_ported_model`)."""
+    check_ported_model(config)
     device = resolve_device(device)
     m = config.model
     cls = get_model(m.get("name", "ncsnpp"))

@@ -2,10 +2,12 @@
 
 Each source is compiled on its own into a shared library with a plain C
 interface, at first use, for sm_90a. The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. The compiler writes to a temporary name that is then renamed
-into place (`os.replace`), so a build cut off half way leaves nothing that a
-later build would take for finished, and no lock file is needed.
+source, of every header under `csrc/` and of the flags, so an edited source
+or header is rebuilt and an unchanged one is loaded as it is. The compiler
+writes to a temporary name that is then renamed into place (`os.replace`),
+so a build cut off half way leaves nothing that a later build would take for
+finished, and no lock file is needed. ptxas's report is kept beside the
+library (`*.ptxas.txt`) and read back into BUILD_LOG when it is loaded.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -47,16 +49,22 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{Path(source).stem}_{digest[:16]}.so"
 
 
 def build(source: str) -> Path:
     """Compile `csrc/<source>` unless a library of the same hash exists."""
     out = library_path(source)
+    log = out.with_name(out.name + ".ptxas.txt")
     if out.exists():
-        BUILD_LOG.setdefault(source, {"seconds": 0.0, "ptxas": "(cached)"})
+        BUILD_LOG.setdefault(source, {
+            "seconds": 0.0,
+            "ptxas": log.read_text() if log.exists() else "(cached)"})
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -70,9 +78,10 @@ def build(source: str) -> Path:
             f"nvcc failed on {source} ({proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
+    ptxas = (proc.stdout + proc.stderr).strip()
+    log.write_text(ptxas)
     os.replace(tmp, out)
-    BUILD_LOG[source] = {"seconds": seconds,
-                         "ptxas": (proc.stdout + proc.stderr).strip()}
+    BUILD_LOG[source] = {"seconds": seconds, "ptxas": ptxas}
     return out
 
 

@@ -7,10 +7,13 @@ package.
 
 A call that needs a gradient goes through `_FlashAttention`, the counterpart
 of the JAX package's custom VJP (`_flash_op`): its backward is the flash
-backward kernel where `flash.supports_bwd` holds, and otherwise recomputes
-the einsum path and differentiates it, as the JAX package does. A call
-without a gradient (serving, under `inference_mode`) calls the forward
-alone.
+backward kernel where the gate holds, and otherwise recomputes the einsum
+path and differentiates it, as the JAX package does. The gate is the JAX
+package's `flash.supports_bwd` for CPU tensors (so the CPU tests hold the
+JAX dispatch) and `flash.supports_bwd_cuda` for CUDA tensors, which also
+admits the unmasked shapes that the JAX rule refuses for TPU tiling
+reasons. A call without a gradient (serving, under `inference_mode`)
+calls the forward alone.
 
 Layout: q (B, H, Tq, D), k/v (B, H, Tk, D); optional kv_mask (B, Tk) bool.
 """
@@ -53,7 +56,8 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse, *rest = ctx.saved_tensors
         kv_mask = rest[0] if ctx.masked else None
         g = g.contiguous()
-        if flash.supports_bwd(q, k, v):
+        if (flash.supports_bwd_cuda(q, k, v, ctx.masked) if q.is_cuda
+                else flash.supports_bwd(q, k, v)):
             dq, dk, dv = flash.flash_attention_bwd(
                 q, k, v, out, lse, g, scale=ctx.scale, kv_mask=kv_mask)
         else:

@@ -1,4 +1,4 @@
-// Flash-attention backward for Hopper (sm_90a), float32.
+// Flash-attention backward for Hopper (sm_90a), float32 in and out.
 //
 // Replaces the Pallas TPU kernel `_flash_bwd_kernel` of
 // text2protein_tpu/ops/flash.py (reached through `flash_attention_bwd`).
@@ -8,343 +8,872 @@
 //   dV = P^T dO
 //   dS = P * (dO v^T - delta) * scale,  delta = rowsum(dO * out)
 //   dQ = dS k,   dK = dS^T q
-// delta is computed by the caller (the JAX package computes it outside its
-// Pallas kernel too). A fully masked row has lse ~ -1e30 from the forward,
-// so P = exp(0) = 1 on every key of that row, exactly as in the JAX kernel.
-//
-// Design. The TPU kernel holds the whole (Tq, Tk) block of one batch*head
-// in VMEM and does five matmuls on it. Here that block never exists:
-// two kernels tile it FA2-style and recompute P from lse inside each tile.
-//   * dkdv: one block per (batch*head, key tile of T rows). It keeps its
-//     k and v rows in shared memory and its dK, dV rows in registers, and
-//     loops over query tiles of T rows (q, dO, lse, delta), so dK and dV
-//     are summed in a fixed order with no atomics.
-//   * dq:   one block per (batch*head, query tile of T rows). It keeps q, dO
-//     in shared memory and dQ in registers, and loops over key tiles.
-// S and dP are thus computed twice (once per kernel); in exchange every
-// output element has one owner and the sums are deterministic.
-// T = 64 rows at D <= 128 and fewer at larger D (T * D <= 8192), so D up
-// to 1024 fits in shared memory and each thread owns at most 32 elements
-// of each accumulator. Rows are padded to D + 1 floats so that the score
-// loop (key row per lane) reads distinct banks.
+// A fully masked row has lse ~ -1e30 from the forward, so P = exp(0) = 1
+// on every key of that row, exactly as in the JAX kernel.
 //
 // What bounds it on the card: at the L=128 training shapes (B=16, T <= 256,
-// H*D = 256) one call moves at most ~21 MB and does at most 2.7 GFLOP of
-// f32, so the least time is tens of microseconds, set by the f32 operations
-// (10 * B*H*Tq*Tk*D at 67 TFLOP/s). This simple kernel runs on the CUDA
-// cores with both operands of each FMA read from shared memory, so it is
-// bound by shared-memory reads, well above that bound; wgmma and TMA come
-// in a later change.
+// H*D = 256) one call moves at most 34 MB (10 us at 3.35 TB/s) and does at
+// most 10*B*H*Tq*Tk*D = 2.7 GFLOP: 40 us at the f32 CUDA-core rate
+// (67 TFLOP/s), 16 us as 3xTF32 on the tensor cores (3 x 2.7e9 at
+// 495 TFLOP/s). The first version of this kernel ran its products as
+// serial FMA chains on shared memory, one block of 8 warps per SM at the
+// AttnBlock shape, and took 1004.5 us there against SDPA's 170.2 us.
+//
+// Design. Two kernels tile the (Tq, Tk) block FA2-style, recompute P from
+// lse inside each tile, and give every output element one owner, so the
+// sums run in a fixed order without atomics:
+//   * dq:   blocks over (batch*head, query rows, chunk of <= 256 of the D
+//     columns). It keeps q and dO in shared memory and dQ in registers,
+//     and loops over key tiles. Its prologue computes
+//     delta = rowsum(dO * out) for its rows and writes it for the next
+//     kernel (no PyTorch launch in the wrapper).
+//   * dkdv: blocks over (batch*head, key rows, column chunk). It keeps k
+//     and v in shared memory and dK, dV in registers, and loops over query
+//     tiles.
+// Each comes in two forms, chosen per call by plan_bwd:
+//   * Tensor cores at f32 accuracy in all: every product (S, dP,
+//     dV = P^T dO, dK = dS^T q, dQ = dS k) is an m16n8k8 TF32 `mma.sync` in
+//     3xTF32 form (mma_tf32x3.cuh); the scale and the mask bias are applied
+//     to the f32 accumulators afterwards. cp.async double-buffers the next
+//     q/dO tile (dkdv) or k/v tile (dq); the mask is read as bool bytes.
+//   * Narrow (D <= 64; the self- and cross-attention shapes, D = 32): each
+//     warp owns 16 rows, computes its S and dP slabs (16 x T) over all of D
+//     in registers, forms P and dS there, and feeds its own dQ or dK/dV
+//     products through slabs of shared memory only it touches; up to 4
+//     warps share each tile of the other side (two barriers per tile).
+//   * Wide (D > 64; the AttnBlock shapes, D = 256): a block of 8 warps owns
+//     16 rows. For S and dP of a tile each warp computes a 16 x 16 slab of
+//     one of the two over a share of D; the partial sums meet in shared
+//     memory, where one pass forms P and dS; for the dK/dV/dQ sums the
+//     warps split the output columns (dkdv: 4 warps dV, 4 warps dK), the
+//     sums in registers. Inner tiles of T = 8-32 rows, the largest with
+//     which two blocks fit an SM (T = 16 at D = 256: 113 KB, 256 blocks per
+//     kernel at the AttnBlock shape), or one block where shared memory does
+//     not allow two (D > 256; a single stage at D = 1024).
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section 6):
+// ptxas reports no spills and no stack frame in any instantiation (the
+// narrow <4> kernels at D = 32: 168 registers, three blocks per SM; the
+// wide ones 89-108). Per launch at B = 16: AttnBlock 16x16 ~208 us (SDPA's
+// backward ~208 us), self 16x16 ~205 us (~187 us), cross 16x16 ~83 us
+// (~170 us); the first version took 1004.5, 609.3 and 224.3 us.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int NT = 256;
+using namespace t2p;
 
-// Shared-memory floats of the two kernels for tile T, head dim D.
-__host__ __device__ inline size_t smem_dkdv(int T, int D) {
-  return 4 * (size_t)T * (D + 1) + 2 * (size_t)T * T + 4 * (size_t)T;
-}
-__host__ __device__ inline size_t smem_dq(int T, int D) {
-  return 4 * (size_t)T * (D + 1) + (size_t)T * T + 4 * (size_t)T;
+constexpr int DCHUNK = 256;  // most output columns a block owns
+
+constexpr int NARROW_WARPS = 4;  // most warps a block of the narrow kernels
+
+// per-call choices of one kernel: narrow (D <= 64) or wide, inner tile
+// rows, pipeline stages, column chunks (grid z) of dc columns, the launch
+// shape and the index of the instantiation in its kernel table
+struct BwdPlan {
+  int narrow, t, stages, nchunk, dc, threads, idx;
+  dim3 grid;
+  size_t smem;
+};
+
+size_t bwd_smem(int D, int t, int stages) {
+  const int ldd = pad_ld(D), ldp = pad_ld(t);
+  const int kpn = NWARP / (2 * (t >= 16 ? t / 16 : 1));
+  return sizeof(float) * ((size_t)2 * ROWS * ldd +
+                          (size_t)stages * 2 * t * ldd +
+                          (size_t)2 * kpn * ROWS * ldp +
+                          (size_t)2 * ROWS * ldp + ROWS);
 }
 
-// Loads `rows` rows of a (., D) matrix starting at row r0 into a padded
-// shared tile (row stride D + 1); rows at or past `limit` read as 0.
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int r0, int rows, int limit, int D) {
-  const int ld = D + 1;
-  for (int e = threadIdx.x; e < rows * D; e += NT) {
-    const int r = e / D;
-    const int d = e - r * D;
-    dst[r * ld + d] = (r0 + r < limit) ? src[(size_t)(r0 + r) * D + d] : 0.f;
+// Shared bytes of a narrow kernel: 16 resident rows and one slab (dq) or
+// two slabs (dkdv) of shared memory a warp, two stages of t-row tiles.
+size_t narrow_smem(int D, int t, int warps, int slabs) {
+  return sizeof(float) * ((size_t)2 * warps * ROWS * pad_ld(D) +
+                          (size_t)2 * 2 * t * pad_ld(D) +
+                          (size_t)slabs * warps * ROWS * pad_ld(t));
+}
+
+// Accumulator n-tiles a warp holds in the wide kernels: dq splits dc <= 256
+// columns over 8 warps (1, 2 or 4), dkdv over 4 (1, 2, 4 or 8).
+inline int ntw(int dc, int warps) {
+  const int n = (dc / 8 + warps - 1) / warps;
+  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : 8;
+}
+
+// `rows` is the length the grid walks (Tq for dq, Tk for dkdv), `loop` the
+// length the block's inner loop walks (Tk for dq, Tq for dkdv).
+BwdPlan plan_bwd(int B, int H, int rows, int loop, int D, bool dkdv) {
+  BwdPlan p{};
+  int cap = 8;
+  if (D <= 64) {  // the narrow kernels: 16 rows a warp
+    // T = 64 where three blocks fit an SM, else the largest T with two
+    const int warps = min(NARROW_WARPS, (rows + ROWS - 1) / ROWS);
+    const int slabs = dkdv ? 2 : 1;
+    while (cap < 64 && cap < loop) cap *= 2;
+    if (cap == 64 && narrow_smem(D, 64, warps, slabs) > 75 * 1024) cap = 32;
+    while (cap > 8 && narrow_smem(D, cap, warps, slabs) > 113 * 1024)
+      cap /= 2;
+    p.narrow = 1;
+    p.t = cap;
+    p.stages = 2;
+    p.nchunk = 1;
+    p.dc = D;
+    p.threads = 32 * warps;
+    p.grid = dim3(B * H, (rows + ROWS * warps - 1) / (ROWS * warps), 1);
+    p.smem = narrow_smem(D, cap, warps, slabs);
+    p.idx = (dkdv ? 4 : 3) + D / 8 - 1;
+    return p;
   }
+  p.nchunk = (D + DCHUNK - 1) / DCHUNK;
+  p.dc = ((D + p.nchunk - 1) / p.nchunk + 7) / 8 * 8;
+  p.threads = NT;
+  p.grid = dim3(B * H, (rows + ROWS - 1) / ROWS, p.nchunk);
+  const int n = ntw(p.dc, dkdv ? 4 : NWARP);
+  p.idx = n == 1 ? 0 : n == 2 ? 1 : n == 4 ? 2 : 3;
+  while (cap < 32 && cap < loop) cap *= 2;
+  const size_t limits[2] = {113 * 1024, 227 * 1024};
+  for (size_t limit : limits)
+    for (int t = cap; t >= 8; t /= 2)
+      if (bwd_smem(D, t, 2) <= limit) {
+        p.t = t;
+        p.stages = 2;
+        p.smem = bwd_smem(D, t, 2);
+        return p;
+      }
+  p.t = 8;
+  p.stages = 1;
+  p.smem = bwd_smem(D, 8, 1);
+  return p;
 }
 
-// The key-side vectors of a tile: the additive mask bias and whether the
-// key exists (keys past Tk in a ragged last tile get P = 0 and dS = 0).
-__device__ __forceinline__ void load_keys(float* bias, float* valid,
-                                          const float* mb, int k0, int T,
-                                          int Tk) {
-  for (int j = threadIdx.x; j < T; j += NT) {
-    const bool in = k0 + j < Tk;
-    valid[j] = in ? 1.f : 0.f;
-    bias[j] = (in && mb) ? (mb[k0 + j] - 1.f) * 1e30f : 0.f;
-  }
-}
-
-// The query-side vectors of a tile: lse and delta, 0 past Tq.
-__device__ __forceinline__ void load_queries(float* slse, float* sdelta,
-                                             const float* lse,
-                                             const float* delta, int q0,
-                                             int T, int Tq) {
-  for (int i = threadIdx.x; i < T; i += NT) {
-    const bool in = q0 + i < Tq;
-    slse[i] = in ? lse[q0 + i] : 0.f;
-    sdelta[i] = in ? delta[q0 + i] : 0.f;
-  }
-}
-
-// P and dS of one (query tile, key tile) pair, element e = i * T + j.
-__device__ __forceinline__ void p_and_ds(
-    int e, int T, int D, const float* sq, const float* sdo, const float* sk,
-    const float* sv, const float* bias, const float* valid, const float* slse,
-    const float* sdelta, bool row_in, float scale, float* p_out,
-    float* ds_out) {
-  const int ld = D + 1;
-  const int i = e / T;
-  const int j = e - i * T;
-  const float* qi = sq + i * ld;
-  const float* doi = sdo + i * ld;
-  const float* kj = sk + j * ld;
-  const float* vj = sv + j * ld;
-  float s = 0.f, dp = 0.f;
-  for (int d = 0; d < D; ++d) {
-    s = fmaf(qi[d], kj[d], s);
-    dp = fmaf(doi[d], vj[d], dp);
-  }
-  float p = 0.f, ds = 0.f;
-  if (row_in && valid[j] != 0.f) {
-    s = s * scale + bias[j];
-    p = expf(s - slse[i]);
-    ds = p * (dp - sdelta[i]) * scale;
-  }
-  *p_out = p;
-  *ds_out = ds;
-}
-
-template <int ACC>
-__global__ void __launch_bounds__(NT) flash_bwd_dkdv_kernel(
+template <int NTW>
+__global__ void __launch_bounds__(NT, 2) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ mask, float* __restrict__ dk,
-    float* __restrict__ dv, int H, int Tq, int Tk, int D, int T,
-    float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sk = smem;             // T x ld
-  float* sv = sk + T * ld;      // T x ld
-  float* sq = sv + T * ld;      // T x ld
-  float* sdo = sq + T * ld;     // T x ld
-  float* sp = sdo + T * ld;     // T x T  (P, query-major)
-  float* sds = sp + T * T;      // T x T  (dS)
-  float* bias = sds + T * T;    // T
-  float* valid = bias + T;      // T
-  float* slse = valid + T;      // T
-  float* sdelta = slse + T;     // T
+    const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, const unsigned char* __restrict__ mask,
+    float* __restrict__ dq, int H, int Tq, int Tk, int D, int dc, int T,
+    int stages, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldd = pad_ld(D), ldp = pad_ld(T);
+  // phase A: 16 x 16 slabs (16 x 8 where T = 8) of S and of dP
+  const int nt = T >> 3, ns = nt >= 2 ? nt / 2 : 1;
+  const int nwork = 2 * ns, kpn = NWARP / nwork;
+  const int stage_floats = 2 * T * ldd;
+  float* sq = smem;                               // 16 x ldd
+  float* sdo = sq + ROWS * ldd;                   // 16 x ldd
+  float* stage0 = sdo + ROWS * ldd;               // stages x (k, v tiles)
+  float* spart = stage0 + stages * stage_floats;  // 2 x kpn x 16 x ldp
+  float* sds = spart + 2 * kpn * ROWS * ldp;      // 16 x ldp: dS
+  float* sdelta = sds + 2 * ROWS * ldp;           // 16
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * T;
-  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * ROWS;
+  const int c0 = blockIdx.z * dc;
+  const int cols = min(dc, D - c0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t qoff = (size_t)bh * Tq * D;
-  const size_t koff = (size_t)bh * Tk * D;
-  const float* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const float* kb = k + (size_t)bh * Tk * D;
+  const float* vb = v + (size_t)bh * Tk * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tk + T - 1) / T;
 
-  load_rows(sk, k + koff, k0, T, Tk, D);
-  load_rows(sv, v + koff, k0, T, Tk, D);
-  load_keys(bias, valid, mb, k0, T, Tk);
+  auto load_kv = [&](int it, int s) {
+    float* sk = stage0 + s * stage_floats;
+    load_tile_async(sk, ldd, kb, D, it * T, T, Tk, 0, D);
+    load_tile_async(sk + T * ldd, ldd, vb, D, it * T, T, Tk, 0, D);
+  };
+  load_tile_async(sq, ldd, q + qoff, D, q0, ROWS, Tq, 0, D);
+  load_tile_async(sdo, ldd, dout + qoff, D, q0, ROWS, Tq, 0, D);
+  load_kv(0, 0);
+  cp_async_commit();
 
-  float acc_k[ACC], acc_v[ACC];
+  // delta = rowsum(dO * out) of rows 2 * warp + r, while the tiles load
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) acc_k[a] = acc_v[a] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int i = 2 * warp + r;
+    float d = 0.f;
+    if (q0 + i < Tq) {
+      const float* o = out + qoff + (size_t)(q0 + i) * D;
+      const float* g = dout + qoff + (size_t)(q0 + i) * D;
+      for (int c = lane; c < D; c += 32) d = fmaf(g[c], o[c], d);
+      d = warp_sum(d);
+      if (lane == 0 && blockIdx.z == 0) delta[(size_t)bh * Tq + q0 + i] = d;
+    }
+    if (lane == 0) sdelta[i] = d;
+  }
 
-  for (int q0 = 0; q0 < Tq; q0 += T) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(sq, q + qoff, q0, T, Tq, D);
-    load_rows(sdo, dout + qoff, q0, T, Tq, D);
-    load_queries(slse, sdelta, lse + (size_t)bh * Tq,
-                 delta + (size_t)bh * Tq, q0, T, Tq);
+  float acc[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = stages == 2 ? (it & 1) : 0;
+    if (stages == 2 && it + 1 < ntiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = stage0 + st * stage_floats;
+    const float* sv = sk + T * ldd;
+
+    {  // one slab of S = q k^T (prod 0) or dP = dO v^T (prod 1)
+      const int work = warp % nwork, kp = warp / nwork;
+      const int prod = work / ns;
+      const float* a = prod ? sdo : sq;
+      const float* b = prod ? sv : sk;
+      float* part = spart + (prod * kpn + kp) * ROWS * ldp;
+      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+      if (nt >= 2) {
+        const int n0 = (work % ns) * 16;
+        mma_abt2(c0, c1, a, ldd, b, ldd, n0, D, kp, kpn, lane);
+        store_c(part, ldp, n0, c0, lane);
+        store_c(part, ldp, n0 + 8, c1, lane);
+      } else {
+        mma_abt(c0, a, ldd, b, ldd, 0, D, kp, kpn, lane);
+        store_c(part, ldp, 0, c0, lane);
+      }
+    }
     __syncthreads();
 
-    for (int e = tid; e < T * T; e += NT)
-      p_and_ds(e, T, D, sq, sdo, sk, sv, bias, valid, slse, sdelta,
-               q0 + e / T < Tq, scale, &sp[e], &sds[e]);
-    __syncthreads();
-
-    // dV[j] += sum_i P[i][j] dO[i];  dK[j] += sum_i dS[i][j] q[i]
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int e = tid + a * NT;
-      if (e < T * D) {
-        const int j = e / D;
-        const int d = e - j * D;
-        float ov = acc_v[a], ok = acc_k[a];
-        for (int i = 0; i < T; ++i) {
-          ov = fmaf(sp[i * T + j], sdo[i * ld + d], ov);
-          ok = fmaf(sds[i * T + j], sq[i * ld + d], ok);
+    const int k0 = it * T;
+    for (int e = tid; e < ROWS * T; e += NT) {
+      const int i = e / T, j = e - i * T;
+      float ds = 0.f;
+      if (q0 + i < Tq && k0 + j < Tk) {
+        float s = 0.f, dp = 0.f;
+        for (int kp = 0; kp < kpn; ++kp) {
+          s += spart[(kp * ROWS + i) * ldp + j];
+          dp += spart[((kpn + kp) * ROWS + i) * ldp + j];
         }
-        acc_v[a] = ov;
-        acc_k[a] = ok;
+        const float bias = (mb && !mb[k0 + j]) ? -1e30f : 0.f;
+        s = s * scale + bias;
+        const float p = expf(s - lb[q0 + i]);
+        ds = p * (dp - sdelta[i]) * scale;
       }
+      sds[i * ldp + j] = ds;
+    }
+    __syncthreads();
+
+    // dQ (16 x cols) += dS k[:, c0:c0+cols], the warps splitting the columns
+    for (int kk = 0; kk < T; kk += 8) {
+      float fa[4];
+      load_a(fa, sds, ldp, kk, lane);
+      const SplitA a = split_a(fa);
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int n0 = (warp + n * NWARP) * 8;
+        if (n0 < cols) {
+          float fb[2];
+          load_bn(fb, sk, ldd, c0 + n0, kk, lane);
+          mma_3xtf32(acc[n], a, fb);
+        }
+      }
+    }
+    __syncthreads();
+    if (stages == 1 && it + 1 < ntiles) {
+      load_kv(it + 1, 0);
+      cp_async_commit();
     }
   }
 
+  const int g = lane >> 2, t = lane & 3;
+  float* dqb = dq + qoff;
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = tid + a * NT;
-    if (e < T * D && k0 + e / D < Tk) {
-      const size_t g = koff + (size_t)k0 * D + e;
-      dk[g] = acc_k[a];
-      dv[g] = acc_v[a];
+  for (int n = 0; n < NTW; ++n) {
+    const int n0 = (warp + n * NWARP) * 8;
+    if (n0 < cols) {
+      const int col = c0 + n0 + 2 * t;
+      if (q0 + g < Tq)
+        *reinterpret_cast<float2*>(dqb + (size_t)(q0 + g) * D + col) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (q0 + g + 8 < Tq)
+        *reinterpret_cast<float2*>(dqb + (size_t)(q0 + g + 8) * D + col) =
+            make_float2(acc[n][2], acc[n][3]);
     }
   }
 }
 
-template <int ACC>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
+template <int NTW>
+__global__ void __launch_bounds__(NT, 2) flash_bwd_dkdv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const float* __restrict__ dout,
     const float* __restrict__ lse, const float* __restrict__ delta,
-    const float* __restrict__ mask, float* __restrict__ dq, int H, int Tq,
-    int Tk, int D, int T, float scale) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sq = smem;             // T x ld
-  float* sdo = sq + T * ld;     // T x ld
-  float* sk = sdo + T * ld;     // T x ld
-  float* sv = sk + T * ld;      // T x ld
-  float* sds = sv + T * ld;     // T x T
-  float* bias = sds + T * T;    // T
-  float* valid = bias + T;      // T
-  float* slse = valid + T;      // T
-  float* sdelta = slse + T;     // T
+    const unsigned char* __restrict__ mask, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int Tq, int Tk, int D, int dc, int T,
+    int stages, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int ldd = pad_ld(D), ldp = pad_ld(T);
+  // phase A: 16 x 16 slabs (16 x 8 where T = 8) of S and of dP
+  const int nt = T >> 3, ns = nt >= 2 ? nt / 2 : 1;
+  const int nwork = 2 * ns, kpn = NWARP / nwork;
+  const int stage_floats = 2 * T * ldd;
+  float* sk = smem;                               // 16 x ldd
+  float* sv = sk + ROWS * ldd;                    // 16 x ldd
+  float* stage0 = sv + ROWS * ldd;                // stages x (q, dO tiles)
+  float* spart = stage0 + stages * stage_floats;  // 2 x kpn x 16 x ldp
+  float* spt = spart + 2 * kpn * ROWS * ldp;      // 16 x ldp: P^T
+  float* sdst = spt + ROWS * ldp;                 // 16 x ldp: dS^T
 
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * T;
-  const int tid = threadIdx.x;
-  const size_t qoff = (size_t)bh * Tq * D;
+  const int k0 = blockIdx.y * ROWS;
+  const int c0 = blockIdx.z * dc;
+  const int cols = min(dc, D - c0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t koff = (size_t)bh * Tk * D;
-  const float* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const float* qb = q + (size_t)bh * Tq * D;
+  const float* dob = dout + (size_t)bh * Tq * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tq + T - 1) / T;
 
-  load_rows(sq, q + qoff, q0, T, Tq, D);
-  load_rows(sdo, dout + qoff, q0, T, Tq, D);
-  load_queries(slse, sdelta, lse + (size_t)bh * Tq, delta + (size_t)bh * Tq,
-               q0, T, Tq);
+  auto load_qdo = [&](int it, int s) {
+    float* sq = stage0 + s * stage_floats;
+    load_tile_async(sq, ldd, qb, D, it * T, T, Tq, 0, D);
+    load_tile_async(sq + T * ldd, ldd, dob, D, it * T, T, Tq, 0, D);
+  };
+  load_tile_async(sk, ldd, k + koff, D, k0, ROWS, Tk, 0, D);
+  load_tile_async(sv, ldd, v + koff, D, k0, ROWS, Tk, 0, D);
+  load_qdo(0, 0);
+  cp_async_commit();
 
-  float acc[ACC];
+  // warps 0-3 sum dV = P^T dO, warps 4-7 dK = dS^T q
+  const int half = warp >> 2, w4 = warp & 3;
+  float acc[NTW][4];
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) acc[a] = 0.f;
+  for (int n = 0; n < NTW; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += T) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(sk, k + koff, k0, T, Tk, D);
-    load_rows(sv, v + koff, k0, T, Tk, D);
-    load_keys(bias, valid, mb, k0, T, Tk);
-    __syncthreads();
-
-    for (int e = tid; e < T * T; e += NT) {
-      float p;
-      p_and_ds(e, T, D, sq, sdo, sk, sv, bias, valid, slse, sdelta,
-               q0 + e / T < Tq, scale, &p, &sds[e]);
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = stages == 2 ? (it & 1) : 0;
+    if (stages == 2 && it + 1 < ntiles) {
+      load_qdo(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* sq = stage0 + st * stage_floats;
+    const float* sdo = sq + T * ldd;
 
-    // dQ[i] += sum_j dS[i][j] k[j]
-#pragma unroll
-    for (int a = 0; a < ACC; ++a) {
-      const int e = tid + a * NT;
-      if (e < T * D) {
-        const int i = e / D;
-        const int d = e - i * D;
-        const float* dsi = sds + i * T;
-        float o = acc[a];
-        for (int j = 0; j < T; ++j) o = fmaf(dsi[j], sk[j * ld + d], o);
-        acc[a] = o;
+    {  // one slab of S^T = k q^T (prod 0) or dP^T = v dO^T (prod 1)
+      const int work = warp % nwork, kp = warp / nwork;
+      const int prod = work / ns;
+      const float* a = prod ? sv : sk;
+      const float* b = prod ? sdo : sq;
+      float* part = spart + (prod * kpn + kp) * ROWS * ldp;
+      float c0[4] = {0.f, 0.f, 0.f, 0.f}, c1[4] = {0.f, 0.f, 0.f, 0.f};
+      if (nt >= 2) {
+        const int n0 = (work % ns) * 16;
+        mma_abt2(c0, c1, a, ldd, b, ldd, n0, D, kp, kpn, lane);
+        store_c(part, ldp, n0, c0, lane);
+        store_c(part, ldp, n0 + 8, c1, lane);
+      } else {
+        mma_abt(c0, a, ldd, b, ldd, 0, D, kp, kpn, lane);
+        store_c(part, ldp, 0, c0, lane);
       }
     }
+    __syncthreads();
+
+    const int q0 = it * T;
+    for (int e = tid; e < ROWS * T; e += NT) {
+      const int i = e / T, j = e - i * T;  // key i, query j
+      float p = 0.f, ds = 0.f;
+      if (k0 + i < Tk && q0 + j < Tq) {
+        float s = 0.f, dp = 0.f;
+        for (int kp = 0; kp < kpn; ++kp) {
+          s += spart[(kp * ROWS + i) * ldp + j];
+          dp += spart[((kpn + kp) * ROWS + i) * ldp + j];
+        }
+        const float bias = (mb && !mb[k0 + i]) ? -1e30f : 0.f;
+        s = s * scale + bias;
+        p = expf(s - lb[q0 + j]);
+        ds = p * (dp - db[q0 + j]) * scale;
+      }
+      spt[i * ldp + j] = p;
+      sdst[i * ldp + j] = ds;
+    }
+    __syncthreads();
+
+    {  // dV += P^T dO (warps 0-3), dK += dS^T q (warps 4-7)
+      const float* a_src = half ? sdst : spt;
+      const float* b_src = half ? sq : sdo;
+      for (int kk = 0; kk < T; kk += 8) {
+        float fa[4];
+        load_a(fa, a_src, ldp, kk, lane);
+        const SplitA a = split_a(fa);
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const int n0 = (w4 + 4 * n) * 8;
+          if (n0 < cols) {
+            float fb[2];
+            load_bn(fb, b_src, ldd, c0 + n0, kk, lane);
+            mma_3xtf32(acc[n], a, fb);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (stages == 1 && it + 1 < ntiles) {
+      load_qdo(it + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  float* dst = (half ? dk : dv) + koff;
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) {
+    const int n0 = (w4 + 4 * n) * 8;
+    if (n0 < cols) {
+      const int col = c0 + n0 + 2 * t;
+      if (k0 + g < Tk)
+        *reinterpret_cast<float2*>(dst + (size_t)(k0 + g) * D + col) =
+            make_float2(acc[n][0], acc[n][1]);
+      if (k0 + g + 8 < Tk)
+        *reinterpret_cast<float2*>(dst + (size_t)(k0 + g + 8) * D + col) =
+            make_float2(acc[n][2], acc[n][3]);
+    }
+  }
+}
+
+// The narrow kernels, for D <= 64: each warp owns 16 rows outright (FA2's
+// layout), computes its S and dP slabs (16 x T) over all of D in registers,
+// forms P and dS there, and passes them to its own dV/dK/dQ products
+// through slabs of shared memory that only it touches; the warps of a
+// block (up to 4) share the tiles of the other side, so a tile costs two
+// block barriers. Same signatures as the wide kernels (D, dc and stages
+// are fixed by ND and unused).
+template <int ND>
+__global__ void __launch_bounds__(NARROW_WARPS * 32, 3)
+    flash_bwd_dq_narrow_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ out, const float* __restrict__ lse,
+        float* __restrict__ delta, const unsigned char* __restrict__ mask,
+        float* __restrict__ dq, int H, int Tq, int Tk, int, int, int T, int,
+        float scale) {
+  constexpr int D = 8 * ND;
+  constexpr int ldd = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int rows = warps * ROWS;
+  const int ldp = pad_ld(T), nn = T >> 3;
+  const int stage_floats = 2 * T * ldd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* sq = smem;                     // rows x ldd
+  float* sdo = sq + rows * ldd;         // rows x ldd
+  float* stage0 = sdo + rows * ldd;     // 2 stages x (k, v tiles)
+  float* spw = stage0 + 2 * stage_floats + warp * ROWS * ldp;  // dS slab
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * rows;
+  const size_t qoff = (size_t)bh * Tq * D;
+  const float* kb = k + (size_t)bh * Tk * D;
+  const float* vb = v + (size_t)bh * Tk * D;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tk + T - 1) / T;
+
+  auto load_kv = [&](int it, int s) {
+    float* sk = stage0 + s * stage_floats;
+    load_tile_async(sk, ldd, kb, D, it * T, T, Tk, 0, D);
+    load_tile_async(sk + T * ldd, ldd, vb, D, it * T, T, Tk, 0, D);
+  };
+  load_tile_async(sq, ldd, q + qoff, D, q0, rows, Tq, 0, D);
+  load_tile_async(sdo, ldd, dout + qoff, D, q0, rows, Tq, 0, D);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp; each
+  // lane of a quad sums every fourth column
+  const int row = q0 + warp * ROWS + g;
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    float d = 0.f;
+    if (i < Tq)
+      for (int c = t; c < D; c += 4)
+        d = fmaf(dout[qoff + (size_t)i * D + c], out[qoff + (size_t)i * D + c],
+                 d);
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta_r[r] = d;
+    lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] : 0.f;
+    if (t == 0 && i < Tq) delta[(size_t)bh * Tq + i] = d;
+  }
+
+  const float* sqw = sq + warp * ROWS * ldd;
+  const float* sdow = sdo + warp * ROWS * ldd;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = stage0 + (it & 1) * stage_floats;
+    const float* sv = sk + T * ldd;
+
+    float sc[8][4], dp[8][4];  // S = q k^T and dP = dO v^T, 16 x T <= 64
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      float fa[4];
+      load_a(fa, sqw, ldd, kk * 8, lane);
+      const SplitA a = split_a(fa);
+      load_a(fa, sdow, ldd, kk * 8, lane);
+      const SplitA ad = split_a(fa);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (n < nn) {
+          float fb[2];
+          load_bt(fb, sk, ldd, n * 8, kk * 8, lane);
+          mma_3xtf32(sc[n], a, fb);
+          load_bt(fb, sv, ldd, n * 8, kk * 8, lane);
+          mma_3xtf32(dp[n], ad, fb);
+        }
+    }
+    const int k0 = it * T;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + n * 8 + 2 * t + (i & 1);
+        const int r = i >> 1;
+        float ds = 0.f;
+        if (n < nn && key < Tk && row + 8 * r < Tq) {
+          const float bias = (mb && !mb[key]) ? -1e30f : 0.f;
+          const float p = expf(sc[n][i] * scale + bias - lse_r[r]);
+          ds = p * (dp[n][i] - delta_r[r]) * scale;
+        }
+        sc[n][i] = ds;
+      }
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (n < nn) store_c(spw, ldp, n * 8, sc[n], lane);
+    __syncwarp();
+    // dQ (16 x D) += dS k
+    for (int kk = 0; kk < T; kk += 8) {
+      float fa[4];
+      load_a(fa, spw, ldp, kk, lane);
+      const SplitA a = split_a(fa);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float fb[2];
+        load_bn(fb, sk, ldd, n * 8, kk, lane);
+        mma_3xtf32(acc[n], a, fb);
+      }
+    }
+    __syncthreads();  // the stage is read; the next prefetch may refill it
+  }
+
+  float* dqb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row < Tq)
+      *reinterpret_cast<float2*>(dqb + (size_t)row * D + col) =
+          make_float2(acc[n][0], acc[n][1]);
+    if (row + 8 < Tq)
+      *reinterpret_cast<float2*>(dqb + (size_t)(row + 8) * D + col) =
+          make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+template <int ND>
+__global__ void __launch_bounds__(NARROW_WARPS * 32, 3)
+    flash_bwd_dkdv_narrow_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const float* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        const unsigned char* __restrict__ mask, float* __restrict__ dk,
+        float* __restrict__ dv, int H, int Tq, int Tk, int, int, int T, int,
+        float scale) {
+  constexpr int D = 8 * ND;
+  constexpr int ldd = D + 4;
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5;
+  const int rows = warps * ROWS;
+  const int ldp = pad_ld(T), nn = T >> 3;
+  const int stage_floats = 2 * T * ldd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* sk = smem;                     // rows x ldd
+  float* sv = sk + rows * ldd;          // rows x ldd
+  float* stage0 = sv + rows * ldd;      // 2 stages x (q, dO tiles)
+  float* spt = stage0 + 2 * stage_floats + warp * 2 * ROWS * ldp;  // P^T
+  float* sdst = spt + ROWS * ldp;                                    // dS^T
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * rows;
+  const size_t koff = (size_t)bh * Tk * D;
+  const float* qb = q + (size_t)bh * Tq * D;
+  const float* dob = dout + (size_t)bh * Tq * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tq + T - 1) / T;
+
+  auto load_qdo = [&](int it, int s) {
+    float* sq = stage0 + s * stage_floats;
+    load_tile_async(sq, ldd, qb, D, it * T, T, Tq, 0, D);
+    load_tile_async(sq + T * ldd, ldd, dob, D, it * T, T, Tq, 0, D);
+  };
+  load_tile_async(sk, ldd, k + koff, D, k0, rows, Tk, 0, D);
+  load_tile_async(sv, ldd, v + koff, D, k0, rows, Tk, 0, D);
+  load_qdo(0, 0);
+  cp_async_commit();
+
+  // keys g and g + 8 of this warp: in range, and their mask bias
+  const int key = k0 + warp * ROWS + g;
+  bool key_in[2];
+  float bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_in[r] = key + 8 * r < Tk;
+    bias[r] = (key_in[r] && mb && !mb[key + 8 * r]) ? -1e30f : 0.f;
+  }
+
+  const float* skw = sk + warp * ROWS * ldd;
+  const float* svw = sv + warp * ROWS * ldd;
+  float acc_v[ND][4], acc_k[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_qdo(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sq = stage0 + (it & 1) * stage_floats;
+    const float* sdo = sq + T * ldd;
+
+    float sc[8][4], dp[8][4];  // S^T = k q^T and dP^T = v dO^T, 16 x T
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      float fa[4];
+      load_a(fa, skw, ldd, kk * 8, lane);
+      const SplitA a = split_a(fa);
+      load_a(fa, svw, ldd, kk * 8, lane);
+      const SplitA av = split_a(fa);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (n < nn) {
+          float fb[2];
+          load_bt(fb, sq, ldd, n * 8, kk * 8, lane);
+          mma_3xtf32(sc[n], a, fb);
+          load_bt(fb, sdo, ldd, n * 8, kk * 8, lane);
+          mma_3xtf32(dp[n], av, fb);
+        }
+    }
+    const int q0 = it * T;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + n * 8 + 2 * t + (i & 1);
+        const int r = i >> 1;
+        float p = 0.f, ds = 0.f;
+        if (n < nn && qi < Tq && key_in[r]) {
+          p = expf(sc[n][i] * scale + bias[r] - lb[qi]);
+          ds = p * (dp[n][i] - db[qi]) * scale;
+        }
+        sc[n][i] = p;
+        dp[n][i] = ds;
+      }
+    __syncwarp();
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (n < nn) {
+        store_c(spt, ldp, n * 8, sc[n], lane);
+        store_c(sdst, ldp, n * 8, dp[n], lane);
+      }
+    __syncwarp();
+    // dV (16 x D) += P^T dO, dK += dS^T q
+    for (int kk = 0; kk < T; kk += 8) {
+      float fa[4];
+      load_a(fa, spt, ldp, kk, lane);
+      const SplitA ap = split_a(fa);
+      load_a(fa, sdst, ldp, kk, lane);
+      const SplitA as = split_a(fa);
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float fb[2];
+        load_bn(fb, sdo, ldd, n * 8, kk, lane);
+        mma_3xtf32(acc_v[n], ap, fb);
+        load_bn(fb, sq, ldd, n * 8, kk, lane);
+        mma_3xtf32(acc_k[n], as, fb);
+      }
+    }
+    __syncthreads();  // the stage is read; the next prefetch may refill it
   }
 
 #pragma unroll
-  for (int a = 0; a < ACC; ++a) {
-    const int e = tid + a * NT;
-    if (e < T * D && q0 + e / D < Tq) dq[qoff + (size_t)q0 * D + e] = acc[a];
+  for (int n = 0; n < ND; ++n) {
+    const int col = n * 8 + 2 * t;
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (key_in[r]) {
+        const size_t o = koff + (size_t)(key + 8 * r) * D + col;
+        *reinterpret_cast<float2*>(dk + o) =
+            make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + o) =
+            make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+      }
   }
 }
 
-// Above 48 KB a block needs the opt-in; raise it to the largest size each
-// kernel has been asked for (a host-side call, made only when it grows).
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, size_t bytes, size_t* opted) {
-  if (bytes <= *opted) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *opted = bytes;
-  return err;
+using DqKernel = void (*)(const float*, const float*, const float*,
+                          const float*, const float*, const float*, float*,
+                          const unsigned char*, float*, int, int, int, int,
+                          int, int, int, float);
+using DkdvKernel = void (*)(const float*, const float*, const float*,
+                            const float*, const float*, const float*,
+                            const unsigned char*, float*, float*, int, int,
+                            int, int, int, int, int, float);
+
+// every instantiation: the wide kernels by accumulator n-tiles a warp, then
+// the narrow ones for D = 8, 16, ..., 64 (BwdPlan::idx)
+constexpr DqKernel DQ_KERNELS[] = {
+    flash_bwd_dq_kernel<1>,        flash_bwd_dq_kernel<2>,
+    flash_bwd_dq_kernel<4>,        flash_bwd_dq_narrow_kernel<1>,
+    flash_bwd_dq_narrow_kernel<2>, flash_bwd_dq_narrow_kernel<3>,
+    flash_bwd_dq_narrow_kernel<4>, flash_bwd_dq_narrow_kernel<5>,
+    flash_bwd_dq_narrow_kernel<6>, flash_bwd_dq_narrow_kernel<7>,
+    flash_bwd_dq_narrow_kernel<8>};
+constexpr DkdvKernel DKDV_KERNELS[] = {
+    flash_bwd_dkdv_kernel<1>,        flash_bwd_dkdv_kernel<2>,
+    flash_bwd_dkdv_kernel<4>,        flash_bwd_dkdv_kernel<8>,
+    flash_bwd_dkdv_narrow_kernel<1>, flash_bwd_dkdv_narrow_kernel<2>,
+    flash_bwd_dkdv_narrow_kernel<3>, flash_bwd_dkdv_narrow_kernel<4>,
+    flash_bwd_dkdv_narrow_kernel<5>, flash_bwd_dkdv_narrow_kernel<6>,
+    flash_bwd_dkdv_narrow_kernel<7>, flash_bwd_dkdv_narrow_kernel<8>};
+constexpr int NDQ = sizeof(DQ_KERNELS) / sizeof(DQ_KERNELS[0]);
+constexpr int NDKDV = sizeof(DKDV_KERNELS) / sizeof(DKDV_KERNELS[0]);
+
+// Sets each kernel's shared-memory attributes on the current device once
+// and whenever a call needs more than before.
+cudaError_t prepare(const BwdPlan& pq, const BwdPlan& pkv) {
+  static size_t opted_q[MAX_DEVICES][NDQ] = {};
+  static size_t opted_kv[MAX_DEVICES][NDKDV] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  cudaError_t err =
+      opt_in(DQ_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  if (err != cudaSuccess) return err;
+  return opt_in(DKDV_KERNELS[pkv.idx], pkv.smem, &opted_kv[dev][pkv.idx]);
 }
 
-template <int ACC>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   const float* mask, float* dq, float* dk, float* dv, int B,
-                   int H, int Tq, int Tk, int D, int T, float scale,
-                   cudaStream_t stream) {
-  static size_t opted_dkdv = 48 * 1024, opted_dq = 48 * 1024;
-  const size_t b_dkdv = sizeof(float) * smem_dkdv(T, D);
-  const size_t b_dq = sizeof(float) * smem_dq(T, D);
-  cudaError_t err = opt_in(flash_bwd_dkdv_kernel<ACC>, b_dkdv, &opted_dkdv);
-  if (err != cudaSuccess) return err;
-  err = opt_in(flash_bwd_dq_kernel<ACC>, b_dq, &opted_dq);
-  if (err != cudaSuccess) return err;
-  const dim3 grid_k(B * H, (Tk + T - 1) / T);
-  flash_bwd_dkdv_kernel<ACC><<<grid_k, NT, b_dkdv, stream>>>(
-      q, k, v, dout, lse, delta, mask, dk, dv, H, Tq, Tk, D, T, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q(B * H, (Tq + T - 1) / T);
-  flash_bwd_dq_kernel<ACC><<<grid_q, NT, b_dq, stream>>>(
-      q, k, v, dout, lse, delta, mask, dq, H, Tq, Tk, D, T, scale);
-  return cudaGetLastError();
+bool valid_shape(int B, int H, int Tq, int Tk, int D) {
+  return D > 0 && D % 8 == 0 && D <= 1024 && B > 0 && H > 0 && Tq > 0 &&
+         Tk > 0;
 }
 
 }  // namespace
 
-// q, dout, dq: (B,H,Tq,D); k, v, dk, dv: (B,H,Tk,D); lse, delta: (B*H,Tq);
-// all float32, contiguous, on the device; mask: (B,Tk) float32 (1 = attend)
-// or null. D is a multiple of 8 and at most 1024. Launches both kernels on
-// `stream` and returns the first launch error (0 = launched).
+// q, dout, out, dq: (B,H,Tq,D); k, v, dk, dv: (B,H,Tk,D); lse, delta:
+// (B*H,Tq); all float32, contiguous, on the device, the tensors of D
+// columns 16-byte aligned; mask: (B,Tk) bool bytes (1 = attend) or null.
+// delta is scratch that the first kernel writes and the second reads. D is
+// a multiple of 8 and at most 1024. Launches the dq kernel (which writes
+// delta) and then the dkdv kernel on `stream`, and returns the first launch
+// error (0 = launched).
 extern "C" int t2p_flash_bwd_f32(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, const void* mask,
-                                 void* dq, void* dk, void* dv, int B, int H,
-                                 int Tq, int Tk, int D, float scale,
-                                 void* stream) {
-  if (D <= 0 || D % 8 != 0 || D > 1024 || B <= 0 || H <= 0 || Tq <= 0 ||
-      Tk <= 0)
-    return (int)cudaErrorInvalidValue;
-  // Tile rows: a multiple of 8 in [8, 64] with T * D <= 8192.
-  int T = (8192 / D) / 8 * 8;
-  T = T > 64 ? 64 : (T < 8 ? 8 : T);
-  const int need = (T * D + NT - 1) / NT;  // accumulator elements per thread
+                                 const void* dout, const void* out,
+                                 const void* lse, void* delta,
+                                 const void* mask, void* dq, void* dk,
+                                 void* dv, int B, int H, int Tq, int Tk,
+                                 int D, float scale, void* stream) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!aligned16({q, k, v, dout, dq, dk, dv}))
+    return (int)cudaErrorMisalignedAddress;
+  const BwdPlan pq = plan_bwd(B, H, Tq, Tk, D, false);
+  const BwdPlan pkv = plan_bwd(B, H, Tk, Tq, D, true);
+  cudaError_t err = prepare(pq, pkv);
+  if (err != cudaSuccess) return (int)err;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
-  const float* of = static_cast<const float*>(dout);
+  const float* gf = static_cast<const float*>(dout);
   const float* lf = static_cast<const float*>(lse);
-  const float* df = static_cast<const float*>(delta);
-  const float* mf = static_cast<const float*>(mask);
-  float* dqf = static_cast<float*>(dq);
-  float* dkf = static_cast<float*>(dk);
-  float* dvf = static_cast<float*>(dv);
+  float* df = static_cast<float*>(delta);
+  const unsigned char* mf = static_cast<const unsigned char*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define T2P_LAUNCH(N)                                                      \
-  launch<N>(qf, kf, vf, of, lf, df, mf, dqf, dkf, dvf, B, H, Tq, Tk, D, T, \
-            scale, s)
-  cudaError_t err;
-  if (need <= 1)
-    err = T2P_LAUNCH(1);
-  else if (need <= 2)
-    err = T2P_LAUNCH(2);
-  else if (need <= 4)
-    err = T2P_LAUNCH(4);
-  else if (need <= 8)
-    err = T2P_LAUNCH(8);
-  else if (need <= 16)
-    err = T2P_LAUNCH(16);
-  else
-    err = T2P_LAUNCH(32);
-#undef T2P_LAUNCH
-  return (int)err;
+  DQ_KERNELS[pq.idx]<<<pq.grid, pq.threads, pq.smem, s>>>(
+      qf, kf, vf, gf, static_cast<const float*>(out), lf, df, mf,
+      static_cast<float*>(dq), H, Tq, Tk, D, pq.dc, pq.t, pq.stages, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  DKDV_KERNELS[pkv.idx]<<<pkv.grid, pkv.threads, pkv.smem, s>>>(
+      qf, kf, vf, gf, lf, df, mf, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, D, pkv.dc, pkv.t, pkv.stages,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// The launch plans of a call, for reports: out = {dq: inner tile rows,
+// stages, column chunks, blocks, dynamic shared bytes, blocks per SM,
+// threads per block, narrow (1) or wide (0); then the same eight for
+// dkdv}.
+extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
+                                  int* out) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  const BwdPlan plans[2] = {plan_bwd(B, H, Tq, Tk, D, false),
+                            plan_bwd(B, H, Tk, Tq, D, true)};
+  const bool ready = prepare(plans[0], plans[1]) == cudaSuccess;
+  for (int i = 0; i < 2; ++i) {
+    const BwdPlan& p = plans[i];
+    int per_sm = -1;
+    if (ready &&
+        (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DQ_KERNELS[p.idx], p.threads, p.smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DKDV_KERNELS[p.idx], p.threads, p.smem)) !=
+            cudaSuccess)
+      per_sm = -1;
+    int* o = out + 8 * i;
+    o[0] = p.t;
+    o[1] = p.stages;
+    o[2] = p.nchunk;
+    o[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
+    o[4] = (int)p.smem;
+    o[5] = per_sm;
+    o[6] = p.threads;
+    o[7] = p.narrow;
+  }
+  return 0;
 }

@@ -11,6 +11,7 @@ in plain torch. Each wrapper counts its kernel launches in `.launches`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,15 +24,66 @@ _FUNCTIONS = {
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
     ),
+    "t2p_flash_fwd_plan": (ctypes.c_int,
+                           [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
 _BWD_SOURCE = "flash_bwd.cu"
 _BWD_FUNCTIONS = {
     "t2p_flash_bwd_f32": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
     ),
+    "t2p_flash_bwd_plan": (ctypes.c_int,
+                           [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
+# the ctypes functions, resolved at the first launch
+_KERNELS: dict[str, object] = {}
+
+
+def _kernel(source, functions, name):
+    fn = _KERNELS.get(name)
+    if fn is None:
+        fn = getattr(_build.load(source, functions), name)
+        _KERNELS[name] = fn
+    return fn
+
+
+def _call(fn, device, *args):
+    """Calls a kernel's C entry with the current stream of the CUDA device
+    of index `device` appended, making the device current only where it is
+    not; raises on a launch error."""
+    # the raw cudaStream_t of the current stream, without building a
+    # torch.cuda.Stream object (host time paces the small calls)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: CUDA error "
+                           f"{rc}")
+
+
+def launch_plan(kind, b, h, tq, tk, d):
+    """The kernel's launch plan for a call of this shape, for reports:
+    forward {key tile, stages, column chunks, blocks, shared bytes, blocks
+    per SM, threads per block, narrow kernel}; backward the same eight for
+    the dq kernel and for the dkdv kernel. Needs a GPU."""
+    names = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
+             "threads", "narrow")
+    if kind == "fwd":
+        fn = _kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd_plan")
+        keys = list(names)
+    else:
+        fn = _kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_plan")
+        keys = [f"{k}_{n}" for k in ("dq", "dkdv") for n in names]
+    out = (ctypes.c_int * 16)()
+    if fn(b, h, tq, tk, d, out) != 0:
+        raise ValueError(f"no {kind} plan for {(b, h, tq, tk, d)}")
+    return dict(zip(keys, out))
+
 
 _DEFAULT_BQ = 256
 _DEFAULT_BK = 512
@@ -52,7 +104,13 @@ def supports(q, k, v) -> bool:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         return False
     _, _, tq, d = q.shape
-    tk = k.shape[2]
+    return _supports(tq, k.shape[2], d)
+
+
+@functools.lru_cache(maxsize=None)
+def _supports(tq, tk, d) -> bool:
+    """`supports` by (Tq, Tk, D), cached: the wrapper's host time paces the
+    small calls."""
     if d % 8 != 0 or d > 1024:
         return False
     if tq < 8 or tk < 8:
@@ -87,39 +145,52 @@ def flash_attention_fwd_reference(q, k, v, scale=None, kv_mask=None):
     return out.to(q.dtype), lse.reshape(b * h, tq, 1)
 
 
-def _check(name, t, shape, dtype=torch.float32):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _check_inputs(gate, what, q, k, v, kv_mask, extra=()):
-    """The wrapper's checks on CUDA inputs: the shape gate, f32, shapes,
-    contiguity and one device; `extra` adds (name, tensor, shape) triples.
-    Returns the mask as contiguous float32 (1 = attend) or None."""
-    if q.device.type != "cuda":
+def _check_inputs(admitted, what, q, k, v, kv_mask, extra=()):
+    """The wrapper's checks on CUDA inputs: the shape gate (`admitted`),
+    f32, shapes, contiguity, one device, 16-byte alignment of the D-wide
+    tensors (the kernels copy 16 bytes a thread) and a bool mask; `extra`
+    adds (name, tensor, shape) triples. Returns the data pointers of q, k,
+    v and the extra tensors, then the mask's (None without a mask), then
+    the index of the CUDA device."""
+    if not q.is_cuda:
         raise ValueError(f"flash attention runs on cuda or cpu, not "
                          f"{q.device}")
     b, h, tq, d = q.shape
     tk = k.shape[2]
-    if not gate(q, k, v):
+    if not admitted:
         raise ValueError(f"flash {what} kernel does not take q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
-    for name, t, shape in [("q", q, (b, h, tq, d)), ("k", k, (b, h, tk, d)),
-                           ("v", v, (b, h, tk, d)), *extra]:
-        _check(name, t, shape)
-        if t.device != q.device:
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}"
+                         f"{' with a mask' if kv_mask is not None else ''}")
+    dev = q.get_device()
+    kv_shape = (b, h, tk, d)
+    ptrs = []
+    for name, t, shape in (("q", q, q.shape), ("k", k, kv_shape),
+                           ("v", v, kv_shape), *extra):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.get_device() != dev:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        ptr = t.data_ptr()
+        if ptr % 16 and name != "lse":
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+        ptrs.append(ptr)
     if kv_mask is None:
-        return None
-    if tuple(kv_mask.shape) != (b, tk) or kv_mask.device != q.device:
-        raise ValueError(f"kv_mask: expected ({b}, {tk}) on {q.device}, "
-                         f"got {tuple(kv_mask.shape)} on {kv_mask.device}")
-    return kv_mask.to(torch.float32).contiguous()
+        ptrs += [None, dev]
+        return ptrs
+    if kv_mask.dtype != torch.bool:
+        raise TypeError(f"kv_mask: expected torch.bool, got {kv_mask.dtype}")
+    if (kv_mask.shape != (b, tk) or not kv_mask.is_contiguous()
+            or kv_mask.get_device() != dev):
+        raise ValueError(f"kv_mask: expected a contiguous ({b}, {tk}) on "
+                         f"{q.device}, got {tuple(kv_mask.shape)} on "
+                         f"{kv_mask.device}")
+    ptrs += [kv_mask.data_ptr(), dev]
+    return ptrs
 
 
 def flash_attention_fwd(q, k, v, scale=None, kv_mask=None):
@@ -129,26 +200,18 @@ def flash_attention_fwd(q, k, v, scale=None, kv_mask=None):
     q: (B, H, Tq, D); k, v: (B, H, Tk, D); kv_mask: (B, Tk) bool or None.
     Returns out (B, H, Tq, D) and lse (B*H, Tq, 1) float32.
     """
-    if q.device.type == "cpu":
+    if not q.is_cuda and q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, scale, kv_mask)
-    maskf = _check_inputs(supports, "forward", q, k, v, kv_mask)
+    qp, kp, vp, mp, dev = _check_inputs(supports(q, k, v), "forward", q, k,
+                                        v, kv_mask)
     b, h, tq, d = q.shape
-    tk = k.shape[2]
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    lse = torch.empty((b * h, tq, 1), dtype=torch.float32, device=q.device)
-    lib = _build.load(_SOURCE, _FUNCTIONS)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.t2p_flash_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if maskf is None else maskf.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, float(scale),
-            stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
+    lse = q.new_empty((b * h, tq, 1))
+    _call(_kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd_f32"), dev,
+          qp, kp, vp, mp, out.data_ptr(), lse.data_ptr(), b, h, tq,
+          k.shape[2], d, float(scale))
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -205,37 +268,41 @@ def flash_attention_bwd_reference(q, k, v, out, lse, g, scale=None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def supports_bwd_cuda(q, k, v, masked) -> bool:
+    """Whether the backward kernel takes these shapes on the GPU. A masked
+    call: `supports_bwd`, the JAX rule. An unmasked call: every shape that
+    `supports` takes. The JAX rule's Tk % 64, Tq % 8 and 10 MB conditions
+    are TPU tiling and VMEM limits, and a call without a mask has no fully
+    masked row, the only place where the kernel and the einsum fallback
+    compute different numbers, so the kernel takes those shapes too."""
+    if masked:
+        return supports_bwd(q, k, v)
+    return supports(q, k, v)
+
+
 def flash_attention_bwd(q, k, v, out, lse, g, scale=None, kv_mask=None):
     """dQ, dK, dV from the forward's residuals (out, lse) and the output
-    gradient g: the kernel for a CUDA tensor, the plain version for a CPU
-    tensor. Shapes as in `flash_attention_bwd_reference`; float32 only on
-    the GPU."""
-    if q.device.type == "cpu":
+    gradient g: the kernel for a CUDA tensor (shapes of
+    `supports_bwd_cuda`), the plain version for a CPU tensor. Shapes as in
+    `flash_attention_bwd_reference`; float32 only on the GPU."""
+    if not q.is_cuda and q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, g, scale,
                                              kv_mask)
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    maskf = _check_inputs(
-        supports_bwd, "backward", q, k, v, kv_mask,
+    qp, kp, vp, op, gp, lp, mp, dev = _check_inputs(
+        supports_bwd_cuda(q, k, v, kv_mask is not None), "backward", q, k,
+        v, kv_mask,
         extra=[("out", out, q.shape), ("g", g, q.shape),
                ("lse", lse, (b * h, tq, 1))])
     if scale is None:
         scale = d**-0.5
-    # delta = rowsum(dO * O), outside the kernel as in the JAX package
-    delta = torch.sum(g * out, dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.load(_BWD_SOURCE, _BWD_FUNCTIONS)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.t2p_flash_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(),
-            None if maskf is None else maskf.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, tq, tk, d, float(scale), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed: CUDA error {rc}")
+    # delta = rowsum(dO * out): written by the dq kernel, read by dkdv
+    delta = q.new_empty((b * h, tq))
+    _call(_kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_f32"),
+          dev, qp, kp, vp, gp, op, lp, delta.data_ptr(), mp,
+          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, k.shape[2],
+          d, float(scale))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
