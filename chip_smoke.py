@@ -5,15 +5,15 @@ Phases, each printing a flushed line with the seconds since start:
   2. build: compiles every CUDA kernel with nvcc, one process per source,
      all started together, and prints each instantiation's registers,
      stack frame and spills from ptxas; a spill or a stack frame fails.
-  3. kernels: holds each kernel to its plain PyTorch version at every shape
-     its path gives it (the forward at the serving shapes, the backward at
-     the training shapes, with a fully masked row), prints each launch's
-     plan (tile, blocks, shared memory, blocks per SM), and times kernel,
-     plain version and the PyTorch library call that computes the same
-     function, beside two bounds: f32 on the CUDA cores, and 3xTF32 on the
-     tensor cores (the kernels' route); also each wrapper's host time per
-     call and the kernel's device time alone (calls replayed from a CUDA
-     graph).
+  3. kernels: holds each f32 kernel to its plain PyTorch version at every
+     shape its L=128 path gives it (the forward at the serving shapes, the
+     backward at the training shapes, with a fully masked row), prints each
+     launch's plan (tile, blocks, shared memory, blocks per SM), and times
+     kernel, plain version and the PyTorch library call that computes the
+     same function, beside two bounds: f32 on the CUDA cores, and 3xTF32 on
+     the tensor cores (the kernels' route); also each wrapper's host time
+     per call and the kernel's device time alone (calls replayed from a
+     CUDA graph).
   4. serving: a flagship-width L=128 Server with seeded random weights
      answers requests (different captions and lengths, one seeded) over a
      short PC trajectory; every map must be finite, (5, 128, 128), with the
@@ -23,16 +23,43 @@ Phases, each printing a flushed line with the seconds since start:
   5. reference: one score evaluation on the GPU (kernels) against the same
      model on the CPU (plain versions).
   6. training: `cli/train.main` trains the bench_l128 configuration at batch
-     16 on records written here (enough that the 12 steps fall in one
-     epoch, so the loader reads ahead as on a real dataset), 2 warm-up and
-     10 timed steps; losses finite, exactly 18 backward and 18 forward
-     launches per step, the weights moved, the EMA apart from them. A Server loads the EMA weights
+     16 on records written here (enough that the steps fall in one epoch,
+     so the loader reads ahead as on a real dataset), 2 warm-up and 6 timed
+     steps; losses finite, exactly 18 backward and 30 forward launches per
+     step (18 + the 12 of the rematted transformer blocks' recompute), the
+     weights moved, the EMA apart from them. A Server loads the EMA weights
      it wrote and answers a request.
   7. train reference: one flagship train step at B=1 (dropout 0, injected
      draws) on the GPU against the CPU: loss and every gradient.
+  8. kernels bf16: the bf16 kernels against their plain versions at every
+     shape of the N=256 paths (configs/quality_n256.yml: the forward at
+     serving batch 4, the backward at training batch 8), timed as in 3,
+     with bounds at the bf16 tensor-core rate: the function's, and that of
+     the mma work the kernels issue (S recomputed per column chunk, the
+     split products twice).
+  9. serving N=256: a Server with quality_n256.yml's widths (bf16, seeded
+     random weights) at batch 4 answers two batches of requests over 10 PC
+     steps: maps finite, (5, 256, 256), the length mask as the last
+     channel, exactly 96 bf16 forward launches per PC step.
+ 10. reference N=256: one bf16 score evaluation at B=1 on the GPU against
+     the CPU in bf16 (plain versions) and in f32, and on the GPU with the
+     attention through its plain version: the kernels' share.
+ 11. train reference N=256: one bf16 train step at B=1 with dropout 0.1
+     (injected t and z, the same generator seed): remat against no remat
+     and the kernels against the plain attention backward (both with cuDNN
+     off, whose algorithm choice follows the allocator's free memory),
+     beside the bf16-against-f32 gap.
+ 12. training N=256: `cli/train.main --config configs/quality_n256.yml` as
+     written (bf16, remat, featurization on the device, batch 8) on seeded
+     helix records of lengths 128-256, 2 warm-up and 6 timed steps: losses
+     finite, weights and EMA moved, exactly 80 bf16 forward (48 + the 32 of
+     the transformer blocks' recompute) and 32 bf16 backward launches per
+     step (the 16 masked cross-attention calls over the 16-token caption
+     take the JAX route, the einsum recompute); then the peak memory of one
+     step at batch 2 with and without remat.
 
-float32 throughout, with TF32 off for matmuls and cuDNN convolutions (both
-packages compute the model in full f32). The last line of stdout is
+The f32 phases run in full f32 (TF32 off for matmuls and cuDNN); bf16 runs
+with f32 accumulation (`use_full_f32`). The last line of stdout is
 {"ok": true, "device": {...}}; any failure prints its traceback and exits
 non-zero. Details go to chiprun_out/chip_smoke.json.
 
@@ -51,7 +78,7 @@ from pathlib import Path
 T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
-STEPS = 20           # PC steps per request batch (the full schedule is 2000)
+STEPS = 10           # PC steps per request batch (the full schedule is 2000)
 BATCH = 4            # serving batch size
 TOL = 1e-4           # forward kernel vs plain version, f32, max abs error
 # backward kernel vs plain version: max abs error over 1e-4 of the largest
@@ -74,15 +101,37 @@ TRAIN_GRAD_TOL = 5e-3
 TRAIN_KERNEL_TOL = 1e-3
 TRAIN_BATCH = 16     # configs/bench_l128.yml training.batch_size
 TRAIN_WARMUP = 2     # train steps before the timed ones
-TRAIN_TIMED = 10
-# the 95/5 split leaves 198 train records: 12 batches of 16, so every step
+TRAIN_TIMED = 6
+# the 95/5 split leaves 138 train records: 8 batches of 16, so every step
 # of the run is in one epoch and the loader's thread reads ahead (a split of
-# one batch would start a new loader, unread, on every step); the 10 eval
+# one batch would start a new loader, unread, on every step); the 7 eval
 # records are filled to one batch
-N_RECORDS = 208
+N_RECORDS = 145
 PEAK_BYTES_S = 3.35e12   # H100 SXM HBM3, NVIDIA data sheet
 PEAK_F32_S = 67e12       # H100 SXM f32 outside the tensor cores
 PEAK_TF32_S = 495e12     # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_S = 989e12     # H100 SXM bf16 tensor cores, dense
+
+# N=256 (configs/quality_n256.yml): serving batch 4 over N256_STEPS PC
+# steps; training at the yml's batch 8 on N256_RECORDS records of lengths
+# 128-256 (the 95/5 split leaves 69 train records, 8 batches: the 8 steps
+# fall in one epoch and the loader reads ahead; 3 eval records are filled
+# to one batch)
+N256_STEPS = 10
+N256_BATCH = 4
+N256_TRAIN_BATCH = 8
+N256_WARMUP = 2
+N256_TIMED = 6
+N256_RECORDS = 72
+N256_MEM_BATCH = 2   # the remat / no-remat peak-memory step
+# a bf16 kernel against its plain version: both round one f32 result to
+# bf16, and the f32 sums run in other orders, so an element may land one
+# rounding step apart: max abs error <= one bf16 step (ulp) at the scale of
+# the tensor (its largest |value|); lse (f32) within 1e-5 of max(1, |lse|)
+LSE_TOL = 1e-5
+# remat against no remat at B=1 on the card, each gradient's max |diff| over
+# its max |grad| (floored at 1e-3 of the largest), cuDNN off
+REMAT_TOL = 1e-5
 
 # (name, H, Tq, Tk, D, masked, launches per PC step): the attention calls of
 # the flagship score UNet, 2 evaluations per PC step (corrector, predictor).
@@ -95,6 +144,37 @@ PATH_SHAPES = [
     ("cross_mid_4x4", 8, 16, 64, 32, True, 2),
 ]
 LAUNCHES_PER_STEP = sum(s[-1] for s in PATH_SHAPES)  # 36
+
+# (name, H, Tq, Tk, D, masked, launches per PC step) of the N=256 model:
+# attention at 32x32, 16x16 and 8x8 (the mid block's 8x8 pair included),
+# the AttnBlock with one head of 512, the transformer with 8 heads of 64,
+# the caption padded to its 16-token bucket (text.pad_to_bucket); five
+# pairs at 32 and at 16, six at 8, per evaluation, 2 evaluations per PC
+# step
+N256_SHAPES = [
+    ("attnblock_32x32", 1, 1024, 1024, 512, False, 10),
+    ("self_32x32", 8, 1024, 1024, 64, False, 10),
+    ("cross_32x32", 8, 1024, 16, 64, True, 10),
+    ("attnblock_16x16", 1, 256, 256, 512, False, 10),
+    ("self_16x16", 8, 256, 256, 64, False, 10),
+    ("cross_16x16", 8, 256, 16, 64, True, 10),
+    ("attnblock_8x8", 1, 64, 64, 512, False, 12),
+    ("self_8x8", 8, 64, 64, 64, False, 12),
+    ("cross_8x8", 8, 64, 16, 64, True, 12),
+]
+N256_LAUNCHES_PER_STEP = sum(s[-1] for s in N256_SHAPES)  # 96
+# one forward and one backward per call in a train step (calls per step =
+# PC-step launches / 2); the masked cross-attention over 16 keys is refused
+# by the backward gate (`supports_bwd`, Tk % 64) and takes the einsum
+# recompute, as in the JAX package
+N256_TRAIN_SHAPES = [(n, h, tq, tk, d, m, c // 2)
+                     for n, h, tq, tk, d, m, c in N256_SHAPES]
+N256_BWD_SHAPES = [s for s in N256_TRAIN_SHAPES if not s[5]]
+N256_FWD_PER_TRAIN_STEP = sum(s[6] for s in N256_TRAIN_SHAPES)  # 48
+N256_BWD_PER_TRAIN_STEP = sum(s[6] for s in N256_BWD_SHAPES)  # 32
+# the recompute of the rematted transformer blocks: self and cross of the
+# 16 blocks
+N256_REMAT_FWD_PER_TRAIN_STEP = 2 * 16
 
 # (name, H, Tq, Tk, D, masked, calls per train step) of the flagship
 # training step at B=16, one forward and one backward per call (no remat).
@@ -111,6 +191,10 @@ TRAIN_SHAPES = [
 ]
 FWD_PER_TRAIN_STEP = sum(s[6] for s in TRAIN_SHAPES)  # 18
 BWD_PER_TRAIN_STEP = FWD_PER_TRAIN_STEP  # 18
+# the JAX model remats its transformer blocks (`remat_attention`), and so
+# does the port: the backward recomputes self- and cross-attention of the 6
+# blocks
+REMAT_FWD_PER_TRAIN_STEP = 2 * 6
 
 
 def log(msg):
@@ -215,7 +299,10 @@ def ptxas_functions(log_text):
                       r"for) '?(\w+)", ln)
         if m:
             mangled = m.group(1)
-            k = re.search(r"(flash_[a-z_]*kernel)I((?:Li\d+E)+)", mangled)
+            # the name follows its length digits (Itanium mangling), after
+            # the anonymous namespace's hashed file name
+            k = re.search(r"\d(flash_[a-z0-9_]*?kernel)I((?:Li\d+E)+)",
+                          mangled)
             name = (k.group(1) + "<" + ",".join(
                 re.findall(r"Li(\d+)E", k.group(2))) + ">") if k else mangled
             out.setdefault(name, {})
@@ -531,11 +618,12 @@ def phase_training(torch, records, weights):
     if bwd != BWD_PER_TRAIN_STEP * steps:
         raise AssertionError(f"flash_bwd launched {bwd} times, expected "
                              f"{BWD_PER_TRAIN_STEP} x {steps}")
-    # 18 per train step and 18 per eval batch (the eval split is filled to
-    # one batch)
-    if fwd != FWD_PER_TRAIN_STEP * (steps + 1):
+    # 18 + 12 (the rematted transformer blocks' recompute) per train step
+    # and 18 per eval batch (the eval split is filled to one batch)
+    per_step = FWD_PER_TRAIN_STEP + REMAT_FWD_PER_TRAIN_STEP
+    if fwd != per_step * steps + FWD_PER_TRAIN_STEP:
         raise AssertionError(f"flash_fwd launched {fwd} times, expected "
-                             f"{FWD_PER_TRAIN_STEP} x ({steps} + 1)")
+                             f"{per_step} x {steps} + {FWD_PER_TRAIN_STEP}")
     lrs = res["lrs"]
     if lrs[0] != 0.0 or not lrs[1] > 0.0:
         raise AssertionError(f"learning rates {lrs[:3]}: the first update "
@@ -560,7 +648,8 @@ def phase_training(torch, records, weights):
         f"{res['records']} records: losses {losses[0]:.4f} -> "
         f"{losses[-1]:.4f} (all finite), eval (EMA) {eval_loss:.4f}; "
         f"flash_bwd launches {bwd} (= {BWD_PER_TRAIN_STEP} x {steps}), "
-        f"flash_fwd {fwd} (= {FWD_PER_TRAIN_STEP} x ({steps} + 1 eval)); "
+        f"flash_fwd {fwd} (= {per_step} x {steps} + {FWD_PER_TRAIN_STEP} "
+        f"eval); "
         f"lr {lrs[0]} then {lrs[1]:.1e}; {moved}/{len(params)} "
         f"params moved, {ema_apart} EMA params apart from them")
     log(f"training: {ms:.2f} ms per train step (median of the last "
@@ -693,6 +782,553 @@ def phase_train_reference(torch, records):
                 kernel_vs_plain_bwd_worst_grad=kernel_key)
 
 
+def bf16_step(scale):
+    """One bf16 rounding step (ulp) at the magnitude `scale`."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(scale, 1e-30))) - 7)
+
+
+def bf16_bound(nbytes, flops):
+    """(least ms, what bounds it) at the H100's HBM and bf16 tensor-core
+    rates."""
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_BF16_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def register_report(ptxas, kind):
+    """{instantiation: registers / spills} of the bf16 kernels of `kind`."""
+    return {k: (r.get("registers"), r.get("spill_stores"),
+                r.get("spill_loads"))
+            for k, r in ptxas.items() if f"{kind}_bf16" in k or
+            (kind == "bwd" and "_bf16" in k and "flash_bwd" in k)}
+
+
+def phase_kernels_bf16(torch, ptxas):
+    """The bf16 kernels at every N=256 path shape: the forward at B=4 (the
+    serving batch), the backward at B=8 (the training batch) on the
+    forward kernel's residuals, with a fully masked batch row where the
+    call is masked. Each against its plain version, with the times of
+    phase 3 and the bf16 bounds."""
+    import torch.nn.functional as F
+
+    from text2protein_tpu_torch.ops import flash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    fwd_rows, bwd_rows = [], []
+    for kind, shapes, b in (("fwd", N256_SHAPES, N256_BATCH),
+                            ("bwd", N256_BWD_SHAPES, N256_TRAIN_BATCH)):
+        for name, h, tq, tk, d, masked, per_step in shapes:
+            q, k, v, g = (torch.randn((b, h, t, d), device=dev,
+                                      generator=gen).bfloat16()
+                          for t in (tq, tk, tk, tq))
+            mask = None
+            if masked:
+                lengths = torch.tensor([3, 9, tk] + [tk] * (b - 4) + [0],
+                                       device=dev)[:b]
+                mask = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+            scale = d**-0.5
+            out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
+            plan = flash.launch_plan(kind, b, h, tq, tk, d, torch.bfloat16)
+            attn_mask = None if mask is None else mask[:, None, None, :]
+            if kind == "fwd":
+                torch.cuda.synchronize()
+                ref, ref_lse = flash.flash_attention_fwd_reference(
+                    q, k, v, scale, mask)
+                err = (out.float() - ref.float()).abs().max().item()
+                tol = bf16_step(ref.float().abs().max().item())
+                # a fully masked row's lse is -1e30 in both, exactly
+                live = ref_lse > -1e29
+                lerr = (lse - ref_lse)[live].abs().max().item()
+                ltol = LSE_TOL * max(1.0, ref_lse[live].abs().max().item())
+                ok = (err <= tol and lerr <= ltol
+                      and torch.equal(lse[~live], ref_lse[~live])
+                      and bool(torch.isfinite(out).all()))
+                what = f"lse err {lerr:.2e} (tol {ltol:.1e})"
+
+                def call():
+                    return flash.flash_attention_fwd(q, k, v, scale, mask)
+
+                def plain():
+                    return flash.flash_attention_fwd_reference(
+                        q, k, v, scale, mask)
+
+                library_ms = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=attn_mask, scale=scale))
+                nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
+                          + 4 * b * h * tq + (b * tk if masked else 0))
+                flops = 4 * b * h * tq * tk * d
+                # mma work issued: S per column chunk, P V split in two
+                mma = 2 * b * h * tq * tk * d * (plan["chunks"] + 2)
+            else:
+                if not flash.supports_bwd_cuda(q, k, v, masked):
+                    raise AssertionError(f"{name}: the gate refuses it")
+                got = flash.flash_attention_bwd(q, k, v, out, lse, g, scale,
+                                                mask)
+                torch.cuda.synchronize()
+                want = flash.flash_attention_bwd_reference(
+                    q, k, v, out, lse, g, scale, mask)
+                errs = [((x.float() - w.float()).abs().max().item(),
+                         bf16_step(w.float().abs().max().item()))
+                        for x, w in zip(got, want)]
+                err = max(e for e, _ in errs)
+                tol = min(t for _, t in errs)
+                ok = (all(e <= t for e, t in errs)
+                      and all(bool(torch.isfinite(x).all()) for x in got))
+                what = ("dq/dk/dv err " + ", ".join(
+                    f"{e:.2e} (tol {t:.1e})" for e, t in errs))
+
+                def call():
+                    return flash.flash_attention_bwd(q, k, v, out, lse, g,
+                                                     scale, mask)
+
+                def plain():
+                    return flash.flash_attention_bwd_reference(
+                        q, k, v, out, lse, g, scale, mask)
+
+                xs = [t.detach().requires_grad_() for t in (q, k, v)]
+
+                def sdpa():
+                    with torch.enable_grad():
+                        return F.scaled_dot_product_attention(
+                            *xs, attn_mask=attn_mask, scale=scale)
+
+                library_ms = (cuda_ms(torch, lambda: torch.autograd.grad(
+                    sdpa(), xs, g)) - cuda_ms(torch, sdpa))
+                nbytes = (2 * (2 * (q.numel() + k.numel() + v.numel())
+                               + out.numel() + g.numel()) + 4 * b * h * tq
+                          + (b * tk if masked else 0))
+                flops = 10 * b * h * tq * tk * d
+                # S and dP in both kernels per column chunk, dQ, dK, dV split
+                mma = 2 * b * h * tq * tk * d * (
+                    2 * plan["dq_chunks"] + 2 * plan["dkdv_chunks"] + 6)
+            if not ok:
+                raise AssertionError(f"bf16 {kind} {name}: kernel vs plain "
+                                     f"{what}")
+            kernel_ms = cuda_ms(torch, call)
+            host = host_us(call)
+            device = graph_us(torch, call)
+            plain_ms = cuda_ms(torch, plain)
+            bound_ms, bound_by = bf16_bound(nbytes, flops)
+            mma_ms = max(nbytes / PEAK_BYTES_S, mma / PEAK_BF16_S) * 1e3
+            row = dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
+                       masked=masked, per_step=per_step, max_abs_err=err,
+                       tol=tol, ms=kernel_ms, host_us=host,
+                       device_ms=device / 1e3, plain_ms=plain_ms,
+                       library_ms=library_ms, bytes=nbytes, flops=flops,
+                       mma_flops=mma, bound_ms=bound_ms, bound_by=bound_by,
+                       tc_bound_ms=mma_ms, plan=plan)
+            (fwd_rows if kind == "fwd" else bwd_rows).append(row)
+            log(f"kernel flash_{kind}_bf16 {name} B={b} H={h} Tq={tq} "
+                f"Tk={tk} D={d} mask={masked}"
+                f"{' +dead row' if masked else ''}: max_abs_err {err:.2e} "
+                f"({what}) ms {kernel_ms:.4f} host_us {host:.1f} device_us "
+                f"{device:.1f} plain_ms {plain_ms:.4f} library_ms(sdpa"
+                f"{' bwd' if kind == 'bwd' else ''} bf16) {library_ms:.4f} "
+                f"bound_ms {bound_ms:.5f} ({bound_by}) mma_bound_ms "
+                f"{mma_ms:.5f} plan {plan}")
+        log(f"kernels bf16 {kind}: ptxas registers/spill stores/spill loads "
+            f"{register_report(ptxas, kind)}")
+    return fwd_rows, bwd_rows
+
+
+N256_REQUESTS = [
+    [{"caption": "A small alpha-helical bundle that binds zinc.",
+      "length": 128},
+     {"caption": "beta barrel membrane transporter", "length": 200},
+     {"caption": "", "length": 256},
+     {"caption": "three helix bundle", "length": 171}],
+    [{"caption": "Kinase domain with a long activation loop.",
+      "length": 233, "seed": 4321}],
+]
+
+
+def phase_serving_n256(torch):
+    """A Server with quality_n256.yml's widths, bf16, seeded random
+    weights, batch 4, N256_STEPS PC steps, two batches of requests."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli.serve import Server, decode_coords
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.ops import flash
+
+    t = time.perf_counter()
+    server = Server(quality_n256_config(), batch_size=N256_BATCH,
+                    num_steps=N256_STEPS, device="cuda", weight_seed=0)
+    n_params = sum(p.numel() for p in server.model.parameters())
+    log(f"serving N=256: Server ({n_params} params, {server.model.dtype}, "
+        f"batch {N256_BATCH}, {N256_STEPS} PC steps) built in "
+        f"{time.perf_counter() - t:.2f}s")
+    seconds, launches = [], 0
+    for reqs in N256_REQUESTS:
+        counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+        for c in counters:
+            c.launches = c.launches_bf16 = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results = server.run_batch(reqs)
+        seconds.append(time.perf_counter() - t)
+        got = flash.flash_attention_fwd.launches_bf16
+        launches += got
+        if got != N256_LAUNCHES_PER_STEP * N256_STEPS:
+            raise AssertionError(f"flash_fwd_bf16 launched {got} times in a "
+                                 f"batch, expected {N256_LAUNCHES_PER_STEP} "
+                                 f"x {N256_STEPS}")
+        others = (flash.flash_attention_fwd.launches
+                  + flash.flash_attention_bwd.launches
+                  + flash.flash_attention_bwd.launches_bf16)
+        if others:
+            raise AssertionError(f"serving N=256 launched {others} f32 or "
+                                 "backward kernels")
+        for req, res in zip(reqs, results):
+            cnn = decode_coords(res)
+            L = req["length"]
+            if cnn.shape != (5, 256, 256) or not np.isfinite(cnn).all():
+                raise AssertionError(f"bad map {cnn.shape} for {req}")
+            want = np.zeros((256, 256), np.float32)
+            want[:L, :L] = 1.0
+            if not np.array_equal(cnn[-1], want):
+                raise AssertionError(f"last channel is not the length mask "
+                                     f"for {req}")
+        log(f"serving N=256: batch of {len(reqs)} request(s) in "
+            f"{seconds[-1]:.3f}s, flash_fwd_bf16 launches {got} (= "
+            f"{N256_LAUNCHES_PER_STEP} x {N256_STEPS} steps), maps finite "
+            f"(5, 256, 256), last channel = length mask")
+    s_per_step = min(seconds[1:] or seconds) / N256_STEPS
+    log(f"serving N=256: {s_per_step * 1e3:.2f} ms per PC step at batch "
+        f"{N256_BATCH} (the second batch; the first includes cuDNN's "
+        f"search: {seconds[0]:.2f}s); "
+        f"{N256_BATCH * 60 / (s_per_step * 2000):.3f} samples/min at the "
+        f"full 2000 steps")
+    return server, launches, dict(batch_seconds=seconds,
+                                  ms_per_pc_step=s_per_step * 1e3,
+                                  samples_per_min_2000=N256_BATCH * 60
+                                  / (s_per_step * 2000))
+
+
+def rel_max(a, b):
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase_reference_n256(torch, server):
+    """One score evaluation at B=1 in bf16: the GPU (kernels) against the
+    CPU in bf16 (plain versions) and in f32 (the same weights). Bar: the
+    GPU may differ from the CPU in bf16 by no more than bf16 differs from
+    f32 (sums in another order flip bf16 roundings, and a flip spreads
+    through the ~100 layers as a difference of the size of bf16's own
+    rounding). The kernels' share: the same GPU evaluation with the
+    attention through its plain version."""
+    import copy
+
+    import numpy as np
+
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.models.unet import build_model
+    from text2protein_tpu_torch.ops import flash
+
+    model = server.model
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(
+        (rng.standard_normal((1, 256, 256, 5)) * 10).astype(np.float32))
+    labels = torch.tensor([1000.0])
+    ctx_np, mask_np = server.encoder.encode(
+        ["A small alpha-helical bundle that binds zinc."])
+    ctx, mask = torch.from_numpy(ctx_np), torch.from_numpy(mask_np)
+    args = (x.cuda(), labels.cuda(), ctx.cuda(), mask.cuda())
+    kernel_fwd = flash.flash_attention_fwd
+    before = kernel_fwd.launches_bf16
+    with torch.inference_mode():
+        gpu = model(*args).cpu()
+        if kernel_fwd.launches_bf16 - before != N256_LAUNCHES_PER_STEP // 2:
+            raise AssertionError("the GPU score evaluation did not launch "
+                                 "the bf16 forward 48 times")
+        flash.flash_attention_fwd = flash.flash_attention_fwd_reference
+        try:
+            gpu_plain = model(*args).cpu()
+        finally:
+            flash.flash_attention_fwd = kernel_fwd
+    t = time.perf_counter()
+    cpu_model = copy.deepcopy(model).to("cpu")
+    cfg = quality_n256_config()
+    cfg.model.dtype = "float32"
+    f32_model = build_model(cfg, device="cpu")
+    f32_model.load_state_dict(cpu_model.state_dict())
+    with torch.inference_mode():
+        cpu = cpu_model(x, labels, ctx, mask)
+        cpu_f32 = f32_model(x, labels, ctx, mask)
+    cpu_s = time.perf_counter() - t
+    del cpu_model, f32_model
+    for name, out in (("gpu", gpu), ("gpu_plain", gpu_plain), ("cpu", cpu),
+                      ("cpu_f32", cpu_f32)):
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"non-finite N=256 score on {name}")
+    diff = rel_max(gpu, cpu)
+    bf16_gap = rel_max(cpu, cpu_f32)
+    kernel_share = rel_max(gpu, gpu_plain)
+    log(f"reference N=256: bf16 score, GPU vs CPU rel max diff {diff:.2e} "
+        f"(tol: the CPU's bf16 vs f32, {bf16_gap:.2e}); GPU kernels vs GPU "
+        f"plain attention {kernel_share:.2e}; GPU vs CPU f32 "
+        f"{rel_max(gpu, cpu_f32):.2e} (CPU part {cpu_s:.1f}s)")
+    if not (diff <= bf16_gap and kernel_share <= bf16_gap):
+        raise AssertionError("the N=256 GPU score disagrees (line above)")
+    return dict(gpu_vs_cpu=diff, cpu_bf16_vs_f32=bf16_gap,
+                kernels_vs_plain=kernel_share)
+
+
+def phase_training_n256(torch, records):
+    """cli/train.main on configs/quality_n256.yml as written, then one step
+    at batch N256_MEM_BATCH with and without remat for the peak memory."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+
+    steps = N256_WARMUP + N256_TIMED
+    config = quality_n256_config()
+    if config.training.batch_size != N256_TRAIN_BATCH:
+        raise AssertionError("quality_n256.yml trains at batch "
+                             f"{config.training.batch_size}")
+    torch.cuda.reset_peak_memory_stats()
+    for c in (flash.flash_attention_fwd, flash.flash_attention_bwd):
+        c.launches = c.launches_bf16 = 0
+    res = train.main(["--config", str(ROOT / "configs/quality_n256.yml"),
+                      "--data", str(records), "--max_steps", str(steps)])
+    fwd = flash.flash_attention_fwd.launches_bf16
+    bwd = flash.flash_attention_bwd.launches_bf16
+    f32 = (flash.flash_attention_fwd.launches
+           + flash.flash_attention_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs, state = res["losses"], res["step_seconds"], res["state"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"N=256 train losses {losses}")
+    if not np.isfinite(res["eval_loss"]):
+        raise AssertionError(f"N=256 eval loss {res['eval_loss']}")
+    per_step = N256_FWD_PER_TRAIN_STEP + N256_REMAT_FWD_PER_TRAIN_STEP
+    want_fwd = per_step * steps + N256_FWD_PER_TRAIN_STEP  # + the eval batch
+    if (fwd, bwd, f32) != (want_fwd, N256_BWD_PER_TRAIN_STEP * steps, 0):
+        raise AssertionError(
+            f"N=256 launches: fwd_bf16 {fwd} (expected {want_fwd}), "
+            f"bwd_bf16 {bwd} (expected {N256_BWD_PER_TRAIN_STEP * steps}), "
+            f"f32 {f32} (expected 0)")
+    start = dict(init_random_weights(build_model(config, device="cpu"),
+                                     config.seed).named_parameters())
+    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    moved = sum(not torch.equal(params[k], start[k]) for k in params)
+    ema_apart = sum(not torch.equal(params[k], state.ema.params[k].cpu())
+                    for k in params)
+    if moved < len(params) // 2 or ema_apart < len(params) // 2:
+        raise AssertionError(f"{moved} of {len(params)} params moved, "
+                             f"{ema_apart} EMA params differ from them")
+    timed = np.asarray(secs[N256_WARMUP:]) * 1e3
+    ms = float(np.median(timed))
+    log(f"training N=256: quality_n256.yml (bf16, remat, featurize on "
+        f"device) at batch {N256_TRAIN_BATCH}, {steps} steps on "
+        f"{res['records']} records: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (all finite), eval (EMA) {res['eval_loss']:.4f}; "
+        f"flash_fwd_bf16 launches {fwd} (= {per_step} x {steps} + "
+        f"{N256_FWD_PER_TRAIN_STEP} eval), flash_bwd_bf16 {bwd} (= "
+        f"{N256_BWD_PER_TRAIN_STEP} x {steps}), f32 kernels 0; "
+        f"{moved}/{len(params)} params moved, {ema_apart} EMA params apart")
+    log(f"training N=256: {ms:.2f} ms per train step (median of the last "
+        f"{N256_TIMED}, range {timed.min():.2f}-{timed.max():.2f}; first "
+        f"{N256_WARMUP}: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in secs[:N256_WARMUP])} ms), "
+        f"{N256_TRAIN_BATCH / ms * 1e3:.2f} samples/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    out = dict(steps=steps, losses=losses, step_seconds=secs,
+               ms_per_step=ms, ms_per_step_range=[float(timed.min()),
+                                                  float(timed.max())],
+               samples_per_s=N256_TRAIN_BATCH / ms * 1e3,
+               eval_loss=res["eval_loss"], peak_bytes=peak,
+               fwd_launches=fwd, bwd_launches=bwd)
+    del state, res, params, start
+    torch.cuda.empty_cache()
+    out["remat_peak_bytes"] = remat_peak_memory(torch, records)
+    return out
+
+
+def _n256_batch(torch, records, b, config):
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.data.dataset import (
+        ProteinProcessedDataset,
+        make_batch,
+    )
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+    from text2protein_tpu_torch.training.steps import featurize
+
+    ds = ProteinProcessedDataset(records)
+    host = make_batch([ds[i] for i in range(b)], config.data.max_res_num)
+    batch = batch_to_device_arrays(host, config, device="cuda")
+    ctx, ctx_mask = build_text_encoder(config).encode(host["caption"])
+    batch["context"] = torch.from_numpy(ctx).cuda()
+    batch["context_mask"] = torch.from_numpy(ctx_mask).cuda()
+    return featurize(config, batch)
+
+
+def _set_remat(model, on):
+    from text2protein_tpu_torch.models.attention import SpatialTransformer
+
+    model.remat_resblocks = on
+    for m in model.modules():
+        if isinstance(m, SpatialTransformer):
+            m.remat = on
+
+
+def remat_peak_memory(torch, records):
+    """Peak device memory of one train step (loss, backward, clip + Adam,
+    EMA) at batch N256_MEM_BATCH, with remat (the yml's) and without (the
+    residual and transformer blocks keep their activations)."""
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.training.state import create_train_state
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    config = quality_n256_config()
+    model = init_random_weights(build_model(config, device="cuda"), 0)
+    sde, _ = get_sde(config)
+    state = create_train_state(config, model)
+    step = make_train_step(config, sde, model)
+    batch = _n256_batch(torch, records, N256_MEM_BATCH, config)
+    out = {}
+    for remat in (True, False, True):
+        _set_remat(model, remat)
+        step(state, batch, 0)  # warm: cuDNN's search and the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, batch, 0)
+        torch.cuda.synchronize()
+        out["remat" if remat else "no_remat"] = (
+            torch.cuda.max_memory_allocated(), base)
+    (rp, rb), (np_, nb) = out["remat"], out["no_remat"]
+    log(f"training N=256: one train step at batch {N256_MEM_BATCH}: peak "
+        f"{rp / 2**30:.2f} GiB with remat, {np_ / 2**30:.2f} GiB without "
+        f"(weights, Adam and EMA state {rb / 2**30:.2f} GiB of it); "
+        f"activations {(rp - rb) / 2**30:.2f} vs {(np_ - nb) / 2**30:.2f} "
+        f"GiB, x{(np_ - nb) / max(rp - rb, 1):.2f}")
+    del state, model, step
+    torch.cuda.empty_cache()
+    return dict(remat=rp, no_remat=np_, state_bytes=rb)
+
+
+def phase_train_reference_n256(torch, records):
+    """One train step's loss and gradients at B=1 on the card, dropout 0.1
+    (the same generator seed), injected t and z: bf16 with remat against
+    bf16 without (each gradient within REMAT_TOL of its scale), and bf16
+    with the kernels against bf16 with the plain attention backward, beside
+    bf16 against f32 (the flattened gradient's max |diff| over max |f32
+    gradient|): the kernels' share must stay within half of bf16's own.
+
+    The remat and kernel comparisons run with cuDNN off (the convolutions
+    on PyTorch's own im2col + GEMM path): cuDNN chooses its algorithms
+    within the largest free block of the caching allocator, so two steps
+    that hold different activations (remat's purpose) can get different
+    algorithms and round bf16 differently; seen on an H100 as 1e-2 of a
+    gradient's scale between remat and no remat in some processes, and 0
+    between two runs of the same step."""
+    import numpy as np
+
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+
+    config = quality_n256_config()
+    sde, _ = get_sde(config)
+    model = init_random_weights(build_model(config, device="cuda"), 1)
+    cfg32 = quality_n256_config()
+    cfg32.model.dtype = "float32"
+    model32 = build_model(cfg32, device="cuda")
+    model32.load_state_dict(model.state_dict())
+    batch = _n256_batch(torch, records, 1, config)
+    rng = np.random.default_rng(2)
+    t = torch.from_numpy(rng.uniform(0.05, 1.0, 1).astype(np.float32)).cuda()
+    z = torch.from_numpy(rng.standard_normal((1, 256, 256, 5))
+                         .astype(np.float32)).cuda()
+    kernel_bwd = flash.flash_attention_bwd
+
+    def grads(m):
+        loss_fn = get_sde_loss_fn(sde, m, train=True,
+                                  condition=tuple(config.model.condition))
+        m.zero_grad(set_to_none=True)
+        before = kernel_bwd.launches_bf16
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        loss = loss_fn(None, batch, gen, t=t, z=z)
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone() for k, p in
+                             m.named_parameters()}, \
+            kernel_bwd.launches_bf16 - before
+
+    with torch.backends.cudnn.flags(enabled=False):
+        l_r, g_r, n_r = grads(model)
+        _set_remat(model, False)
+        l_n, g_n, _ = grads(model)
+        _set_remat(model, True)
+        # the same remat step again: what the card alone moves
+        _, g_again, _ = grads(model)
+        flash.flash_attention_bwd = flash.flash_attention_bwd_reference
+        try:
+            _, g_p, _ = grads(model)
+        finally:
+            flash.flash_attention_bwd = kernel_bwd
+    # bf16 against f32, both as the trainer runs them (cuDNN on); and remat
+    # against no remat with cuDNN on, reported only (its algorithm choice)
+    _, g_b, _ = grads(model)
+    _set_remat(model, False)
+    _, g_bn, _ = grads(model)
+    _set_remat(model, True)
+    cudnn_worst, cudnn_key = worst_grad_diff(g_b, g_bn)
+    l_f, g_f, _ = grads(model32)
+    if n_r != N256_BWD_PER_TRAIN_STEP:
+        raise AssertionError(f"bf16 backward launches {n_r}, expected "
+                             f"{N256_BWD_PER_TRAIN_STEP}")
+    remat_worst, remat_key = worst_grad_diff(g_r, g_n)
+    rerun_worst, rerun_key = worst_grad_diff(g_again, g_r)
+    keys = sorted(g_f)
+
+    def flat(g):
+        return torch.cat([g[k].float().flatten() for k in keys])
+
+    vr, vp, vb, vf = flat(g_r), flat(g_p), flat(g_b), flat(g_f)
+    scale = vf.abs().max().item()
+    kernel_gap = (vr - vp).abs().max().item() / scale
+    bf16_gap = (vb - vf).abs().max().item() / scale
+    log(f"train reference N=256: bf16 step at B=1, dropout 0.1: loss remat "
+        f"{l_r:.6f}, no remat {l_n:.6f}, f32 {l_f:.6f}; remat vs no remat "
+        f"worst gradient {remat_key} {remat_worst:.2e} (tol "
+        f"{REMAT_TOL:.0e}, cuDNN off; the remat step run again: "
+        f"{rerun_worst:.2e} at {rerun_key}; with cuDNN on, not held: "
+        f"{cudnn_worst:.2e} at {cudnn_key}); kernels vs plain attention "
+        f"backward {kernel_gap:.2e} of the gradient's scale (tol: half of "
+        f"bf16 vs f32, {bf16_gap:.2e}); bf16 backward launches {n_r}")
+    if not (l_r == l_n and remat_worst <= REMAT_TOL
+            and kernel_gap <= 0.5 * bf16_gap):
+        raise AssertionError("the N=256 train reference disagrees (line "
+                             "above)")
+    del model, model32
+    torch.cuda.empty_cache()
+    return dict(loss_remat=l_r, loss_no_remat=l_n, loss_f32=l_f,
+                remat_worst=remat_worst, remat_worst_grad=remat_key,
+                rerun_worst=rerun_worst, cudnn_on_remat_worst=cudnn_worst,
+                kernels_vs_plain_bwd=kernel_gap, bf16_vs_f32=bf16_gap)
+
+
 def main():
     import torch
 
@@ -711,16 +1347,27 @@ def main():
     weights.parent.mkdir(parents=True, exist_ok=True)
     training = phase_training(torch, records, weights)
     train_ref = phase_train_reference(torch, records)
+    fwd16_rows, bwd16_rows = phase_kernels_bf16(torch, ptxas)
+    server, launches16, serving16 = phase_serving_n256(torch)
+    ref16 = phase_reference_n256(torch, server)
+    del server
+    torch.cuda.empty_cache()
+    records16 = OUT / "train_records_n256"
+    helix_records.write_records(records16, N256_RECORDS, lengths=(128, 256),
+                                seed=1)
+    train_ref16 = phase_train_reference_n256(torch, records16)
+    training16 = phase_training_n256(torch, records16)
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
 
-    def bound_by(rs):
+    def bound_by(rs, peak=PEAK_F32_S):
         bytes_ms = sum(r["bytes"] / PEAK_BYTES_S * r["per_step"] for r in rs)
-        ops_ms = sum(r["flops"] / PEAK_F32_S * r["per_step"] for r in rs)
+        ops_ms = sum(r["flops"] / peak * r["per_step"] for r in rs)
         return "bytes" if bytes_ms >= ops_ms else "operations"
 
-    def kernel(name, source, replaces, launches, rs, what):
+    def kernel(name, source, replaces, launches, rs, what,
+               peak=PEAK_F32_S):
         return {
             "name": name,
             "route": "cuda",
@@ -733,9 +1380,11 @@ def main():
             "ms": per_step(rs, "ms"),
             "plain_ms": per_step(rs, "plain_ms"),
             "bound_ms": per_step(rs, "bound_ms"),
-            "bound_by": bound_by(rs),
+            "bound_by": bound_by(rs, peak),
             "library_ms": per_step(rs, "library_ms"),
-            # the bound of the kernels' route, 3xTF32 on the tensor cores
+            # the bound of the kernels' route: f32, 3xTF32 on the tensor
+            # cores; bf16, the mma work they issue (S per column chunk,
+            # the split products twice)
             "tc_bound_ms": per_step(rs, "tc_bound_ms"),
             # the kernels' device time alone (CUDA graph replay): `ms`
             # less what the wrapper's host time adds to back-to-back calls
@@ -753,6 +1402,15 @@ def main():
                "text2protein_tpu/ops/flash.py:168",
                training["bwd_launches"], bwd_rows,
                f"train step at batch {TRAIN_BATCH}"),
+        # N=256 in bf16: serving, then training (+ its eval)
+        kernel("flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
+               "text2protein_tpu/ops/flash.py:50",
+               launches16 + training16["fwd_launches"], fwd16_rows,
+               f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S),
+        kernel("flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
+               "text2protein_tpu/ops/flash.py:168",
+               training16["bwd_launches"], bwd16_rows,
+               f"N=256 train step at batch {N256_TRAIN_BATCH}", PEAK_BF16_S),
     ]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
@@ -761,6 +1419,9 @@ def main():
         "ptxas": ptxas,
         "batch_seconds": seconds, "e2e_rel_diff": e2e,
         "training": training, "train_reference": train_ref,
+        "bf16_shapes": fwd16_rows, "bf16_bwd_shapes": bwd16_rows,
+        "serving_n256": serving16, "reference_n256": ref16,
+        "training_n256": training16, "train_reference_n256": train_ref16,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -393,3 +393,194 @@ def test_train_step_gradients_on_gpu_match_cpu(cuda):
     for k, want in cg.items():
         diff = (gg[k] - want).abs().max().item()
         assert diff <= 1e-3 * max(want.abs().max().item(), floor), k
+
+
+# ------------------------------------------------------------------ bf16
+
+# (B, H, Tq, Tk, D, masked) of the N=256 model (configs/quality_n256.yml):
+# AttnBlock H=1 D=512, self-attention H=8 d=64, cross-attention over the
+# 16-token caption bucket, at 32x32, 16x16 and 8x8; then ragged tiles, D
+# that is not a multiple of 16 (8, 24, 136) and the largest D
+BF16_SHAPES = [
+    (2, 1, 1024, 1024, 512, False),
+    (2, 8, 1024, 1024, 64, False),
+    (2, 8, 1024, 16, 64, True),
+    (2, 1, 256, 256, 512, False),
+    (2, 8, 256, 16, 64, True),
+    (2, 1, 64, 64, 512, False),
+    (2, 8, 64, 64, 64, False),
+    (2, 8, 64, 16, 64, True),
+    (3, 2, 24, 40, 8, True),
+    (2, 3, 17, 9, 24, True),
+    (2, 3, 17, 9, 24, False),
+    (2, 2, 40, 72, 136, True),
+    (1, 1, 64, 72, 1024, False),
+]
+
+
+def bf16_step(scale):
+    """One bf16 rounding step (ulp) at the magnitude `scale`."""
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _bf16_inputs(device, b, h, tq, tk, d, masked, seed=7, dead_row=False):
+    q, k, v, mask = _inputs(device, b, h, tq, tk, d, masked, seed)
+    if dead_row and masked:
+        mask[-1] = False
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,masked", BF16_SHAPES)
+def test_bf16_fwd_kernel_matches_plain_version(cuda, b, h, tq, tk, d,
+                                               masked):
+    """The bf16 forward kernel against its plain version (f32 math, one
+    rounding of out to bf16) on the same bf16 inputs: out within one bf16
+    rounding step of its scale, lse within 1e-5 of max(1, |lse|) on the
+    live rows and equal (-1e30) on the fully masked one."""
+    q, k, v, mask = _bf16_inputs(cuda, b, h, tq, tk, d, masked,
+                                 dead_row=True)
+    before = tflash.flash_attention_fwd.launches_bf16
+    out, lse = tflash.flash_attention_fwd(q, k, v, d**-0.5, mask)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_fwd.launches_bf16 == before + 1
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref, ref_lse = tflash.flash_attention_fwd_reference(q, k, v, d**-0.5,
+                                                        mask)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= bf16_step(ref.float().abs().max().item()), err
+    live = ref_lse > -1e29  # a fully masked row's lse is -1e30 in both
+    lerr = (lse - ref_lse)[live].abs().max().item()
+    assert lerr <= 1e-5 * max(1.0, ref_lse[live].abs().max().item()), lerr
+    assert torch.equal(lse[~live], ref_lse[~live])
+    if masked:
+        assert (out[-1] == 0).all()  # the fully masked batch row
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,masked", BF16_SHAPES)
+def test_bf16_bwd_kernel_matches_plain_version(cuda, b, h, tq, tk, d,
+                                               masked):
+    """The bf16 backward kernel against its plain version on the same bf16
+    residuals (a fully masked batch row where masked): dq, dk, dv each
+    within one bf16 rounding step of its own scale. Masked shapes that
+    `supports_bwd_cuda` refuses (the JAX rule: Tk % 64, Tq % 8; the
+    16-token caption) are called with 64 keys and Tq rounded up to a
+    multiple of 8 instead."""
+    if masked and (tk % 64 or tq % 8):
+        tk, tq = 64, -(-tq // 8) * 8
+    q, k, v, mask = _bf16_inputs(cuda, b, h, tq, tk, d, masked,
+                                 dead_row=True)
+    assert tflash.supports_bwd_cuda(q, k, v, masked)
+    g = torch.randn(q.shape, device=cuda).bfloat16()
+    out, lse = tflash.flash_attention_fwd(q, k, v, d**-0.5, mask)
+    before = tflash.flash_attention_bwd.launches_bf16
+    got = tflash.flash_attention_bwd(q, k, v, out, lse, g, d**-0.5, mask)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd.launches_bf16 == before + 1
+    want = tflash.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                d**-0.5, mask)
+    for name, x, w in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == torch.bfloat16
+        assert torch.isfinite(x).all(), name
+        err = (x.float() - w.float()).abs().max().item()
+        assert err <= bf16_step(w.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_check_dtypes(cuda):
+    """One dtype for q, k, v (and out, g), float32 for lse; float16 is not
+    taken."""
+    x = torch.zeros((1, 1, 64, 32), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        tflash.flash_attention_fwd(x, x.float(), x)
+    with pytest.raises(TypeError):
+        tflash.flash_attention_fwd(x.half(), x.half(), x.half())
+    lse = torch.zeros((1, 64, 1), device=cuda)
+    with pytest.raises(TypeError):
+        tflash.flash_attention_bwd(x, x, x, x, lse.bfloat16(), x)
+    with pytest.raises(TypeError):
+        tflash.flash_attention_bwd(x, x, x, x.float(), lse, x)
+
+
+def _tiny_bf16_models(cuda, **model):
+    cfg = load_config(tiny_config_dict(dtype="bfloat16",
+                                       norm_dtype="bfloat16", **model))
+    cpu = init_random_weights(build_model(cfg, device="cpu"), 1)
+    gpu = build_model(cfg, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+@pytest.mark.gpu
+def test_bf16_unet_on_gpu_matches_cpu(cuda):
+    """The tiny bf16 UNet on the GPU (bf16 kernels, cuDNN/cuBLAS with f32
+    accumulation) against the same weights on the CPU in bf16: within the
+    CPU's own bf16-against-f32 difference (sums in other orders flip bf16
+    roundings, and each flip spreads through the layers)."""
+    cfg, cpu, gpu = _tiny_bf16_models(cuda)
+    f32 = build_model(load_config(tiny_config_dict()), device="cpu")
+    f32.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy((rng.standard_normal((2, N, N, C)) * 5)
+                         .astype(np.float32))
+    labels = torch.tensor([3.0, 70.0])
+    ctx = torch.from_numpy(rng.standard_normal((2, 8, CONTEXT_DIM))
+                           .astype(np.float32))
+    mask = torch.ones((2, 8), dtype=torch.bool)
+    mask[0, 3:] = False
+    before = tflash.flash_attention_fwd.launches_bf16
+    with torch.inference_mode():
+        got = gpu(x.to(cuda), labels.to(cuda), ctx.to(cuda),
+                  mask.to(cuda)).cpu()
+        want = cpu(x, labels, ctx, mask)
+        ref32 = f32(x, labels, ctx, mask)
+    assert tflash.flash_attention_fwd.launches_bf16 - before == 18
+    assert torch.isfinite(got).all()
+    assert rel_max_diff(got, want) <= rel_max_diff(want, ref32)
+
+
+@pytest.mark.gpu
+def test_bf16_remat_step_on_gpu_matches_no_remat(cuda):
+    """A tiny bf16 train step (dropout 0.1 from the step's generator) with
+    the residual and transformer blocks rematted against the same step
+    without remat, on the card: every gradient within 1e-5 of its own scale
+    (floored at 1e-3 of the largest). cuDNN is off: it chooses algorithms
+    within the allocator's largest free block, which remat changes."""
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from text2protein_tpu_torch.models.attention import SpatialTransformer
+
+    cfg, _, gpu = _tiny_bf16_models(cuda, dropout=0.1, remat_resblocks=True)
+    sde, _ = tsde.get_sde(cfg)
+    rng = np.random.default_rng(5)
+    row = torch.arange(N)[None, :] < torch.tensor([11, N])[:, None]
+    mask_pair = row[:, :, None] & row[:, None, :]
+    batch = {"coords_6d": torch.from_numpy(rng.uniform(
+                 -1, 1, (2, N, N, C)).astype(np.float32))
+             * mask_pair[..., None],
+             "mask_pair": mask_pair,
+             "context": torch.from_numpy(rng.standard_normal(
+                 (2, 64, CONTEXT_DIM)).astype(np.float32)),
+             "context_mask": torch.ones((2, 64), dtype=torch.bool)}
+    batch = {k: v.to(cuda) for k, v in batch.items()}
+    out = []
+    with torch.backends.cudnn.flags(enabled=False):
+        for remat in (True, False):
+            gpu.remat_resblocks = remat
+            for m in gpu.modules():
+                if isinstance(m, SpatialTransformer):
+                    m.remat = remat
+            loss_fn = get_sde_loss_fn(sde, gpu, train=True,
+                                      condition=("length",))
+            gpu.zero_grad(set_to_none=True)
+            gen = torch.Generator(device=cuda).manual_seed(9)
+            loss = loss_fn(None, batch, gen)
+            loss.backward()
+            out.append((loss.item(), {k: p.grad.cpu() for k, p in
+                                      gpu.named_parameters()}))
+    (l1, g1), (l0, g0) = out
+    assert np.isfinite(l1) and l1 == l0
+    floor = 1e-3 * max(g.abs().max().item() for g in g0.values())
+    for k, want in g0.items():
+        diff = (g1[k].float() - want.float()).abs().max().item()
+        assert diff <= 1e-5 * max(want.abs().max().item(), floor), k

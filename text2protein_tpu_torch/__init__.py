@@ -27,10 +27,13 @@ def resolve_device(device=None) -> torch.device:
 
 def use_full_f32() -> None:
     """The port's precision policy on the GPU, a process-wide setting: full
-    float32, as the JAX package computes this model (TF32 off for matmuls
-    and cuDNN convolutions), with cuDNN's per-shape algorithm search on.
-    Without the search, cuDNN's heuristic takes FFT algorithms for some f32
-    convolutions of the UNet that are ~70x slower on an H100."""
+    float32 where the JAX package computes in f32 (TF32 off for matmuls and
+    cuDNN convolutions), and f32 accumulation of bf16 products (cuBLAS may
+    otherwise reduce a bf16 matmul's partial sums in bf16; XLA accumulates
+    them in f32), with cuDNN's per-shape algorithm search on. Without the
+    search, cuDNN's heuristic takes FFT algorithms for some f32 convolutions
+    of the UNet that are ~70x slower on an H100."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True

@@ -1,16 +1,19 @@
 """Where the time of one PC step goes in the PyTorch port, on one GPU.
 
-Builds the flagship Server (seeded random weights, batch 4) and, after a
-warm-up batch, profiles one batch of a short PC trajectory with
-torch.profiler: device time summed by kernel name, the device's busy share of
-the wall time, and the wall time per PC step. A second part times one
-3x3 convolution of the flagship's widest level alone under the convolution
-settings that decide its algorithm (TF32 off or on, cudnn.benchmark off or
-on), to tell the convolution's speed apart from the rest of the step.
+Builds a Server (the flagship L=128 model, or `--config`; seeded random
+weights, batch 4) and, after a warm-up batch, profiles one batch of a short
+PC trajectory with torch.profiler: device time summed by kernel name, the
+device's busy share of the wall time, and the wall time per PC step. A
+second part times one 3x3 convolution of each level of the UNet alone (the
+level's channels and resolution at batch 4, in the model's dtype) under the
+convolution settings that decide its algorithm (TF32 off or on,
+cudnn.benchmark off or on), to tell the convolution's speed apart from the
+rest of the step.
 
 Usage: python -m text2protein_tpu_torch.cli.profile_serving [--steps 2]
-           [--top 25]
-Writes chiprun_out/profile_serving.json at the root of the checkout.
+           [--top 25] [--config configs/quality_n256.yml]
+Writes chiprun_out/profile_serving[_<config name>].json at the root of the
+checkout.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ def device_kernels(prof):
     return sorted(kernels.values(), key=lambda r: -r["device_ms"])
 
 
-def conv_ms(torch, b, c, hw, iters=20):
+def conv_ms(torch, b, c, hw, dtype, iters=20):
     conv = torch.nn.Conv2d(c, c, 3, padding=1).cuda().requires_grad_(False)
-    x = torch.randn(b, c, hw, hw, device="cuda")
+    conv = conv.to(dtype)
+    x = torch.randn(b, c, hw, hw, device="cuda", dtype=dtype)
     with torch.inference_mode():
         for _ in range(3):
             conv(x)
@@ -65,12 +69,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--config", type=str, default=None,
+                    help="YAML config (default: the flagship L=128 model)")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..config import flagship_config
+    from ..config import flagship_config, load_config
     from .serve import Server
 
     if not torch.cuda.is_available():
@@ -80,26 +86,35 @@ def main():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {smi}", flush=True)
-    result = {"device": smi, "steps": args.steps, "batch": 4}
+    config = load_config(args.config) if args.config else flagship_config()
+    m = config.model
+    dtype = getattr(torch, str(m.get("dtype", "float32")))
+    result = {"device": smi, "steps": args.steps, "batch": 4,
+              "config": args.config or "flagship", "dtype": str(dtype)}
 
-    # the convolution alone: flagship level 0 (B=4, 128 channels, 128x128)
-    flops = 2 * 4 * 128 * 128 * 128 * 128 * 9
-    result["conv3x3_b4_c128_128x128"] = {}
-    for tf32 in (False, True):
-        for bench in (False, True):
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-            torch.backends.cudnn.allow_tf32 = tf32
-            torch.backends.cudnn.benchmark = bench
-            ms = conv_ms(torch, 4, 128, 128)
-            key = f"tf32={tf32},benchmark={bench}"
-            result["conv3x3_b4_c128_128x128"][key] = {
-                "ms": ms, "tflop_s": flops / ms / 1e9}
-            print(f"conv3x3 B=4 C=128 128x128 {key}: {ms:.3f} ms, "
-                  f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    # each level's 3x3 convolution alone (B=4, the level's channels and
+    # resolution, the model's dtype)
+    for level, mult in enumerate(m.ch_mult):
+        ch, hw = m.nf * mult, config.data.max_res_num // 2**level
+        flops = 2 * 4 * ch * ch * hw * hw * 9
+        name = f"conv3x3_b4_c{ch}_{hw}x{hw}_{str(dtype)[6:]}"
+        if name in result:
+            continue
+        result[name] = {}
+        for tf32 in (False, True):
+            for bench in (False, True):
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cudnn.benchmark = bench
+                ms = conv_ms(torch, 4, ch, hw, dtype)
+                key = f"tf32={tf32},benchmark={bench}"
+                result[name][key] = {"ms": ms, "tflop_s": flops / ms / 1e9}
+                print(f"{name} {key}: {ms:.3f} ms, "
+                      f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
 
     # the serving step as the port runs it (the Server sets the port's
-    # precision policy: full f32, cudnn.benchmark on)
-    server = Server(flagship_config(), batch_size=4, num_steps=args.steps,
+    # precision policy: f32 without TF32, cudnn.benchmark on)
+    server = Server(config, batch_size=4, num_steps=args.steps,
                     device="cuda", weight_seed=0)
     reqs = [{"caption": "A small alpha-helical bundle.", "length": 64}]
     server.run_batch(reqs)
@@ -128,7 +143,9 @@ def main():
           flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_serving.json").write_text(json.dumps(result, indent=1))
+    suffix = f"_{Path(args.config).stem}" if args.config else ""
+    (out / f"profile_serving{suffix}.json").write_text(
+        json.dumps(result, indent=1))
 
 
 if __name__ == "__main__":

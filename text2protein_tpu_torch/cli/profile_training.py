@@ -1,16 +1,19 @@
 """Where the time of one training step goes in the PyTorch port, on one GPU.
 
-Builds the bench_l128 model (seeded random weights) and its train step at
-its training batch size (16), makes one batch on the device (random maps
-under length masks, hash-encoded captions), runs warm-up steps and then
+Builds the bench_l128 model, or the model of `--config` (seeded random
+weights), and its train step at the config's training batch size (16 for
+bench_l128, 8 for configs/quality_n256.yml), makes one batch on the device
+(random maps under length masks, hash-encoded captions), runs warm-up
+steps and then
 profiles a few steps with torch.profiler: device time summed by kernel name and by kind
 (convolutions, the flash kernels, optimizer, elementwise and reductions),
 the wall time per step without the profiler, and the device's busy share
 of it.
 
 Usage: python -m text2protein_tpu_torch.cli.profile_training [--steps 2]
-           [--top 25]
-Writes chiprun_out/profile_training.json at the root of the checkout.
+           [--top 25] [--config configs/quality_n256.yml]
+Writes chiprun_out/profile_training[_<config name>].json at the root of the
+checkout.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import argparse
 import json
 import subprocess
 import time
+from pathlib import Path
 
 from .profile_serving import REPO, device_kernels
 
@@ -54,6 +58,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--config", type=str, default=None,
+                    help="YAML config (default: bench_l128_config())")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -62,7 +68,7 @@ def main(argv=None):
 
     from .. import use_full_f32
     from ..conditioning import length_mask
-    from ..config import bench_l128_config
+    from ..config import bench_l128_config, load_config
     from ..diffusion.sde import get_sde
     from ..models.unet import build_model, init_random_weights
     from ..text.encoder import build_text_encoder
@@ -78,7 +84,7 @@ def main(argv=None):
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"device: {smi}", flush=True)
 
-    config = bench_l128_config()
+    config = load_config(args.config) if args.config else bench_l128_config()
     b = config.training.batch_size
     n, c = config.data.max_res_num, config.data.num_channels
     sde, _ = get_sde(config)
@@ -86,7 +92,8 @@ def main(argv=None):
     state = create_train_state(config, model)
     train_step = make_train_step(config, sde, model)
     rng = np.random.default_rng(0)
-    lengths = torch.from_numpy(rng.integers(40, n + 1, size=b)).cuda()
+    lengths = torch.from_numpy(rng.integers(config.data.min_res_num, n + 1,
+                                            size=b)).cuda()
     mask_pair = length_mask(lengths, n)
     coords = torch.rand((b, n, n, c), device="cuda") * 2 - 1
     coords[..., -1] = 1.0
@@ -142,7 +149,9 @@ def main(argv=None):
               flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_training.json").write_text(json.dumps(result, indent=1))
+    suffix = f"_{Path(args.config).stem}" if args.config else ""
+    (out / f"profile_training{suffix}.json").write_text(
+        json.dumps(result, indent=1))
     return result
 
 

@@ -202,7 +202,8 @@ class _Handler(BaseHTTPRequestHandler):
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", type=str, default=None,
-                   help="YAML config (default: the flagship L=128 model)")
+                   help="YAML config (default: the flagship L=128 model; "
+                        "configs/quality_n256.yml: the N=256 model in bf16)")
     p.add_argument("--weights", type=str, default=None,
                    help="torch state dict; default: random weights")
     p.add_argument("--seed", type=int, default=0,

@@ -7,14 +7,18 @@ params -> the EMA params written as a state dict that
 `text2protein_tpu_torch.cli.serve --weights` loads.
 
 Runs on the GPU unless `--device cpu` is given; on the GPU the model runs in
-full float32 (TF32 off for matmuls and cuDNN) with cuDNN's per-shape
-algorithm search on. Not ported yet: the checkpoint triad and resume,
-snapshot sampling, the resident-context and fused multi-step paths, and
-multi-device meshes.
+the config's `model.dtype` under `use_full_f32()` (TF32 off for matmuls and
+cuDNN, f32 accumulation of bf16 products) with cuDNN's per-shape algorithm
+search on. With `data.featurize_on_device` the batches carry backbones and
+the step builds the 6D maps on the device. Not ported yet: the checkpoint
+triad and resume, snapshot sampling, the resident-context table and fused
+multi-step paths, and multi-device meshes.
 
 Usage:
   python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
       [--data DIR] [--max_steps N] [--out ema.pt] [--device cpu]
+  e.g. --config configs/quality_n256.yml --data DIR: the N=256 model in
+  bf16 with remat and featurization on the device, batch 8
 """
 
 from __future__ import annotations

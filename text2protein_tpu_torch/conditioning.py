@@ -26,22 +26,36 @@ def batch_to_device_arrays(batch, config, device="cpu"):
     """Host batch (from data.make_batch) -> the tensors the loss takes, on
     `device`: coords_6d transposed to NHWC, mask_pair, ss_spans, length.
 
-    The JAX package's `inpainting` condition (random training masks) and
-    `data.featurize_on_device` (featurizing on the device from backbones)
-    are not ported yet and raise."""
-    if config.data.get("featurize_on_device", False):
-        raise NotImplementedError(
-            "data.featurize_on_device is not ported yet; featurize on the "
-            "host (the default)")
+    With `data.featurize_on_device` the maps are not shipped: the backbone
+    coords `bb` (B, N, 3, 3) and the residue mask `mask_res` (B, N) cross
+    instead, with ss_spans and length, and the train and eval steps rebuild
+    coords_6d and mask_pair on the device (`data.featurize.featurize_batch`),
+    as the JAX package does. The JAX package's `inpainting` condition
+    (random training masks) and the C=8 on-device layout are not ported yet
+    and raise."""
     if "inpainting" in config.model.condition:
         raise NotImplementedError(
             "training with the inpainting condition is not ported yet")
-    coords = np.ascontiguousarray(
-        np.asarray(batch["coords_6d"]).transpose(0, 2, 3, 1))  # -> NHWC
-    arrays = {
-        "coords_6d": coords,
-        "mask_pair": np.asarray(batch["mask_pair"], dtype=bool),
-        "ss_spans": np.asarray(batch["ss_spans"], dtype=np.int32),
-        "length": np.asarray(batch["length"], dtype=np.int32),
-    }
-    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+    if config.data.get("featurize_on_device", False):
+        if int(config.data.num_channels) != 5:
+            raise NotImplementedError(
+                "data.featurize_on_device with the C=8 layout is not ported "
+                "yet")
+        mask_res = np.einsum("bii->bi", np.asarray(batch["mask_pair"]))
+        arrays = {
+            "bb": np.asarray(batch["coords"], dtype=np.float32),
+            "mask_res": mask_res.astype(bool),
+            "ss_spans": np.asarray(batch["ss_spans"], dtype=np.int32),
+            "length": np.asarray(batch["length"], dtype=np.int32),
+        }
+    else:
+        coords = np.ascontiguousarray(
+            np.asarray(batch["coords_6d"]).transpose(0, 2, 3, 1))  # -> NHWC
+        arrays = {
+            "coords_6d": coords,
+            "mask_pair": np.asarray(batch["mask_pair"], dtype=bool),
+            "ss_spans": np.asarray(batch["ss_spans"], dtype=np.int32),
+            "length": np.asarray(batch["length"], dtype=np.int32),
+        }
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in arrays.items()}

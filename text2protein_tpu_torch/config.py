@@ -1,13 +1,19 @@
 """Config: attribute-access dict with the JAX package's schema and defaults.
 
-Counterpart of text2protein_tpu/config.py. The GPU machine has no PyYAML, so
-the flagship configs are built in Python (`flagship_config`,
-`bench_l128_config`) and `yaml` is imported only when a YAML file is loaded.
+Counterpart of text2protein_tpu/config.py. YAML files are read by
+`parse_yaml`, a reader of the YAML subset the repo's `configs/*.yml` use
+(PyYAML is not a dependency of the port); `flagship_config` and
+`bench_l128_config` build the L=128 configs in Python, `quality_n256_config`
+reads configs/quality_n256.yml as written.
 """
 
 from __future__ import annotations
 
 import copy
+import re
+from pathlib import Path
+
+CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
 class ConfigDict(dict):
@@ -125,15 +131,94 @@ def _merge(dst: dict, src: dict) -> dict:
     return dst
 
 
+_INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)")
+# YAML 1.1's float: a dot is required ("1e-4" is a string, as in PyYAML)
+_FLOAT = re.compile(r"[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?")
+_BOOL = {"true": True, "yes": True, "on": True,
+         "false": False, "no": False, "off": False}
+
+
+def _scalar(text: str):
+    s = text.strip()
+    if s in ("", "~", "null", "Null", "NULL"):
+        return None
+    if s == "[]":
+        return []
+    if s == "{}":
+        return {}
+    if len(s) >= 2 and s[0] in "'\"" and s[-1] == s[0]:
+        return s[1:-1]
+    if s.lower() in _BOOL and s in (s.lower(), s.capitalize(), s.upper()):
+        return _BOOL[s.lower()]
+    if _INT.fullmatch(s):
+        return int(s.replace("_", ""))
+    if _FLOAT.fullmatch(s) and s not in (".", "+.", "-."):
+        return float(s.replace("_", ""))
+    return s
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_yaml(text: str) -> dict:
+    """The YAML subset of the repo's configs: nested block mappings, block
+    lists of scalars (at the key's indentation or deeper), `[]`, quoted
+    strings, comments, and YAML 1.1 scalars as PyYAML resolves them (ints,
+    floats with a dot, true/false/yes/no/on/off, null)."""
+    lines = []
+    for raw in text.splitlines():
+        body = _strip_comment(raw).rstrip()
+        if body.strip():
+            lines.append((len(body) - len(body.lstrip(" ")), body.strip()))
+
+    def block(i, indent):
+        if lines[i][1].startswith("-"):
+            out = []
+            while (i < len(lines) and lines[i][0] == indent
+                   and lines[i][1].startswith("-")):
+                out.append(_scalar(lines[i][1][1:]))
+                i += 1
+            return out, i
+        out = {}
+        while i < len(lines) and lines[i][0] == indent:
+            key, sep, rest = lines[i][1].partition(":")
+            if not sep:
+                raise ValueError(f"not a mapping entry: {lines[i][1]!r}")
+            i += 1
+            if rest.strip():
+                out[key.strip()] = _scalar(rest)
+            elif i < len(lines) and (
+                    lines[i][0] > indent
+                    or (lines[i][0] == indent
+                        and lines[i][1].startswith("-"))):
+                out[key.strip()], i = block(i, lines[i][0])
+            else:
+                out[key.strip()] = None
+        return out, i
+
+    if not lines:
+        return {}
+    out, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"unparsed YAML from {lines[i][1]!r}")
+    return out
+
+
 def load_config(path_or_dict) -> ConfigDict:
     """Load a YAML config file (or dict) and apply the defaults."""
     if isinstance(path_or_dict, dict):
         user = dict(path_or_dict)
     else:
-        import yaml
-
-        with open(path_or_dict) as f:
-            user = yaml.safe_load(f) or {}
+        user = parse_yaml(Path(path_or_dict).read_text()) or {}
     cfg = ConfigDict(_merge(copy.deepcopy(_DEFAULTS), user))
     validate_config(cfg)
     return cfg
@@ -157,30 +242,17 @@ def validate_config(cfg: ConfigDict) -> None:
 
 
 def check_ported_model(cfg: ConfigDict) -> None:
-    """Raise NotImplementedError for a model setting the port does not
-    compute yet, rather than building a different model without a word.
-
-    - `model.dtype` other than float32: the port computes the UNet in f32.
-    - `model.remat_resblocks: true`: the port keeps every activation.
-    - `model.norm_dtype: bfloat16` is accepted, since `model.dtype` is then
-      float32: the JAX GroupNorm with `follow_input_dtype` normalizes in the
-      input's dtype (text2protein_tpu/models/layers.py, `apply_dtype =
-      x.dtype`), and in an f32 network that is f32, the function the port
-      computes. Its statistics are f32 in both modes.
-    """
+    """Raise rather than build a different model without a word: the JAX
+    `build_model` takes `model.dtype` and `model.norm_dtype` float32 or
+    bfloat16 (and raises KeyError on any other); so does the port, with
+    NotImplementedError naming the key."""
     m = cfg.model
-    dtype = str(m.get("dtype", "float32"))
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"model.dtype: {dtype} is not ported yet; the port computes the "
-            "model in float32")
-    if m.get("remat_resblocks", False):
-        raise NotImplementedError(
-            "model.remat_resblocks: true is not ported yet; the port keeps "
-            "every activation for the backward")
-    norm = str(m.get("norm_dtype", "float32"))
-    if norm not in ("float32", "bfloat16"):
-        raise ValueError(f"unknown model.norm_dtype {norm}")
+    for key in ("dtype", "norm_dtype"):
+        value = str(m.get(key, "float32"))
+        if value not in ("float32", "bfloat16"):
+            raise NotImplementedError(
+                f"model.{key}: {value} is not a dtype of the model; float32 "
+                "or bfloat16")
 
 
 def flagship_config() -> ConfigDict:
@@ -214,3 +286,10 @@ def bench_l128_config() -> ConfigDict:
     cfg.training.batch_size = 16
     cfg.data.processed_dataset_path = "./data/processed"
     return cfg
+
+
+def quality_n256_config() -> ConfigDict:
+    """configs/quality_n256.yml as written: the reference-flagship-scale
+    model (N=256, nf=256, attention at 32, 16 and 8, context 4096) in bf16
+    with remat of the residual blocks, on-device featurization, batch 8."""
+    return load_config(CONFIGS / "quality_n256.yml")

@@ -9,9 +9,10 @@ For a protein of length L, per residue pair:
 Pairs farther than dmax (and the diagonal) keep dist = dmax and angles 0
 before normalization; NaNs are zeroed afterwards.
 
-Only the host (numpy) featurizer and the C=5 channel layout are here; the
-on-device batched featurizer and the C=8 SS channels wait for a later
-change.
+The host (numpy) featurizer, and the on-device batched one on torch
+tensors (`get_coords6d_torch`, `featurize_batch`: JAX `get_coords6d_jax`,
+`featurize_batch_jax`), for the C=5 channel layout; the C=8 SS channels
+wait for a later change.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 # Virtual-Cb reconstruction constants (ideal geometry, from trRosetta)
 CB_A = -0.58273431
@@ -107,3 +109,83 @@ def featurize_structure(bb_coords, mask, ss_constraints: bool,
     mask_pair = (mask.reshape(1, -1) * mask.reshape(-1, 1)).astype(bool)
     coords_6d = coords_6d * mask_pair.reshape(nres, nres, 1)
     return coords_6d.transpose(2, 0, 1).astype(np.float32), mask_pair, ""
+
+
+# ------------------------------------------------------------- on device
+
+
+def _norm_t(x):
+    """jnp.linalg.norm over the last axis: sqrt(sum(x * x))."""
+    return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+
+
+def _dihedral_t(a, b, c, d):
+    b0 = -1.0 * (b - a)
+    b1 = c - b
+    b2 = d - c
+    b1 = b1 / _norm_t(b1)
+    v = b0 - torch.sum(b0 * b1, dim=-1, keepdim=True) * b1
+    w = b2 - torch.sum(b2 * b1, dim=-1, keepdim=True) * b1
+    x = torch.sum(v * w, dim=-1)
+    y = torch.sum(torch.linalg.cross(b1.expand_as(v), v) * w, dim=-1)
+    return torch.atan2(y, x)
+
+
+def _planar_t(a, b, c):
+    v = a - b
+    v = v / _norm_t(v)
+    w = c - b
+    w = w / _norm_t(w)
+    return torch.arccos(torch.sum(v * w, dim=-1))
+
+
+def get_coords6d_torch(xyz, dmax=DMAX_DEFAULT, normalize=True):
+    """Batched 6D featurization on tensors, the JAX `get_coords6d_jax`
+    (`_coords6d_dense`) with a leading batch axis. xyz: (B, L, 3, 3) N/CA/C
+    -> (B, L, L, 4) [dist, omega, theta, phi], in xyz's dtype. NaNs from
+    degenerate geometry (zeroed padded residues) are left for the caller."""
+    n, ca, c = xyz[..., 0, :], xyz[..., 1, :], xyz[..., 2, :]
+    b = ca - n
+    cc = c - ca
+    cb = CB_A * torch.linalg.cross(b, cc) + CB_B * b + CB_C * cc + ca
+    L = xyz.shape[1]
+    d = _norm_t(cb[:, None, :, :] - cb[:, :, None, :])[..., 0]  # [i, j]
+    eye = torch.eye(L, dtype=torch.bool, device=xyz.device)
+    contact = (d <= dmax) & ~eye
+    ca_i, ca_j = ca[:, :, None, :], ca[:, None, :, :]
+    cb_i, cb_j = cb[:, :, None, :], cb[:, None, :, :]
+    n_i = n[:, :, None, :]
+    omega = _dihedral_t(ca_i, cb_i, cb_j, ca_j)
+    theta = _dihedral_t(n_i, ca_i, cb_i, cb_j)
+    phi = _planar_t(ca_i, cb_i, cb_j.expand(-1, L, -1, -1))
+    zeros = torch.zeros_like(d)
+    dist6d = torch.where(contact, d, torch.full_like(d, dmax))
+    omega6d = torch.where(contact, omega, zeros)
+    theta6d = torch.where(contact, theta, zeros)
+    phi6d = torch.where(contact, phi, zeros)
+    if normalize:
+        dist6d = (dist6d / dmax * 2) - 1
+        omega6d = omega6d / math.pi
+        theta6d = theta6d / math.pi
+        phi6d = (phi6d / math.pi * 2) - 1
+    return torch.stack([dist6d, omega6d, theta6d, phi6d], dim=-1)
+
+
+def featurize_batch(bb, mask_res, num_channels=5, dmax=DMAX_DEFAULT):
+    """Train-time featurization on the device (JAX `featurize_batch_jax`):
+    padded backbones -> NHWC maps.
+
+    bb (B, N, 3, 3) N/CA/C coords, zero-padded past each length; mask_res
+    (B, N) bool. Returns (coords_6d (B, N, N, 5) float32 [dist, omega,
+    theta, phi, pair mask], mask_pair (B, N, N) bool), the host
+    `featurize_structure` output in NHWC. `nan_to_num` then a `where` (not
+    a multiply) on the pair mask, so the NaNs of padded residues cannot
+    leak. The C=8 layout (SS block channels) is not ported."""
+    if int(num_channels) != 5:
+        raise NotImplementedError(
+            "the C=8 layout (SS block channels) is not ported yet")
+    geo = get_coords6d_torch(bb.to(torch.float32), dmax=dmax)
+    mask_pair = mask_res[:, :, None] & mask_res[:, None, :]
+    mp = mask_pair[..., None]
+    geo = torch.where(mp, torch.nan_to_num(geo), 0.0)
+    return torch.cat([geo, mp.to(torch.float32)], dim=-1), mask_pair

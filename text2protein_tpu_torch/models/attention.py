@@ -5,16 +5,21 @@ SpatialTransformer: GroupNorm -> 1x1 proj_in -> HW tokens -> one
 BasicTransformerBlock (pre-LN self-attention, cross-attention over the
 caption with its key-padding mask, GEGLU feed-forward) -> 1x1 proj_out +
 residual. Both attentions go through the flash-attention forward.
+
+With `dtype` bfloat16 every Dense runs in bf16 (`layers.Linear`), the
+LayerNorms keep f32 outputs (`nn.LayerNorm(dtype=jnp.float32)`) and the
+next Dense casts them; the transformer blocks are rematerialized in the
+backward (`remat`, flax `nn.remat`), as the JAX model does by default.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import Dropout, GroupNormF32Stats
+from .layers import (Conv2d, Dropout, GroupNormF32Stats, Linear, gelu_tanh,
+                     remat)
 
 
 class LayerNorm(nn.Module):
@@ -36,24 +41,31 @@ class LayerNorm(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim_in, dim_out):
+    def __init__(self, dim_in, dim_out, dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Linear(dim_in, dim_out * 2)
+        self.proj = Linear(dim_in, dim_out * 2, dtype=dtype)
 
     def forward(self, x):
         x, gate = self.proj(x).chunk(2, dim=-1)
-        return x * F.gelu(gate, approximate="tanh")  # flax nn.gelu is tanh
+        return x * gelu_tanh(gate)  # flax nn.gelu is the tanh form
+
+
+class GELU(nn.Module):
+    """flax `nn.gelu` as a parameter-free module slot."""
+
+    def forward(self, x):
+        return gelu_tanh(x)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim, mult=4, glu=True, dropout=0.0):
+    def __init__(self, dim, mult=4, glu=True, dropout=0.0,
+                 dtype=torch.float32):
         super().__init__()
         inner = int(dim * mult)
-        first = (GEGLU(dim, inner) if glu
-                 else nn.Sequential(nn.Linear(dim, inner),
-                                    nn.GELU(approximate="tanh")))
+        first = (GEGLU(dim, inner, dtype=dtype) if glu
+                 else nn.Sequential(Linear(dim, inner, dtype=dtype), GELU()))
         self.net = nn.Sequential(first, Dropout(dropout),
-                                 nn.Linear(inner, dim))
+                                 Linear(inner, dim, dtype=dtype))
 
     def forward(self, x, generator=None):
         return self.net[2](self.net[1](self.net[0](x), generator))
@@ -63,15 +75,15 @@ class CrossAttention(nn.Module):
     """Multi-head attention; context=None -> self-attention."""
 
     def __init__(self, query_dim, context_dim=None, heads=8, dim_head=64,
-                 dropout=0.0):
+                 dropout=0.0, dtype=torch.float32):
         super().__init__()
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(inner, query_dim),
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Linear(context_dim, inner, bias=False, dtype=dtype)
+        self.to_v = Linear(context_dim, inner, bias=False, dtype=dtype)
+        self.to_out = nn.Sequential(Linear(inner, query_dim, dtype=dtype),
                                     Dropout(dropout))
 
     def forward(self, x, context=None, context_mask=None, generator=None):
@@ -93,11 +105,14 @@ class CrossAttention(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim, n_heads, d_head, context_dim=None, dropout=0.0,
-                 gated_ff=True):
+                 gated_ff=True, dtype=torch.float32):
         super().__init__()
-        self.attn1 = CrossAttention(dim, None, n_heads, d_head, dropout)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dropout)
-        self.ff = FeedForward(dim, glu=gated_ff, dropout=dropout)
+        self.attn1 = CrossAttention(dim, None, n_heads, d_head, dropout,
+                                    dtype=dtype)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head,
+                                    dropout, dtype=dtype)
+        self.ff = FeedForward(dim, glu=gated_ff, dropout=dropout, dtype=dtype)
+        # LayerNorms stay float32 (the JAX block's nn.LayerNorm(dtype=f32))
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
         self.norm3 = LayerNorm(dim)
@@ -112,20 +127,29 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """Transformer over the flattened HW token grid with text
     cross-attention. Its GroupNorm takes min(32, C) groups, unlike the
-    resblocks' `_num_groups`. Input and output (B, C, H, W)."""
+    resblocks' `_num_groups`. Input and output (B, C, H, W). Each block is
+    rematerialized when a gradient is taken (`remat`: the JAX model's
+    `remat_attention`, which its `build_model` never turns off)."""
 
     def __init__(self, in_ch, n_heads, d_head, depth=1, dropout=0.0,
-                 context_dim=None):
+                 context_dim=None, dtype=torch.float32,
+                 norm_dtype=torch.float32):
         super().__init__()
         inner = n_heads * d_head
-        self.norm = GroupNormF32Stats(min(32, in_ch), in_ch, eps=1e-6)
-        self.proj_in = nn.Conv2d(in_ch, inner, 1)
+        self.remat = True
+        self.norm = GroupNormF32Stats(
+            min(32, in_ch), in_ch, eps=1e-6,
+            follow_input_dtype=norm_dtype != torch.float32)
+        # 1x1 convolutions hold the JAX Denses' weights (the reference
+        # layout); in bf16 they round as a Dense does
+        self.proj_in = Conv2d(in_ch, inner, 1, dtype=dtype)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head,
-                                  context_dim=context_dim, dropout=dropout)
+                                  context_dim=context_dim, dropout=dropout,
+                                  dtype=dtype)
             for _ in range(depth)
         )
-        self.proj_out = nn.Conv2d(inner, in_ch, 1)
+        self.proj_out = Conv2d(inner, in_ch, 1, dtype=dtype)
 
     def forward(self, x, context=None, context_mask=None, generator=None):
         b, c, h, w = x.shape
@@ -134,6 +158,11 @@ class SpatialTransformer(nn.Module):
         inner = x.shape[1]
         x = x.flatten(2).transpose(1, 2)  # (B, HW, inner), row-major
         for block in self.transformer_blocks:
-            x = block(x, context, context_mask, generator)
+            if self.remat and torch.is_grad_enabled():
+                x = remat(block, x, context, context_mask,
+                          generator=generator)
+            else:
+                x = block(x, context, context_mask, generator)
         x = x.transpose(1, 2).reshape(b, inner, h, w)
-        return self.proj_out(x) + x_in
+        x = self.proj_out(x)
+        return x + x_in.to(x.dtype)

@@ -5,17 +5,60 @@ layout, and attention tokens are taken row-major over (H, W) exactly as the
 JAX package's NHWC reshape takes them. Submodule names follow the
 reference-format state dict (`GroupNorm_0`, `Conv_0`, `Dense_0`, `NIN_0`, ...)
 that text2protein_tpu/interop/torch_port.py maps to.
+
+Compute dtype (`model.dtype`): parameters stay float32; a layer built with
+`dtype=torch.bfloat16` casts its input and its weights to bf16 at the call,
+as flax's `dtype=` does, and rounds where the JAX package rounds: the
+product, then `+ bias` in bf16 (flax adds the bias after the product), and
+every elementwise op of a bf16 tensor on its own, with Python constants
+rounded to bf16 first (XLA rounds each bf16 op; a fused torch op such as
+`F.silu` or `F.gelu` rounds once and is a different function). In float32
+every layer computes exactly what it computed before.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+
+
+@functools.lru_cache(maxsize=None)
+def const(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as the JAX package uses it in an op on a `dtype`
+    array: rounded to `dtype` (a weakly typed scalar takes the array's
+    dtype), returned as the float it rounds to."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def swish(x):
+    """flax `nn.silu`, x * sigmoid(x). In bf16 XLA computes it as
+    x * (1 / (1 + exp(-x))), each op rounded to bf16."""
+    if x.dtype == torch.float32:
+        return F.silu(x)
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def gelu_tanh(x):
+    """flax `nn.gelu` (the tanh approximation). In bf16 each op rounds:
+    x * (0.5 * (1 + tanh(c * (x + 0.044715 * ((x * x) * x))))) with the
+    constants rounded to bf16."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="tanh")
+    c = functools.partial(const, dtype=x.dtype)
+    inner = c(math.sqrt(2.0 / math.pi)) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (1.0 + torch.tanh(inner)))
+
+
+def rescale(x):
+    """x / sqrt(2), the skip rescale, in x's dtype."""
+    return x / const(math.sqrt(2.0), x.dtype)
 
 
 def get_act(name: str):
@@ -27,7 +70,7 @@ def get_act(name: str):
     if name == "lrelu":
         return lambda x: F.leaky_relu(x, negative_slope=0.2)
     if name == "swish":
-        return F.silu
+        return swish
     raise NotImplementedError(f"activation {name} does not exist")
 
 
@@ -65,48 +108,92 @@ class Dropout(nn.Module):
         keep_prob = 1.0 - self.p
         keep = torch.rand(x.shape, generator=generator, device=x.device,
                           dtype=torch.float32) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                            device=x.device))
+        return torch.where(keep, x / const(keep_prob, x.dtype),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
     def extra_repr(self):
         return f"p={self.p}"
 
 
-def conv3x3(in_ch, out_ch, stride=1):
+class Conv2d(nn.Conv2d):
+    """flax `nn.Conv` with `dtype`: in bf16 the input and the f32 weights
+    are cast to bf16, the convolution's output is rounded to bf16 and the
+    bias is added after it, in bf16. In float32 the plain `nn.Conv2d`."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """flax `nn.Dense` with `dtype`, as `Conv2d`: product in bf16, then
+    `+ bias` in bf16."""
+
+    def __init__(self, *args, dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.to(dt))
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def conv3x3(in_ch, out_ch, stride=1, dtype=torch.float32):
     """3x3 convolution with the JAX package's SAME padding at stride 1."""
-    return nn.Conv2d(in_ch, out_ch, 3, stride=stride, padding=1)
+    return Conv2d(in_ch, out_ch, 3, stride=stride, padding=1, dtype=dtype)
 
 
-def conv1x1(in_ch, out_ch):
-    return nn.Conv2d(in_ch, out_ch, 1)
+def conv1x1(in_ch, out_ch, dtype=torch.float32):
+    return Conv2d(in_ch, out_ch, 1, dtype=dtype)
 
 
 class NIN(nn.Module):
     """1x1 channel projection over the last axis, with the reference's
-    parameter layout: W (in, out), b (out)."""
+    parameter layout: W (in, out), b (out). A flax Dense in the JAX
+    package, with its `dtype` (see `Linear`)."""
 
-    def __init__(self, in_dim, out_dim):
+    def __init__(self, in_dim, out_dim, dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.W = nn.Parameter(torch.zeros(in_dim, out_dim))
         self.b = nn.Parameter(torch.zeros(out_dim))
 
     def forward(self, x):
-        return x @ self.W + self.b
+        dt = self.compute_dtype
+        return x.to(dt) @ self.W.to(dt) + self.b.to(dt)
 
 
-def nin(in_dim, out_dim):
-    return NIN(in_dim, out_dim)
+def nin(in_dim, out_dim, dtype=torch.float32):
+    return NIN(in_dim, out_dim, dtype=dtype)
 
 
 class GroupNormF32Stats(nn.Module):
     """GroupNorm with float32 statistics, variance E[x^2] - E[x]^2 clamped at
     0 and eps 1e-6, as in the JAX package (torch's GroupNorm takes the
-    variance in two passes with eps 1e-5). Input (B, C, ...)."""
+    variance in two passes with eps 1e-5). Input (B, C, ...).
 
-    def __init__(self, num_groups, num_channels, eps=1e-6):
+    `follow_input_dtype` (`model.norm_dtype: bfloat16`): the normalization
+    and the affine run in the input's dtype, op by op as XLA rounds them,
+    (x - mean) * inv * scale + bias, with mean, inv, scale and bias rounded
+    to that dtype. Otherwise (and for an f32 input) all in float32, and the
+    output is float32."""
+
+    def __init__(self, num_groups, num_channels, eps=1e-6,
+                 follow_input_dtype=False):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.follow_input_dtype = follow_input_dtype
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -119,8 +206,14 @@ class GroupNormF32Stats(nn.Module):
         mean2 = (xg * xg).mean(dim=axes, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         inv = torch.rsqrt(var + self.eps)
-        y = ((xg - mean) * inv).reshape(x.shape)
         shape = (1, c) + (1,) * (x.ndim - 2)
+        dt = x.dtype
+        if self.follow_input_dtype and dt != torch.float32:
+            y = ((x.reshape(xg.shape) - mean.to(dt)) * inv.to(dt)).reshape(
+                x.shape)
+            return (y * self.weight.to(dt).reshape(shape)
+                    + self.bias.to(dt).reshape(shape))
+        y = ((xg - mean) * inv).reshape(x.shape)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
 
@@ -132,12 +225,19 @@ def _num_groups(ch: int) -> int:
     return g
 
 
-def group_norm(ch):
-    return GroupNormF32Stats(_num_groups(ch), ch, eps=1e-6)
+def group_norm(ch, norm_dtype=torch.float32):
+    """GroupNorm(min(ch // 4, 32), eps=1e-6); `norm_dtype` bfloat16 makes it
+    follow its input's dtype (JAX `group_norm(ch, dtype=norm_dtype)`)."""
+    return GroupNormF32Stats(_num_groups(ch), ch, eps=1e-6,
+                             follow_input_dtype=norm_dtype != torch.float32)
 
 
 def naive_upsample_2d(x, factor=2):
-    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+    """Nearest upsampling as a broadcast; its gradient is a sum over the
+    broadcast axes."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, factor, w, factor) \
+        .reshape(b, c, h * factor, w * factor)
 
 
 def naive_downsample_2d(x, factor=2):
@@ -175,24 +275,25 @@ class ResnetBlockDDPM(nn.Module):
     """DDPM-style resblock."""
 
     def __init__(self, act, in_ch, out_ch=None, temb_dim=None,
-                 conv_shortcut=False, dropout=0.1, skip_rescale=False):
+                 conv_shortcut=False, dropout=0.1, skip_rescale=False,
+                 dtype=torch.float32, norm_dtype=torch.float32):
         super().__init__()
         out_ch = out_ch or in_ch
         self.act = act
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = group_norm(in_ch)
-        self.Conv_0 = conv3x3(in_ch, out_ch)
-        self.Dense_0 = (nn.Linear(temb_dim, out_ch)
+        self.GroupNorm_0 = group_norm(in_ch, norm_dtype)
+        self.Conv_0 = conv3x3(in_ch, out_ch, dtype=dtype)
+        self.Dense_0 = (Linear(temb_dim, out_ch, dtype=dtype)
                         if temb_dim is not None else None)
-        self.GroupNorm_1 = group_norm(out_ch)
+        self.GroupNorm_1 = group_norm(out_ch, norm_dtype)
         self.Dropout_0 = Dropout(dropout)
-        self.Conv_1 = conv3x3(out_ch, out_ch)
+        self.Conv_1 = conv3x3(out_ch, out_ch, dtype=dtype)
         self.Conv_2 = self.NIN_0 = None
         if in_ch != out_ch:
             if conv_shortcut:
-                self.Conv_2 = conv3x3(in_ch, out_ch)
+                self.Conv_2 = conv3x3(in_ch, out_ch, dtype=dtype)
             else:
-                self.NIN_0 = nin(in_ch, out_ch)
+                self.NIN_0 = nin(in_ch, out_ch, dtype=dtype)
 
     def forward(self, x, temb=None, generator=None):
         h = self.act(self.GroupNorm_0(x))
@@ -206,27 +307,28 @@ class ResnetBlockDDPM(nn.Module):
         elif self.NIN_0 is not None:
             x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         out = x + h
-        return out / math.sqrt(2.0) if self.skip_rescale else out
+        return rescale(out) if self.skip_rescale else out
 
 
 class ResnetBlockBigGAN(nn.Module):
     """BigGAN-style resblock with in-block naive up/downsampling."""
 
     def __init__(self, act, in_ch, out_ch=None, temb_dim=None, up=False,
-                 down=False, dropout=0.1, skip_rescale=True):
+                 down=False, dropout=0.1, skip_rescale=True,
+                 dtype=torch.float32, norm_dtype=torch.float32):
         super().__init__()
         out_ch = out_ch or in_ch
         self.act = act
         self.up, self.down = up, down
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = group_norm(in_ch)
-        self.Conv_0 = conv3x3(in_ch, out_ch)
-        self.Dense_0 = (nn.Linear(temb_dim, out_ch)
+        self.GroupNorm_0 = group_norm(in_ch, norm_dtype)
+        self.Conv_0 = conv3x3(in_ch, out_ch, dtype=dtype)
+        self.Dense_0 = (Linear(temb_dim, out_ch, dtype=dtype)
                         if temb_dim is not None else None)
-        self.GroupNorm_1 = group_norm(out_ch)
+        self.GroupNorm_1 = group_norm(out_ch, norm_dtype)
         self.Dropout_0 = Dropout(dropout)
-        self.Conv_1 = conv3x3(out_ch, out_ch)
-        self.Conv_2 = (conv1x1(in_ch, out_ch)
+        self.Conv_1 = conv3x3(out_ch, out_ch, dtype=dtype)
+        self.Conv_2 = (conv1x1(in_ch, out_ch, dtype=dtype)
                        if in_ch != out_ch or up or down else None)
 
     def forward(self, x, temb=None, generator=None):
@@ -244,22 +346,23 @@ class ResnetBlockBigGAN(nn.Module):
         h = self.Conv_1(self.Dropout_0(h, generator))
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
-        out = x + h
-        return out / math.sqrt(2.0) if self.skip_rescale else out
+        out = x.to(h.dtype) + h
+        return rescale(out) if self.skip_rescale else out
 
 
 class AttnBlock(nn.Module):
     """Single-head self-attention over the full HW token grid, scale C^-0.5,
     through the flash-attention forward."""
 
-    def __init__(self, ch, skip_rescale=False):
+    def __init__(self, ch, skip_rescale=False, dtype=torch.float32,
+                 norm_dtype=torch.float32):
         super().__init__()
         self.skip_rescale = skip_rescale
-        self.GroupNorm_0 = group_norm(ch)
-        self.NIN_0 = nin(ch, ch)
-        self.NIN_1 = nin(ch, ch)
-        self.NIN_2 = nin(ch, ch)
-        self.NIN_3 = nin(ch, ch)
+        self.GroupNorm_0 = group_norm(ch, norm_dtype)
+        self.NIN_0 = nin(ch, ch, dtype=dtype)
+        self.NIN_1 = nin(ch, ch, dtype=dtype)
+        self.NIN_2 = nin(ch, ch, dtype=dtype)
+        self.NIN_3 = nin(ch, ch, dtype=dtype)
 
     def forward(self, x):
         b, c, hh, ww = x.shape
@@ -271,5 +374,38 @@ class AttnBlock(nn.Module):
         h = dot_product_attention(q, k, v, scale=c**-0.5)
         h = self.NIN_3(h.reshape(b, hh * ww, c))
         h = h.transpose(1, 2).reshape(b, c, hh, ww)
-        out = x + h
-        return out / math.sqrt(2.0) if self.skip_rescale else out
+        out = x.to(h.dtype) + h
+        return rescale(out) if self.skip_rescale else out
+
+
+def remat(fn, *args, generator=None):
+    """`fn(*args, generator=generator)` under `torch.utils.checkpoint`
+    (non-reentrant), the counterpart of flax `nn.remat`: its activations are
+    dropped after the forward and recomputed in the backward.
+
+    torch.utils.checkpoint restores only the default CPU/CUDA generators,
+    and every dropout mask here comes from the explicit `generator`: a
+    plain recompute would advance it again and draw other masks, and the
+    gradients would be those of a different function. So the generator's
+    state is taken before the first run and set again for the recompute,
+    which draws the same masks; the state the generator had before the
+    recompute is put back after it. The first run draws exactly what a call
+    without remat draws."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    start = generator.get_state()
+    runs = []
+
+    def run(*a):
+        if not runs:  # the forward: draws as without remat
+            runs.append(1)
+            return fn(*a, generator=generator)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, generator=generator)
+        finally:
+            generator.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)

@@ -12,6 +12,14 @@ score (B, N, N, C) out. Inside, the convolutions run in NCHW. Submodules are
 named as the reference-format state dict (`pre_blocks`, `pre_conv`,
 `input_blocks.{i}.{j}`, `mid_blocks`, `out_blocks.{i}.{j}`, `out`), so
 `interop.from_jax` output and reference checkpoints load with strict=True.
+
+`dtype` bfloat16 (`model.dtype`) computes the network in bf16 with f32
+parameters, f32 GroupNorm statistics and an f32 output head, rounding where
+the JAX model rounds (`layers`); `norm_dtype` bfloat16 lets the GroupNorms
+follow their input's dtype. `remat_resblocks` rematerializes each residual
+block in the backward, as every SpatialTransformer does its transformer
+blocks (the JAX model's `remat_attention`, which its build_model never turns
+off); neither changes the state dict or the function.
 """
 
 from __future__ import annotations
@@ -45,14 +53,18 @@ class ScoreUNet(nn.Module):
                  attn_resolutions=(16,), dropout=0.1, n_heads=8,
                  context_dim=4096, skip_rescale=True, resblock_type="biggan",
                  nonlinearity="swish", scale_by_sigma=True, sigma_min=0.01,
-                 sigma_max=100.0, num_scales=2000):
+                 sigma_max=100.0, num_scales=2000, remat_resblocks=False,
+                 dtype=torch.float32, norm_dtype=torch.float32):
         # The JAX model's init_scale only shapes its initializers; weights
         # here come from a state dict or `init_random_weights`.
         super().__init__()
         self.num_channels = num_channels
         self.nf = nf
         self.scale_by_sigma = scale_by_sigma
+        self.dtype = dtype
+        self.remat_resblocks = remat_resblocks
         act = layers.get_act(nonlinearity)
+        dtypes = dict(dtype=dtype, norm_dtype=norm_dtype)
         num_resolutions = len(ch_mult)
         all_res = [max_res_num // (2**i) for i in range(num_resolutions)]
         temb_dim = nf * 4
@@ -61,21 +73,23 @@ class ScoreUNet(nn.Module):
             if resblock_type == "biggan":
                 return layers.ResnetBlockBigGAN(
                     act, in_ch, out_ch, temb_dim, up=up, down=down,
-                    dropout=dropout, skip_rescale=skip_rescale)
+                    dropout=dropout, skip_rescale=skip_rescale, **dtypes)
             return layers.ResnetBlockDDPM(
                 act, in_ch, out_ch, temb_dim, dropout=dropout,
-                skip_rescale=skip_rescale)
+                skip_rescale=skip_rescale, **dtypes)
 
         def attn_pair(ch):
             return [
-                layers.AttnBlock(ch, skip_rescale=skip_rescale),
+                layers.AttnBlock(ch, skip_rescale=skip_rescale, **dtypes),
                 SpatialTransformer(ch, n_heads, ch // n_heads,
-                                   dropout=dropout, context_dim=context_dim),
+                                   dropout=dropout, context_dim=context_dim,
+                                   **dtypes),
             ]
 
         self.pre_blocks = nn.ModuleList(
-            [nn.Linear(nf, temb_dim), nn.Linear(temb_dim, temb_dim)])
-        self.pre_conv = layers.conv3x3(num_channels, nf)
+            [layers.Linear(nf, temb_dim, dtype=dtype),
+             layers.Linear(temb_dim, temb_dim, dtype=dtype)])
+        self.pre_conv = layers.conv3x3(num_channels, nf, dtype=dtype)
 
         ch = nf
         skip_ch = [ch]
@@ -110,6 +124,9 @@ class ScoreUNet(nn.Module):
                 self.out_blocks.append(nn.ModuleList(blk))
         assert not skip_ch
 
+        # the head is float32 whatever `dtype`: an f32 GroupNorm on the
+        # network's output, act, an f32 conv (the score is divided by sigmas
+        # down to 0.01, which bf16 cannot resolve)
         self.out = nn.ModuleList(
             [layers.group_norm(ch), _Act(act),
              layers.conv3x3(ch, num_channels)])
@@ -125,6 +142,8 @@ class ScoreUNet(nn.Module):
                 h = m(h, context, context_mask, generator)
             elif isinstance(m, layers.AttnBlock):
                 h = m(h)
+            elif self.remat_resblocks and torch.is_grad_enabled():
+                h = layers.remat(m, h, temb, generator=generator)
             else:
                 h = m(h, temb, generator)
         return h
@@ -140,7 +159,7 @@ class ScoreUNet(nn.Module):
         temb = layers.get_timestep_embedding(time_cond, self.nf)
         temb = self.pre_blocks[1](self.pre_blocks[0](temb))
 
-        h = self.pre_conv(x.to(torch.float32).permute(0, 3, 1, 2))
+        h = self.pre_conv(x.to(self.dtype).permute(0, 3, 1, 2))
         hs = [h]
         for blk in self.input_blocks:
             h = self._run(blk, h, temb, context, context_mask, generator)
@@ -185,10 +204,14 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def build_model(config, device=None) -> ScoreUNet:
     """Construct the score model named by `config.model.name`, in eval
-    mode, on `device` (CUDA unless the caller asks for the CPU). Raises
-    NotImplementedError for a model setting not ported yet
+    mode, on `device` (CUDA unless the caller asks for the CPU), with the
+    config's `model.dtype`, `model.norm_dtype` and `model.remat_resblocks`.
+    Raises NotImplementedError for a model setting not ported
     (`config.check_ported_model`)."""
     check_ported_model(config)
     device = resolve_device(device)
@@ -211,5 +234,8 @@ def build_model(config, device=None) -> ScoreUNet:
         sigma_min=m.sigma_min,
         sigma_max=m.sigma_max,
         num_scales=m.num_scales,
+        remat_resblocks=bool(m.get("remat_resblocks", False)),
+        dtype=_DTYPES[str(m.get("dtype", "float32"))],
+        norm_dtype=_DTYPES[str(m.get("norm_dtype", "float32"))],
     )
     return model.to(device).eval()

@@ -27,12 +27,24 @@ from . import flash
 
 def _xla_attention(q, k, v, scale, kv_mask=None):
     """The JAX package's einsum path: a -inf bias for masked keys, so a fully
-    masked row is NaN there."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    masked row is NaN there. In q's dtype, as the JAX path runs in it: for
+    bf16 the scale is rounded to bf16 and the softmax is jax.nn.softmax's,
+    op by op (max, exp(x - max), a sum accumulated in f32 and rounded,
+    the division)."""
+    dt = q.dtype
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    if dt == torch.float32:
+        logits = logits * scale
+    else:
+        logits = logits * torch.tensor(scale, dtype=dt).item()
     if kv_mask is not None:
         bias = torch.where(kv_mask[:, None, None, :], 0.0, float("-inf"))
-        logits = logits + bias
-    weights = torch.softmax(logits, dim=-1)
+        logits = logits + bias.to(dt)
+    if dt == torch.float32:
+        weights = torch.softmax(logits, dim=-1)
+    else:
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        weights = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(dt)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
 
 

@@ -61,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -874,6 +875,463 @@ extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
     o[5] = per_sm;
     o[6] = p.threads;
     o[7] = p.narrow;
+  }
+  return 0;
+}
+
+// ------------------------------------------------------------------ bf16
+//
+// The same function on bf16 q, k, v, out and dO (the TPU kernel upcasts
+// them to f32 and writes dq, dk, dv in the inputs' dtypes): S, P, dP and dS
+// in f32, the dQ/dK/dV sums in f32, each result rounded to bf16 once; lse
+// and delta stay f32.
+//
+// What bounds it on the card: at the N=256 training shapes (B=8, T <= 1024,
+// H*D = 512) one call moves at most 42 MB of bf16 (13 us at 3.35 TB/s) and
+// does at most 10 B H Tq Tk D = 43 GFLOP, 43 us at the bf16 tensor-core
+// rate (989 TFLOP/s); the split products issue 1.6x that in mma work.
+//
+// Design (mma_bf16.cuh), the f32 kernels' two-kernel split without
+// atomics:
+//   * dq: each warp owns 16 query rows (up to 4 warps share each k/v tile,
+//     cp.async double-buffered); S = Q K^T and dP = dO V^T are exact bf16
+//     mmas over all of D; P and dS are formed in the accumulators' registers
+//     and dS enters dQ += dS K as a hi + lo pair of bf16 A fragments, K's B
+//     fragments from `ldmatrix .trans`. The prologue writes
+//     delta = rowsum(dO * out) in f32 for the dkdv kernel.
+//   * dkdv: each warp owns 16 key rows and loops over query tiles:
+//     S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q, P^T
+//     and dS^T split as above.
+//   * A block owns one chunk of the output columns (grid z): all of D up to
+//     64; above, chunks of 128 (dq) or 64 (dkdv, which holds dK and dV),
+//     each chunk recomputing S and dP over all of D.
+// The -1e30 mask bias is added to the f32 S before the exp and P is not
+// multiplied by the mask, so a fully masked row has P = 1 as in the JAX
+// kernel.
+
+namespace {
+
+using namespace t2p;
+
+// Shared bytes of either kernel: two resident tiles of `warps` x 16 rows
+// (q and dO, or k and v) and two stages of two inner tiles of t rows.
+size_t bwd16_smem(int D, int warps, int t) {
+  const int ld = pad_ld16(round16(D));
+  return sizeof(bf16) *
+         ((size_t)2 * warps * ROWS * ld + (size_t)2 * 2 * t * ld);
+}
+
+// `rows` is the length the grid walks (Tq for dq, Tk for dkdv), `loop` the
+// length the block's inner loop walks.
+bool plan_bwd16(Bf16Plan& p, int B, int H, int rows, int loop, int D,
+                bool dkdv) {
+  const bool narrow = D <= 64;
+  p.dc = narrow ? D : dkdv ? 64 : 128;
+  p.nchunk = (D + p.dc - 1) / p.dc;
+  p.idx = narrow ? 0 : 1;
+  return plan_bf16(p, B * H, rows, loop, narrow ? 64 : 32,
+                   [&](int warps, int t) { return bwd16_smem(D, warps, t); });
+}
+
+// NO: 8-column tiles of dQ a warp holds; TN: the most 8-row tiles of the
+// inner (key) tile.
+template <int NO, int TN>
+__global__ void __launch_bounds__(4 * 32) flash_bwd_dq_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const bf16* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, const unsigned char* __restrict__ mask,
+    bf16* __restrict__ dq, int H, int Tq, int Tk, int D, int dc, int T,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int D16 = round16(D), ld = pad_ld16(D16);
+  const int rows = (blockDim.x >> 5) * ROWS;
+  const int nn = T >> 3;
+  const int stage = 2 * T * ld;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* sq = smem;                  // rows x ld
+  bf16* sdo = sq + rows * ld;       // rows x ld
+  bf16* stage0 = sdo + rows * ld;   // 2 stages x (k tile, v tile)
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * rows;
+  const int c0 = blockIdx.z * dc;
+  const int cols = min(dc, D - c0);
+  const size_t qoff = (size_t)bh * Tq * D;
+  const bf16* kb = k + (size_t)bh * Tk * D;
+  const bf16* vb = v + (size_t)bh * Tk * D;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tk + T - 1) / T;
+
+  if (D16 != D) {
+    zero_pad16(sq, ld, 2 * rows, D);
+    zero_pad16(stage0, ld, 4 * T, D);
+  }
+  auto load_kv = [&](int it, int s) {
+    bf16* sk = stage0 + s * stage;
+    load_tile_async16(sk, ld, kb, D, it * T, T, Tk, 0, D);
+    load_tile_async16(sk + T * ld, ld, vb, D, it * T, T, Tk, 0, D);
+  };
+  load_tile_async16(sq, ld, q + qoff, D, q0, rows, Tq, 0, D);
+  load_tile_async16(sdo, ld, dout + qoff, D, q0, rows, Tq, 0, D);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp; each
+  // lane of a quad sums every fourth column pair
+  const int row = q0 + warp * ROWS + g;
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    float d = 0.f;
+    if (i < Tq) {
+      const bf16* go = dout + qoff + (size_t)i * D;
+      const bf16* oo = out + qoff + (size_t)i * D;
+      for (int c = 2 * t; c < D; c += 8) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(go + c));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(oo + c));
+        d = fmaf(a.x, b.x, d);
+        d = fmaf(a.y, b.y, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta_r[r] = d;
+    lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] : 0.f;
+    if (t == 0 && i < Tq && blockIdx.z == 0) delta[(size_t)bh * Tq + i] = d;
+  }
+
+  const bf16* sqw = sq + warp * ROWS * ld;
+  const bf16* sdow = sdo + warp * ROWS * ld;
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sk = stage0 + (it & 1) * stage;
+    const bf16* sv = sk + T * ld;
+
+    float sc[TN][4], dp[TN][4];  // S = q k^T and dP = dO v^T, 16 x T
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+    for (int kk = 0; kk < D16; kk += 16) {
+      uint32_t a[4], ad[4];
+      load_a16(a, sqw, ld, kk, lane);
+      load_a16(ad, sdow, ld, kk, lane);
+#pragma unroll
+      for (int n = 0; n < TN; ++n)
+        if (n < nn) {
+          uint32_t b[2];
+          load_bt16(b, sk, ld, n * 8, kk, lane);
+          mma_bf16(sc[n], a, b);
+          load_bt16(b, sv, ld, n * 8, kk, lane);
+          mma_bf16(dp[n], ad, b);
+        }
+    }
+    const int k0 = it * T;
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + n * 8 + 2 * t + (i & 1);
+        const int r = i >> 1;
+        float ds = 0.f;
+        if (n < nn && key < Tk && row + 8 * r < Tq) {
+          const float bias = (mb && !mb[key]) ? -1e30f : 0.f;
+          const float p = expf(sc[n][i] * scale + bias - lse_r[r]);
+          ds = p * (dp[n][i] - delta_r[r]) * scale;
+        }
+        sc[n][i] = ds;
+      }
+    // dQ (16 x cols) += dS k[:, c0:c0+cols]
+#pragma unroll
+    for (int j = 0; j < TN / 2; ++j)
+      if (2 * j < nn) {
+        const SplitA16 a = split_c_to_a(sc[2 * j], sc[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          if (n * 8 < cols) {
+            uint32_t b[2];
+            load_bn16(b, sk, ld, c0 + n * 8, j * 16, lane);
+            mma_split(acc[n], a, b);
+          }
+      }
+    __syncthreads();  // the stage is read; the next prefetch may refill it
+  }
+
+  bf16* dqb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    if (n * 8 < cols) {
+      const int col = c0 + n * 8 + 2 * t;
+      if (row < Tq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)row * D + col) =
+            pack_bf16(acc[n][0], acc[n][1]);
+      if (row + 8 < Tq)
+        *reinterpret_cast<uint32_t*>(dqb + (size_t)(row + 8) * D + col) =
+            pack_bf16(acc[n][2], acc[n][3]);
+    }
+}
+
+// NO: 8-column tiles of dK (and of dV) a warp holds; TN: the most 8-row
+// tiles of the inner (query) tile.
+template <int NO, int TN>
+__global__ void __launch_bounds__(4 * 32) flash_bwd_dkdv_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const unsigned char* __restrict__ mask, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int Tq, int Tk, int D, int dc, int T,
+    float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int D16 = round16(D), ld = pad_ld16(D16);
+  const int rows = (blockDim.x >> 5) * ROWS;
+  const int nn = T >> 3;
+  const int stage = 2 * T * ld;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* sk = smem;                 // rows x ld
+  bf16* sv = sk + rows * ld;       // rows x ld
+  bf16* stage0 = sv + rows * ld;   // 2 stages x (q tile, dO tile)
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * rows;
+  const int c0 = blockIdx.z * dc;
+  const int cols = min(dc, D - c0);
+  const size_t koff = (size_t)bh * Tk * D;
+  const bf16* qb = q + (size_t)bh * Tq * D;
+  const bf16* dob = dout + (size_t)bh * Tq * D;
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tq + T - 1) / T;
+
+  if (D16 != D) {
+    zero_pad16(sk, ld, 2 * rows, D);
+    zero_pad16(stage0, ld, 4 * T, D);
+  }
+  auto load_qdo = [&](int it, int s) {
+    bf16* sq = stage0 + s * stage;
+    load_tile_async16(sq, ld, qb, D, it * T, T, Tq, 0, D);
+    load_tile_async16(sq + T * ld, ld, dob, D, it * T, T, Tq, 0, D);
+  };
+  load_tile_async16(sk, ld, k + koff, D, k0, rows, Tk, 0, D);
+  load_tile_async16(sv, ld, v + koff, D, k0, rows, Tk, 0, D);
+  load_qdo(0, 0);
+  cp_async_commit();
+
+  // keys g and g + 8 of this warp: in range, and their mask bias
+  const int key = k0 + warp * ROWS + g;
+  bool key_in[2];
+  float bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_in[r] = key + 8 * r < Tk;
+    bias[r] = (key_in[r] && mb && !mb[key + 8 * r]) ? -1e30f : 0.f;
+  }
+
+  const bf16* skw = sk + warp * ROWS * ld;
+  const bf16* svw = sv + warp * ROWS * ld;
+  float acc_v[NO][4], acc_k[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_qdo(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sq = stage0 + (it & 1) * stage;
+    const bf16* sdo = sq + T * ld;
+
+    float sc[TN][4], dp[TN][4];  // S^T = k q^T and dP^T = v dO^T, 16 x T
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
+    for (int kk = 0; kk < D16; kk += 16) {
+      uint32_t a[4], av[4];
+      load_a16(a, skw, ld, kk, lane);
+      load_a16(av, svw, ld, kk, lane);
+#pragma unroll
+      for (int n = 0; n < TN; ++n)
+        if (n < nn) {
+          uint32_t b[2];
+          load_bt16(b, sq, ld, n * 8, kk, lane);
+          mma_bf16(sc[n], a, b);
+          load_bt16(b, sdo, ld, n * 8, kk, lane);
+          mma_bf16(dp[n], av, b);
+        }
+    }
+    const int q0 = it * T;
+#pragma unroll
+    for (int n = 0; n < TN; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + n * 8 + 2 * t + (i & 1);
+        const int r = i >> 1;
+        float p = 0.f, ds = 0.f;
+        if (n < nn && qi < Tq && key_in[r]) {
+          p = expf(sc[n][i] * scale + bias[r] - lb[qi]);
+          ds = p * (dp[n][i] - db[qi]) * scale;
+        }
+        sc[n][i] = p;
+        dp[n][i] = ds;
+      }
+    // dV (16 x cols) += P^T dO[:, c0:], dK += dS^T q[:, c0:]
+#pragma unroll
+    for (int j = 0; j < TN / 2; ++j)
+      if (2 * j < nn) {
+        const SplitA16 ap = split_c_to_a(sc[2 * j], sc[2 * j + 1]);
+        const SplitA16 as = split_c_to_a(dp[2 * j], dp[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          if (n * 8 < cols) {
+            uint32_t b[2];
+            load_bn16(b, sdo, ld, c0 + n * 8, j * 16, lane);
+            mma_split(acc_v[n], ap, b);
+            load_bn16(b, sq, ld, c0 + n * 8, j * 16, lane);
+            mma_split(acc_k[n], as, b);
+          }
+      }
+    __syncthreads();  // the stage is read; the next prefetch may refill it
+  }
+
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    if (n * 8 < cols) {
+      const int col = c0 + n * 8 + 2 * t;
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (key_in[r]) {
+          const size_t o = koff + (size_t)(key + 8 * r) * D + col;
+          *reinterpret_cast<uint32_t*>(dk + o) =
+              pack_bf16(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dv + o) =
+              pack_bf16(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+    }
+}
+
+using Dq16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
+                            const bf16*, const bf16*, const float*, float*,
+                            const unsigned char*, bf16*, int, int, int, int,
+                            int, int, float);
+using Dkdv16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
+                              const bf16*, const float*, const float*,
+                              const unsigned char*, bf16*, bf16*, int, int,
+                              int, int, int, int, float);
+
+// D <= 64 (one chunk, inner tiles up to 64 rows), then D > 64 (chunks of
+// 128 for dq and 64 for dkdv, inner tiles up to 32 rows) (Bf16Plan::idx)
+constexpr Dq16Kernel DQ16_KERNELS[] = {flash_bwd_dq_bf16_kernel<8, 8>,
+                                       flash_bwd_dq_bf16_kernel<16, 4>};
+constexpr Dkdv16Kernel DKDV16_KERNELS[] = {
+    flash_bwd_dkdv_bf16_kernel<8, 8>, flash_bwd_dkdv_bf16_kernel<8, 4>};
+
+cudaError_t prepare16(const Bf16Plan& pq, const Bf16Plan& pkv) {
+  static size_t opted_q[MAX_DEVICES][2] = {};
+  static size_t opted_kv[MAX_DEVICES][2] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  cudaError_t err =
+      opt_in(DQ16_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  if (err != cudaSuccess) return err;
+  return opt_in(DKDV16_KERNELS[pkv.idx], pkv.smem, &opted_kv[dev][pkv.idx]);
+}
+
+bool plans16(Bf16Plan& pq, Bf16Plan& pkv, int B, int H, int Tq, int Tk,
+             int D) {
+  return valid_shape(B, H, Tq, Tk, D) &&
+         plan_bwd16(pq, B, H, Tq, Tk, D, false) &&
+         plan_bwd16(pkv, B, H, Tk, Tq, D, true);
+}
+
+}  // namespace
+
+// As t2p_flash_bwd_f32, with q, k, v, dout, out, dq, dk and dv bf16 (lse and
+// the delta scratch stay float32).
+extern "C" int t2p_flash_bwd_bf16(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* out,
+                                  const void* lse, void* delta,
+                                  const void* mask, void* dq, void* dk,
+                                  void* dv, int B, int H, int Tq, int Tk,
+                                  int D, float scale, void* stream) {
+  if (!aligned16({q, k, v, dout, out, dq, dk, dv}))
+    return (int)cudaErrorMisalignedAddress;
+  Bf16Plan pq{}, pkv{};
+  if (!plans16(pq, pkv, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare16(pq, pkv);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qh = static_cast<const bf16*>(q);
+  const bf16* kh = static_cast<const bf16*>(k);
+  const bf16* vh = static_cast<const bf16*>(v);
+  const bf16* gh = static_cast<const bf16*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  float* df = static_cast<float*>(delta);
+  const unsigned char* mf = static_cast<const unsigned char*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  DQ16_KERNELS[pq.idx]<<<pq.grid, 32 * pq.warps, pq.smem, s>>>(
+      qh, kh, vh, gh, static_cast<const bf16*>(out), lf, df, mf,
+      static_cast<bf16*>(dq), H, Tq, Tk, D, pq.dc, pq.t, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  DKDV16_KERNELS[pkv.idx]<<<pkv.grid, 32 * pkv.warps, pkv.smem, s>>>(
+      qh, kh, vh, gh, lf, df, mf, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Tq, Tk, D, pkv.dc, pkv.t, scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 kernels' launch plans, in t2p_flash_bwd_plan's layout (stages is
+// always 2; "narrow" = one chunk of all D columns).
+extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
+                                       int* out) {
+  Bf16Plan plans[2] = {};
+  if (!plans16(plans[0], plans[1], B, H, Tq, Tk, D))
+    return (int)cudaErrorInvalidValue;
+  const bool ready = prepare16(plans[0], plans[1]) == cudaSuccess;
+  for (int i = 0; i < 2; ++i) {
+    const Bf16Plan& p = plans[i];
+    int per_sm = -1;
+    if (ready &&
+        (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DQ16_KERNELS[p.idx], 32 * p.warps, p.smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DKDV16_KERNELS[p.idx], 32 * p.warps,
+                      p.smem)) != cudaSuccess)
+      per_sm = -1;
+    int* o = out + 8 * i;
+    o[0] = p.t;
+    o[1] = 2;
+    o[2] = p.nchunk;
+    o[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
+    o[4] = (int)p.smem;
+    o[5] = per_sm;
+    o[6] = 32 * p.warps;
+    o[7] = p.nchunk == 1;
   }
   return 0;
 }

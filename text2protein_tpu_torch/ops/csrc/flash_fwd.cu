@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -556,5 +557,266 @@ extern "C" int t2p_flash_fwd_plan(int B, int H, int Tq, int Tk, int D,
   out[5] = per_sm;
   out[6] = p.threads;
   out[7] = p.narrow;
+  return 0;
+}
+
+// ------------------------------------------------------------------ bf16
+//
+// The same function on bf16 q, k, v (the TPU kernel upcasts them to f32 and
+// writes `out` in the input's dtype, `lse` in f32): S = Q K^T and the
+// online softmax in f32, O = P V accumulated in f32, out rounded to bf16
+// once, lse f32.
+//
+// What bounds it on the card: at the N=256 serving shapes (B=4, T <= 1024,
+// H*D = 512) one call moves at most 16.8 MB of bf16 (5.0 us at 3.35 TB/s)
+// and does at most 4 B H Tq Tk D = 8.6 GFLOP, 8.7 us at the bf16 tensor-core
+// rate (989 TFLOP/s); the split P V issues a third more mma work than that.
+//
+// Design (mma_bf16.cuh): `mma.sync.m16n8k16`, bf16 operands, f32
+// accumulators. Q K^T is one exact mma per fragment pair; P stays in the
+// registers it was computed in and enters P V as a hi + lo pair of bf16
+// A fragments (two mmas), V's B fragments come from `ldmatrix .trans`.
+// Each warp owns 16 query rows (up to 4 warps a block share each k/v
+// tile, cp.async double-buffered). A block owns one chunk of the output
+// columns (grid z): all of D up to 64 (the self- and cross-attention
+// shapes, D = 64), chunks of 128 above (the AttnBlock shapes, D = 512),
+// where each chunk recomputes S over all of D. The scale and the -1e30 mask
+// bias go on the f32 accumulator; p *= mask as in the f32 kernel.
+
+namespace {
+
+using namespace t2p;
+
+// Shared bytes: q rows, then two stages of (k tile, v tile).
+size_t fwd16_smem(int D, int dc, int warps, int bk) {
+  const int ldq = pad_ld16(round16(D)), ldv = pad_ld16(dc);
+  return sizeof(bf16) *
+         ((size_t)warps * ROWS * ldq + (size_t)2 * bk * (ldq + ldv));
+}
+
+bool plan_fwd16(Bf16Plan& p, int B, int H, int Tq, int Tk, int D) {
+  p.dc = D <= 64 ? D : 128;
+  p.nchunk = (D + p.dc - 1) / p.dc;
+  p.idx = D <= 64 ? 0 : 1;
+  return plan_bf16(p, B * H, Tq, Tk, 64, [&](int warps, int bk) {
+    return fwd16_smem(D, p.dc, warps, bk);
+  });
+}
+
+// NO: 8-column tiles of O a warp holds (the chunk's dc <= 8 NO columns).
+template <int NO>
+__global__ void __launch_bounds__(4 * 32) flash_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
+    bf16* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
+    int D, int dc, int bk, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int D16 = round16(D);
+  const int ldq = pad_ld16(D16), ldv = pad_ld16(dc);
+  const int rows = (blockDim.x >> 5) * ROWS;
+  const int nn = bk >> 3;
+  const int stage = bk * (ldq + ldv);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  bf16* sq = smem;                 // rows x ldq
+  bf16* stage0 = sq + rows * ldq;  // 2 stages x (k tile, v tile)
+
+  const int bh = blockIdx.x;
+  const int q0 = blockIdx.y * rows;
+  const int c0 = blockIdx.z * dc;
+  const int cols = min(dc, D - c0);
+  const bf16* qb = q + (size_t)bh * Tq * D;
+  const bf16* kb = k + (size_t)bh * Tk * D;
+  const bf16* vb = v + (size_t)bh * Tk * D;
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const int ntiles = (Tk + bk - 1) / bk;
+
+  if (D16 != D) {
+    zero_pad16(sq, ldq, rows, D);
+    zero_pad16(stage0, ldq, bk, D);
+    zero_pad16(stage0 + stage, ldq, bk, D);
+  }
+  auto load_kv = [&](int it, int s) {
+    bf16* sk = stage0 + s * stage;
+    load_tile_async16(sk, ldq, kb, D, it * bk, bk, Tk, 0, D);
+    load_tile_async16(sk + bk * ldq, ldv, vb, D, it * bk, bk, Tk, c0, cols);
+  };
+  load_tile_async16(sq, ldq, qb, D, q0, rows, Tq, 0, D);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const bf16* sqw = sq + warp * ROWS * ldq;
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      load_kv(it + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sk = stage0 + (it & 1) * stage;
+    const bf16* sv = sk + bk * ldq;
+
+    float sc[8][4];  // S (16 x bk <= 64) as 8 accumulator fragments
+#pragma unroll
+    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+    for (int kk = 0; kk < D16; kk += 16) {
+      uint32_t a[4];
+      load_a16(a, sqw, ldq, kk, lane);
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (n < nn) {
+          uint32_t b[2];
+          load_bt16(b, sk, ldq, n * 8, kk, lane);
+          mma_bf16(sc[n], a, b);
+        }
+    }
+
+    // scale and mask bias, then the online softmax of rows g and g + 8
+    const int k0 = it * bk;
+    float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + n * 8 + 2 * t + (i & 1);
+        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
+        sc[n][i] = sc[n][i] * scale + (live ? 0.f : -1e30f);
+        mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
+      }
+    float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      m_new[r] = fmaxf(m_r[r], mx[r]);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + n * 8 + 2 * t + (i & 1);
+        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
+        const float p = live ? expf(sc[n][i] - m_new[i >> 1]) : 0.f;
+        sc[n][i] = p;
+        sum[i >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      alpha[r] = expf(m_r[r] - m_new[r]);
+      l_r[r] = l_r[r] * alpha[r] + sum[r];
+      m_r[r] = m_new[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V, P from registers as hi + lo bf16 A fragments
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (2 * j < nn) {
+        const SplitA16 pa = split_c_to_a(sc[2 * j], sc[2 * j + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          if (n * 8 < cols) {
+            uint32_t b[2];
+            load_bn16(b, sv, ldv, n * 8, j * 16, lane);
+            mma_split(o[n], pa, b);
+          }
+      }
+    __syncthreads();  // the stage is read; the next prefetch may refill it
+  }
+
+  bf16* ob = out + (size_t)bh * Tq * D;
+  const int row = q0 + warp * ROWS + g;
+  const float l_top = fmaxf(l_r[0], 1e-30f), l_bot = fmaxf(l_r[1], 1e-30f);
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    if (n * 8 < cols) {
+      const int col = c0 + n * 8 + 2 * t;
+      if (row < Tq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + col) =
+            pack_bf16(o[n][0] / l_top, o[n][1] / l_top);
+      if (row + 8 < Tq)
+        *reinterpret_cast<uint32_t*>(ob + (size_t)(row + 8) * D + col) =
+            pack_bf16(o[n][2] / l_bot, o[n][3] / l_bot);
+    }
+  if (blockIdx.z == 0 && t == 0) {
+    if (row < Tq) lse[(size_t)bh * Tq + row] = m_r[0] + logf(l_top);
+    if (row + 8 < Tq) lse[(size_t)bh * Tq + row + 8] = m_r[1] + logf(l_bot);
+  }
+}
+
+using Fwd16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
+                             const unsigned char*, bf16*, float*, int, int,
+                             int, int, int, int, float);
+
+// D <= 64 (one chunk of D columns), then D > 64 (chunks of 128)
+constexpr Fwd16Kernel KERNELS16[] = {flash_fwd_bf16_kernel<8>,
+                                     flash_fwd_bf16_kernel<16>};
+constexpr int NKERNELS16 = sizeof(KERNELS16) / sizeof(KERNELS16[0]);
+
+cudaError_t prepare16(int idx, size_t smem) {
+  static size_t opted[MAX_DEVICES][NKERNELS16] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  return opt_in(KERNELS16[idx], smem, &opted[dev][idx]);
+}
+
+}  // namespace
+
+// As t2p_flash_fwd_f32, with q, k, v and out bf16 (lse stays float32).
+extern "C" int t2p_flash_fwd_bf16(const void* q, const void* k, const void* v,
+                                  const void* mask, void* out, void* lse,
+                                  int B, int H, int Tq, int Tk, int D,
+                                  float scale, void* stream) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!aligned16({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
+  Bf16Plan p{};
+  if (!plan_fwd16(p, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare16(p.idx, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  KERNELS16[p.idx]<<<p.grid, 32 * p.warps, p.smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const unsigned char*>(mask),
+      static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, D, p.dc,
+      p.t, scale);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 kernel's launch plan, in t2p_flash_fwd_plan's layout (stages is
+// always 2; "narrow" = one chunk of all D columns).
+extern "C" int t2p_flash_fwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
+                                       int* out) {
+  Bf16Plan p{};
+  if (!valid_shape(B, H, Tq, Tk, D) || !plan_fwd16(p, B, H, Tq, Tk, D))
+    return (int)cudaErrorInvalidValue;
+  int per_sm = -1;
+  if (prepare16(p.idx, p.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, KERNELS16[p.idx], 32 * p.warps, p.smem) != cudaSuccess)
+    per_sm = -1;
+  out[0] = p.t;
+  out[1] = 2;
+  out[2] = p.nchunk;
+  out[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
+  out[4] = (int)p.smem;
+  out[5] = per_sm;
+  out[6] = 32 * p.warps;
+  out[7] = p.nchunk == 1;
   return 0;
 }

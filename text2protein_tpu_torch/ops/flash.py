@@ -5,7 +5,10 @@ Counterpart of text2protein_tpu/ops/flash.py (`supports`,
 `flash_attention_fwd`, `flash_attention`, `supports_bwd`,
 `flash_attention_bwd`). A tensor on the GPU goes to the kernel; a tensor on
 the CPU goes to the `*_reference` function, which computes the same function
-in plain torch. Each wrapper counts its kernel launches in `.launches`.
+in plain torch. Each kernel takes float32 or bfloat16 q, k, v (and out, g)
+of one dtype, with `lse` float32, and has an entry of each dtype: the
+wrappers dispatch by dtype and count the launches of each in `.launches`
+(float32) and `.launches_bf16` (bfloat16).
 """
 
 from __future__ import annotations
@@ -18,25 +21,26 @@ import torch
 from . import _build
 
 _SOURCE = "flash_fwd.cu"
+_FWD_ARGS = (ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
+_PLAN_ARGS = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.c_void_p])
 _FUNCTIONS = {
-    "t2p_flash_fwd_f32": (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p],
-    ),
-    "t2p_flash_fwd_plan": (ctypes.c_int,
-                           [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "t2p_flash_fwd_f32": _FWD_ARGS,
+    "t2p_flash_fwd_bf16": _FWD_ARGS,
+    "t2p_flash_fwd_plan": _PLAN_ARGS,
+    "t2p_flash_fwd_bf16_plan": _PLAN_ARGS,
 }
 _BWD_SOURCE = "flash_bwd.cu"
+_BWD_ARGS = (ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+             + [ctypes.c_float, ctypes.c_void_p])
 _BWD_FUNCTIONS = {
-    "t2p_flash_bwd_f32": (
-        ctypes.c_int,
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p],
-    ),
-    "t2p_flash_bwd_plan": (ctypes.c_int,
-                           [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "t2p_flash_bwd_f32": _BWD_ARGS,
+    "t2p_flash_bwd_bf16": _BWD_ARGS,
+    "t2p_flash_bwd_plan": _PLAN_ARGS,
+    "t2p_flash_bwd_bf16_plan": _PLAN_ARGS,
 }
+# the C entries' suffix by dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the ctypes functions, resolved at the first launch
 _KERNELS: dict[str, object] = {}
 
@@ -66,18 +70,19 @@ def _call(fn, device, *args):
                            f"{rc}")
 
 
-def launch_plan(kind, b, h, tq, tk, d):
+def launch_plan(kind, b, h, tq, tk, d, dtype=torch.float32):
     """The kernel's launch plan for a call of this shape, for reports:
     forward {key tile, stages, column chunks, blocks, shared bytes, blocks
     per SM, threads per block, narrow kernel}; backward the same eight for
     the dq kernel and for the dkdv kernel. Needs a GPU."""
     names = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
              "threads", "narrow")
+    plan = "_plan" if dtype == torch.float32 else "_bf16_plan"
     if kind == "fwd":
-        fn = _kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd_plan")
+        fn = _kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd" + plan)
         keys = list(names)
     else:
-        fn = _kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_plan")
+        fn = _kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd" + plan)
         keys = [f"{k}_{n}" for k in ("dq", "dkdv") for n in names]
     out = (ctypes.c_int * 16)()
     if fn(b, h, tq, tk, d, out) != 0:
@@ -122,6 +127,8 @@ def _supports(tq, tk, d) -> bool:
 def flash_attention_fwd_reference(q, k, v, scale=None, kv_mask=None):
     """Plain-torch version of the kernel: the same masking rule (-1e30 bias,
     p *= mask, so a fully masked row gives 0) and the same 1e-30 clamps.
+    As in the TPU kernel, the inputs are upcast to f32, all the math is
+    f32, and `out` is rounded to q's dtype once at the end.
 
     q: (B, H, Tq, D); k, v: (B, H, Tk, D); kv_mask: (B, Tk) bool or None.
     Returns out (B, H, Tq, D) in q's dtype and lse (B*H, Tq, 1) float32.
@@ -147,7 +154,8 @@ def flash_attention_fwd_reference(q, k, v, scale=None, kv_mask=None):
 
 def _check_inputs(admitted, what, q, k, v, kv_mask, extra=()):
     """The wrapper's checks on CUDA inputs: the shape gate (`admitted`),
-    f32, shapes, contiguity, one device, 16-byte alignment of the D-wide
+    dtypes (q's, float32 or bfloat16, for every D-wide tensor; float32 for
+    lse), shapes, contiguity, one device, 16-byte alignment of the D-wide
     tensors (the kernels copy 16 bytes a thread) and a bool mask; `extra`
     adds (name, tensor, shape) triples. Returns the data pointers of q, k,
     v and the extra tensors, then the mask's (None without a mask), then
@@ -161,13 +169,17 @@ def _check_inputs(admitted, what, q, k, v, kv_mask, extra=()):
         raise ValueError(f"flash {what} kernel does not take q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}"
                          f"{' with a mask' if kv_mask is not None else ''}")
+    if q.dtype not in _SUFFIX:
+        raise TypeError(f"q: expected torch.float32 or torch.bfloat16, got "
+                        f"{q.dtype}")
     dev = q.get_device()
     kv_shape = (b, h, tk, d)
     ptrs = []
     for name, t, shape in (("q", q, q.shape), ("k", k, kv_shape),
                            ("v", v, kv_shape), *extra):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
+        want = torch.float32 if name == "lse" else q.dtype
+        if t.dtype != want:
+            raise TypeError(f"{name}: expected {want}, got {t.dtype}")
         if t.shape != shape:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                              f"got {tuple(t.shape)}")
@@ -208,15 +220,21 @@ def flash_attention_fwd(q, k, v, scale=None, kv_mask=None):
     if scale is None:
         scale = d**-0.5
     out = torch.empty_like(q)
-    lse = q.new_empty((b * h, tq, 1))
-    _call(_kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd_f32"), dev,
+    lse = q.new_empty((b * h, tq, 1), dtype=torch.float32)
+    suffix = _SUFFIX[q.dtype]
+    _call(_kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd_" + suffix), dev,
           qp, kp, vp, mp, out.data_ptr(), lse.data_ptr(), b, h, tq,
           k.shape[2], d, float(scale))
-    flash_attention_fwd.launches += 1
+    if suffix == "f32":
+        flash_attention_fwd.launches += 1
+    else:
+        flash_attention_fwd.launches_bf16 += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0  # kernel launches, read by chip_smoke.py
+# kernel launches by dtype, read by chip_smoke.py
+flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_bf16 = 0
 
 
 def flash_attention(q, k, v, scale=None, kv_mask=None):
@@ -297,14 +315,20 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None, kv_mask=None):
     if scale is None:
         scale = d**-0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # delta = rowsum(dO * out): written by the dq kernel, read by dkdv
-    delta = q.new_empty((b * h, tq))
-    _call(_kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_f32"),
+    # delta = rowsum(dO * out) in f32: written by the dq kernel, read by dkdv
+    delta = q.new_empty((b * h, tq), dtype=torch.float32)
+    suffix = _SUFFIX[q.dtype]
+    _call(_kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_" + suffix),
           dev, qp, kp, vp, gp, op, lp, delta.data_ptr(), mp,
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, k.shape[2],
           d, float(scale))
-    flash_attention_bwd.launches += 1
+    if suffix == "f32":
+        flash_attention_bwd.launches += 1
+    else:
+        flash_attention_bwd.launches_bf16 += 1
     return dq, dk, dv
 
 
-flash_attention_bwd.launches = 0  # kernel launches, read by chip_smoke.py
+# kernel launches by dtype, read by chip_smoke.py
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_bf16 = 0

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..data.featurize import featurize_batch
 from ..diffusion.ema import ema_update
 from ..diffusion.losses import get_sde_loss_fn
 from .state import TrainState
@@ -25,6 +26,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(value)
 
 
+def featurize(config, batch):
+    """The batch the loss takes: a batch that carries backbones (`bb`, from
+    `data.featurize_on_device`) gets coords_6d and mask_pair built on its
+    device (JAX `_featurizer`); any other batch is returned as it is."""
+    if "bb" not in batch or "coords_6d" in batch:
+        return batch
+    coords_6d, mask_pair = featurize_batch(batch["bb"], batch["mask_res"],
+                                           config.data.num_channels)
+    return dict(batch, coords_6d=coords_6d, mask_pair=mask_pair)
+
+
 def make_train_step(config, sde, model):
     """Returns train_step(state, batch, seed) -> loss (a 0-d tensor)."""
     loss_fn = get_sde_loss_fn(
@@ -33,6 +45,7 @@ def make_train_step(config, sde, model):
     )
 
     def train_step(state: TrainState, batch, seed):
+        batch = featurize(config, batch)
         gen = step_generator(seed, state.step, batch["coords_6d"].device)
         state.optimizer.zero_grad()
         loss = loss_fn(None, batch, gen)
@@ -52,6 +65,7 @@ def make_eval_step(config, sde, model):
                               condition=tuple(config.model.condition))
 
     def eval_step(state: TrainState, batch, seed):
+        batch = featurize(config, batch)
         gen = torch.Generator(device=batch["coords_6d"].device)
         gen.manual_seed(int(seed))
         with torch.no_grad():
