@@ -798,11 +798,33 @@ def bf16_bound(nbytes, flops):
 
 
 def register_report(ptxas, kind):
-    """{instantiation: registers / spills} of the bf16 kernels of `kind`."""
+    """{instantiation: registers / spills} of the bf16 kernels of `kind`:
+    the wgmma kernels and the mma.sync ones of D > 512."""
     return {k: (r.get("registers"), r.get("spill_stores"),
                 r.get("spill_loads"))
-            for k, r in ptxas.items() if f"{kind}_bf16" in k or
-            (kind == "bwd" and "_bf16" in k and "flash_bwd" in k)}
+            for k, r in ptxas.items()
+            if f"flash_{kind}" in k and ("_bf16" in k or "wgmma" in k)}
+
+
+def bf16_mma_flops(kind, b, h, tq, tk, d, plan):
+    """The mma work (FLOPs) the bf16 wgmma kernels issue for one call, from
+    their launch plan: blocks of `rows` rows and inner tiles of `tile` rows
+    (ragged ends padded), S and dP over D rounded to 16 once per column
+    chunk, the products with P and dS (split in two) over D's 64-column
+    boxes."""
+    def up(x, m):
+        return -(-x // m) * m
+
+    d16, dbox = up(d, 16), up(d, 64)
+    if kind == "fwd":
+        return 2 * b * h * up(tq, plan["rows"]) * up(tk, plan["tile"]) * (
+            d16 * plan["chunks"] + 2 * dbox)
+    dq = 2 * b * h * up(tq, plan["dq_rows"]) * up(tk, plan["dq_tile"]) * (
+        2 * d16 * plan["dq_chunks"] + 2 * dbox)
+    dkdv = (2 * b * h * up(tk, plan["dkdv_rows"])
+            * up(tq, plan["dkdv_tile"])
+            * (2 * d16 * plan["dkdv_chunks"] + 4 * dbox))
+    return dq + dkdv
 
 
 def phase_kernels_bf16(torch, ptxas):
@@ -861,8 +883,6 @@ def phase_kernels_bf16(torch, ptxas):
                 nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
                           + 4 * b * h * tq + (b * tk if masked else 0))
                 flops = 4 * b * h * tq * tk * d
-                # mma work issued: S per column chunk, P V split in two
-                mma = 2 * b * h * tq * tk * d * (plan["chunks"] + 2)
             else:
                 if not flash.supports_bwd_cuda(q, k, v, masked):
                     raise AssertionError(f"{name}: the gate refuses it")
@@ -902,9 +922,6 @@ def phase_kernels_bf16(torch, ptxas):
                                + out.numel() + g.numel()) + 4 * b * h * tq
                           + (b * tk if masked else 0))
                 flops = 10 * b * h * tq * tk * d
-                # S and dP in both kernels per column chunk, dQ, dK, dV split
-                mma = 2 * b * h * tq * tk * d * (
-                    2 * plan["dq_chunks"] + 2 * plan["dkdv_chunks"] + 6)
             if not ok:
                 raise AssertionError(f"bf16 {kind} {name}: kernel vs plain "
                                      f"{what}")
@@ -913,6 +930,7 @@ def phase_kernels_bf16(torch, ptxas):
             device = graph_us(torch, call)
             plain_ms = cuda_ms(torch, plain)
             bound_ms, bound_by = bf16_bound(nbytes, flops)
+            mma = bf16_mma_flops(kind, b, h, tq, tk, d, plan)
             mma_ms = max(nbytes / PEAK_BYTES_S, mma / PEAK_BF16_S) * 1e3
             row = dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
                        masked=masked, per_step=per_step, max_abs_err=err,
@@ -1383,8 +1401,7 @@ def main():
             "bound_by": bound_by(rs, peak),
             "library_ms": per_step(rs, "library_ms"),
             # the bound of the kernels' route: f32, 3xTF32 on the tensor
-            # cores; bf16, the mma work they issue (S per column chunk,
-            # the split products twice)
+            # cores; bf16, the mma work they issue (bf16_mma_flops)
             "tc_bound_ms": per_step(rs, "tc_bound_ms"),
             # the kernels' device time alone (CUDA graph replay): `ms`
             # less what the wrapper's host time adds to back-to-back calls

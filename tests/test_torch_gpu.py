@@ -400,7 +400,10 @@ def test_train_step_gradients_on_gpu_match_cpu(cuda):
 # (B, H, Tq, Tk, D, masked) of the N=256 model (configs/quality_n256.yml):
 # AttnBlock H=1 D=512, self-attention H=8 d=64, cross-attention over the
 # 16-token caption bucket, at 32x32, 16x16 and 8x8; then ragged tiles, D
-# that is not a multiple of 16 (8, 24, 136) and the largest D
+# that is not a multiple of 16 (8, 24, 136) and the largest D; then the
+# edges of the wgmma kernels: Tq and Tk off the 64-row tiles at D = 512
+# (TMA's zero fill), D = 512 masked with a dead row, D = 520 (the mma.sync
+# kernel above 512, D % 16 == 8), and one 64-row tile (B*H = 1)
 BF16_SHAPES = [
     (2, 1, 1024, 1024, 512, False),
     (2, 8, 1024, 1024, 64, False),
@@ -415,6 +418,11 @@ BF16_SHAPES = [
     (2, 3, 17, 9, 24, False),
     (2, 2, 40, 72, 136, True),
     (1, 1, 64, 72, 1024, False),
+    (2, 1, 72, 130, 512, False),
+    (2, 1, 128, 128, 512, True),
+    (2, 1, 64, 64, 520, False),
+    (1, 1, 64, 64, 512, False),
+    (1, 1, 64, 64, 64, False),
 ]
 
 
@@ -485,6 +493,40 @@ def test_bf16_bwd_kernel_matches_plain_version(cuda, b, h, tq, tk, d,
         assert torch.isfinite(x).all(), name
         err = (x.float() - w.float()).abs().max().item()
         assert err <= bf16_step(w.float().abs().max().item()), (name, err)
+
+
+@pytest.mark.gpu
+def test_bf16_launch_plan_reports_the_wgmma_design(cuda):
+    """The bf16 plans name the route, warpgroups, column chunks, stages and
+    tiles; at the N=256 AttnBlock 32x32 the forward and the dq kernel
+    compute S once per 64-row tile (one column chunk), dkdv twice; the
+    D <= 64 forward gives each of two warpgroups its own 64 rows and the
+    backward runs one; D > 512 keeps the mma.sync kernels."""
+    keys = {"warpgroups", "chunks", "stages", "tile", "rows", "blocks",
+            "smem", "per_sm", "threads", "wgmma"}
+    fwd = tflash.launch_plan("fwd", 4, 1, 1024, 1024, 512, torch.bfloat16)
+    assert set(fwd) == keys
+    assert fwd["wgmma"] == 1 and fwd["warpgroups"] == 2
+    assert fwd["rows"] == 64 and fwd["chunks"] == 1
+    assert fwd["blocks"] == 4 * 1024 // 64
+    assert fwd["stages"] >= 2 and fwd["per_sm"] >= 1
+    assert fwd["threads"] == 2 * 128
+    bwd = tflash.launch_plan("bwd", 8, 1, 1024, 1024, 512, torch.bfloat16)
+    assert set(bwd) == {f"{k}_{n}" for k in ("dq", "dkdv") for n in keys}
+    assert bwd["dq_wgmma"] == bwd["dkdv_wgmma"] == 1
+    assert bwd["dq_chunks"] == 1 and bwd["dkdv_chunks"] == 2
+    assert bwd["dq_per_sm"] >= 1 and bwd["dkdv_per_sm"] >= 1
+    narrow = tflash.launch_plan("fwd", 4, 8, 1024, 1024, 64, torch.bfloat16)
+    assert narrow["wgmma"] == 1 and narrow["warpgroups"] == 2
+    assert narrow["rows"] == 128 and narrow["chunks"] == 1
+    assert narrow["blocks"] == 32 * 1024 // 128
+    narrow_bwd = tflash.launch_plan("bwd", 8, 8, 1024, 1024, 64,
+                                    torch.bfloat16)
+    assert narrow_bwd["dq_warpgroups"] == narrow_bwd["dkdv_warpgroups"] == 1
+    wide = tflash.launch_plan("fwd", 1, 1, 64, 72, 1024, torch.bfloat16)
+    assert wide["wgmma"] == 0 and wide["warpgroups"] == 0
+    # the f32 plans keep their keys
+    assert "narrow" in tflash.launch_plan("fwd", 4, 1, 256, 256, 256)
 
 
 @pytest.mark.gpu

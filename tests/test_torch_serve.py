@@ -193,3 +193,36 @@ def test_chip_smoke_fails_without_a_gpu():
         env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin"})
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("kind,plan,want", [
+    # the N=256 AttnBlock 32x32 forward at B=4: S once (4.3 GFLOP), P V
+    # split in two (8.6)
+    ("fwd", {"rows": 64, "tile": 32, "chunks": 1},
+     2 * 4 * 1024 * 1024 * (512 + 2 * 512)),
+    # its backward at B=8: dq S and dP once, dQ split; dkdv S^T and dP^T
+    # per column chunk (2), dK and dV split
+    ("bwd", {"dq_rows": 64, "dq_tile": 16, "dq_chunks": 1, "dkdv_rows": 64,
+             "dkdv_tile": 16, "dkdv_chunks": 2},
+     2 * 8 * 1024 * 1024 * (2 * 512 + 2 * 512)
+     + 2 * 8 * 1024 * 1024 * (2 * 512 * 2 + 4 * 512)),
+])
+def test_chip_smoke_route_bound_counts_the_issued_mma_work(kind, plan,
+                                                            want):
+    """chip_smoke.py's route bound counts the mma work the bf16 kernels
+    issue, from their launch plan (no GPU needed)."""
+    import chip_smoke
+
+    b = 4 if kind == "fwd" else 8
+    assert chip_smoke.bf16_mma_flops(kind, b, 1, 1024, 1024, 512,
+                                     plan) == want
+
+
+def test_chip_smoke_route_bound_pads_ragged_tiles():
+    """Ragged Tq and Tk are padded to the blocks' rows and the inner tile,
+    and D to 16 (S) and to 64-column boxes (the products with P)."""
+    import chip_smoke
+
+    plan = {"rows": 128, "tile": 64, "chunks": 1}
+    got = chip_smoke.bf16_mma_flops("fwd", 3, 2, 24, 40, 8, plan)
+    assert got == 2 * 3 * 2 * 128 * 64 * (16 + 2 * 64)

@@ -63,6 +63,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -881,40 +882,586 @@ extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
 
 // ------------------------------------------------------------------ bf16
 //
-// The same function on bf16 q, k, v, out and dO (the TPU kernel upcasts
-// them to f32 and writes dq, dk, dv in the inputs' dtypes): S, P, dP and dS
-// in f32, the dQ/dK/dV sums in f32, each result rounded to bf16 once; lse
-// and delta stay f32.
+// The same function on bf16 q, k, v, out and dO (the TPU kernel
+// `_flash_bwd_kernel` upcasts them to f32 and writes dq, dk, dv in the
+// inputs' dtypes): S, P, dP and dS in f32, the -1e30 mask bias added before
+// the exp and P not multiplied by the mask (a dead row has P = 1), delta =
+// rowsum(dO * out) in f32, every product accumulated in f32 with P and dS
+// entering at f32 accuracy (hi + lo bf16 halves), each result rounded to
+// bf16 once; lse and delta stay f32.
 //
 // What bounds it on the card: at the N=256 training shapes (B=8, T <= 1024,
-// H*D = 512) one call moves at most 42 MB of bf16 (13 us at 3.35 TB/s) and
-// does at most 10 B H Tq Tk D = 43 GFLOP, 43 us at the bf16 tensor-core
-// rate (989 TFLOP/s); the split products issue 1.6x that in mma work.
+// H*D = 512) one call reads 42 MB and writes 25 MB of bf16 (20 us at 3.35
+// TB/s) and does at most 10 B H Tq Tk D = 43 GFLOP (43 us at 989 TFLOP/s),
+// both at the AttnBlock 32x32 (H=1, T=1024, D=512). The mma work this
+// design issues there: dq computes S and dP once (17.2 GFLOP) and dQ twice
+// (hi, lo: 17.2); dkdv computes S^T and dP^T once per column chunk (two:
+// 34.4) and dK, dV twice (34.4): 103 GFLOP, 104 us, against 261 us for the
+// mma.sync kernels it replaces (S and dP in 4 dq and 8 dkdv column chunks).
 //
-// Design (mma_bf16.cuh), the f32 kernels' two-kernel split without
-// atomics:
-//   * dq: each warp owns 16 query rows (up to 4 warps share each k/v tile,
-//     cp.async double-buffered); S = Q K^T and dP = dO V^T are exact bf16
-//     mmas over all of D; P and dS are formed in the accumulators' registers
-//     and dS enters dQ += dS K as a hi + lo pair of bf16 A fragments, K's B
-//     fragments from `ldmatrix .trans`. The prologue writes
-//     delta = rowsum(dO * out) in f32 for the dkdv kernel.
-//   * dkdv: each warp owns 16 key rows and loops over query tiles:
-//     S^T = K Q^T, dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q, P^T
-//     and dS^T split as above.
-//   * A block owns one chunk of the output columns (grid z): all of D up to
-//     64; above, chunks of 128 (dq) or 64 (dkdv, which holds dK and dV),
-//     each chunk recomputing S and dP over all of D.
-// The -1e30 mask bias is added to the f32 S before the exp and P is not
-// multiplied by the mask, so a fully masked row has P = 1 as in the JAX
-// kernel.
+// Design (D <= 512), the two-kernel split without atomics of the f32
+// kernels, each block a 64-row tile (one wgmma M) whose warpgroups run
+// wgmma while TMA keeps the inner tiles in flight (two stages, full/empty
+// mbarriers, one thread issuing every copy as in the forward; zero fill
+// for ragged tiles and D's padding):
+//   * dq: a block owns 64 query rows; Q and dO stay in shared memory, K and
+//     V tiles stream. S = Q K^T and dP = dO V^T are SS wgmmas; P and dS
+//     are formed in the accumulators' registers and dQ += dS K is an RS
+//     wgmma (dS as hi + lo, K read MN-major). Its prologue writes delta for
+//     the dkdv kernel.
+//   * dkdv: a block owns 64 key rows; K and V stay, Q and dO tiles stream.
+//     S^T = K Q^T and dP^T = V dO^T (SS), then dV += P^T dO and dK += dS^T Q
+//     (RS, Q and dO read MN-major).
+//   * P = exp2 of the score in log2 units (the -1e30 bias and lse scaled by
+//     log2(e) alike, so a dead row still has P = 1 exactly).
+//   * D > 64 (the AttnBlock, D = 512): two warpgroups, each computing S and
+//     dP (or S^T and dP^T) over its half of the D steps; the partial sums
+//     meet in shared memory, so each is computed once per block. dq: each
+//     warpgroup owns half of dQ's column boxes (256 columns, 128 f32
+//     registers a thread), so S and dP are computed once per 64-row tile.
+//     dkdv: dK and dV of 64 rows at D = 512 are 256 KB of f32, the whole
+//     register file, so a block owns a chunk of 256 of their columns (each
+//     warpgroup 128: dK 64 + dV 64 registers) and the two chunks (grid z)
+//     each compute S^T and dP^T: twice per 64-key tile (PR 7: 8 times).
+//     Shared memory at D = 512, 16-row inner tiles: the two resident tiles
+//     2 x 64 KB + 2 stages x (2 x 16 KB) + the S and dP exchange (2
+//     parities x 2 warpgroups x 16 floats x 128 threads, 32 KB) = 224 KB,
+//     + 1 KB of alignment and the mbarriers: 230,472 of 232,448 bytes, one
+//     block of 256 threads an SM. Registers (ptxas): dq 185, dkdv 190 of
+//     the 255 that 256 threads may hold (dq: dQ 128 + S 8 + dP 8 + dS 8;
+//     dkdv: 128 + 8 + 8 + 16). Grid at the AttnBlock 32x32 (B=8): dq
+//     8 x 16 = 128 blocks, dkdv 8 x 16 x 2 = 256.
+//   * D <= 64 (self-attention, D = 64): one warpgroup, 64-row inner tiles,
+//     50,248 bytes of shared memory; dq 132 registers (3 blocks an SM),
+//     dkdv 207 (2 blocks an SM: S^T, dP^T and the four split halves of P^T
+//     and dS^T are live together).
+//   * The key mask is read once per tile (dq: a bit set per thread for the
+//     keys of its accumulator columns; dkdv: once per block, a bias per
+//     key row), not per score.
+// D > 512 (no shape of the model; the JAX rule admits up to 1024) keeps the
+// mma.sync kernels below: 16 rows a warp, column chunks (128 for dq, 64 for
+// dkdv) that each recompute S and dP, cp.async double buffering.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
+// 6): ptxas reports no spill and no stack frame. Per call at B=8 (device
+// time): AttnBlock 32x32 0.567 ms (the mma.sync kernels: 6.58; SDPA's
+// backward 2.31), self 32x32 0.405 ms (1.02; SDPA's 0.14-0.20); 5.95 ms
+// per N=256 train step over its 32 calls (41.32).
 
 namespace {
 
 using namespace t2p;
 
-// Shared bytes of either kernel: two resident tiles of `warps` x 16 rows
-// (q and dO, or k and v) and two stages of two inner tiles of t rows.
+// P = exp(S scale + bias - lse) is computed as exp2 of the same sum in log2
+// units: the -1e30 bias and lse times log2(e), so a fully masked row
+// (lse = -1e30) still gets BIAS2 - BIAS2 = 0 and P = 1 exactly
+constexpr float BIAS2 = -1e30f * LOG2E;
+
+// The resident tiles' and every stage's mbarriers: full[s] at bar + 8 s,
+// empty[s] at bar + 8 (STAGES + s), the resident tiles' at bar + 16 STAGES.
+__device__ __forceinline__ void init_bars(uint32_t bar, int warps) {
+  for (int s = 0; s < WG_STAGES; ++s) {
+    mbar_init(bar + 8 * s, 1);
+    mbar_init(bar + 8 * (WG_STAGES + s), warps);
+  }
+  mbar_init(bar + 16 * WG_STAGES, 1);
+  mbar_fence_init();
+}
+
+// The copies of both kernels, issued by thread 0: the resident pair (a, b)
+// of 64 rows from row r0, and the inner pair (c, d) of `tile` rows of inner
+// tile `it` into its stage.
+__device__ __forceinline__ void load_resident(const CUtensorMap* a,
+                                              const CUtensorMap* b,
+                                              uint32_t base, uint32_t bar,
+                                              int nbox, int r0, int bh) {
+  const uint32_t res = WG_ROWS * BOX_ROW_BYTES;
+  const uint32_t bar_r = bar + 16 * WG_STAGES;
+  mbar_expect_tx(bar_r, 2 * nbox * res);
+  for (int x = 0; x < nbox; ++x) {
+    tma_load(base + x * res, a, bar_r, x * BOX_COLS, r0, bh);
+    tma_load(base + (nbox + x) * res, b, bar_r, x * BOX_COLS, r0, bh);
+  }
+}
+
+__device__ __forceinline__ void load_inner(const CUtensorMap* c,
+                                           const CUtensorMap* d,
+                                           uint32_t base, uint32_t bar,
+                                           const WgLayout& L, int nbox,
+                                           int tile, int it, int bh) {
+  const int s = it % WG_STAGES;
+  const uint32_t box = tile * BOX_ROW_BYTES, full = bar + 8 * s;
+  const uint32_t st = base + L.stage0 + s * L.stage;
+  mbar_expect_tx(full, L.stage);
+  for (int x = 0; x < nbox; ++x) {
+    tma_load(st + x * box, c, full, x * BOX_COLS, it * tile, bh);
+    tma_load(st + (nbox + x) * box, d, full, x * BOX_COLS, it * tile, bh);
+  }
+}
+
+// Thread 0 sets up the barriers and, after the block barrier, issues the
+// resident pair (a, b) and the first stages of the inner pair (c, d).
+__device__ __forceinline__ void start_copies(
+    const CUtensorMap* a, const CUtensorMap* b, const CUtensorMap* c,
+    const CUtensorMap* d, uint32_t base, uint32_t bar, const WgLayout& L,
+    int nbox, int tile, int r0, int ntiles, int bh, int warps) {
+  if (threadIdx.x == 0) init_bars(bar, warps);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    load_resident(a, b, base, bar, nbox, r0, bh);
+    for (int i = 0; i < WG_STAGES && i < ntiles; ++i)
+      load_inner(c, d, base, bar, L, nbox, tile, i, bh);
+  }
+}
+
+// A warp's release of the stage of inner tile `it`; thread 0 then refills
+// it with tile it + STAGES once every warp has released it.
+__device__ __forceinline__ void release_stage(
+    const CUtensorMap* c, const CUtensorMap* d, uint32_t base, uint32_t bar,
+    const WgLayout& L, int nbox, int tile, int it, int ntiles, int bh) {
+  const uint32_t empty = bar + 8 * (WG_STAGES + it % WG_STAGES);
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
+  if (threadIdx.x == 0 && it + WG_STAGES < ntiles) {
+    mbar_wait(empty, (it / WG_STAGES) & 1);
+    load_inner(c, d, base, bar, L, nbox, tile, it + WG_STAGES, bh);
+  }
+}
+
+// Two SS products over this warpgroup's 16-column steps of D, x += A1 B1^T
+// and y += A2 B2^T, A* resident tiles of 64 rows at a1, a2, B* inner tiles
+// of `tile` rows at b1, b2 (every operand K-major): with one warpgroup the
+// whole 64-column box (the columns past D are TMA's zeros), with two the
+// steps [ks0, ks1) of its half.
+template <int NWG, int N>
+__device__ __forceinline__ void two_products(float (&x)[N], float (&y)[N],
+                                             uint32_t a1, uint32_t b1,
+                                             uint32_t a2, uint32_t b2,
+                                             int ks0, int ks1, int tile) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = y[i] = 0.f;
+  fence_regs(x);  // zeroed before the fence, not sunk past it
+  fence_regs(y);
+  wgmma_fence();
+  if (NWG == 1) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(x, sw128_desc(a1 + kk * 32), sw128_desc(b1 + kk * 32));
+      wgmma_ss(y, sw128_desc(a2 + kk * 32), sw128_desc(b2 + kk * 32));
+    }
+  } else {
+    for (int kk = ks0; kk < ks1; ++kk) {
+      const uint32_t ao =
+          (kk >> 2) * WG_ROWS * BOX_ROW_BYTES + (kk & 3) * 32;
+      const uint32_t bo = (kk >> 2) * tile * BOX_ROW_BYTES + (kk & 3) * 32;
+      wgmma_ss(x, sw128_desc(a1 + ao), sw128_desc(b1 + bo));
+      wgmma_ss(y, sw128_desc(a2 + ao), sw128_desc(b2 + bo));
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(x);
+  fence_regs(y);
+}
+
+// With two warpgroups, adds the other's partial x and y (buffers by tile
+// parity `it`).
+template <int NWG, int N>
+__device__ __forceinline__ void exchange(float (&x)[N], float (&y)[N],
+                                         float* xch, int it, int wg,
+                                         int ct) {
+  if (NWG > 1) {
+    float* buf = xch + (it & 1) * NWG * 2 * N * 128;
+    float* mine = buf + wg * 2 * N * 128;
+    const float* other = buf + (1 - wg) * 2 * N * 128;
+    xch_put(x, mine, ct);
+    xch_put(y, mine + N * 128, ct);
+    warpgroups_sync(NWG * 128);
+    xch_add(x, other, ct);
+    xch_add(y, other + N * 128, ct);
+  }
+}
+
+template <int NWG, int BK, int NOB>
+__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const bf16* __restrict__ dout,
+                              const bf16* __restrict__ out,
+                              const float* __restrict__ lse,
+                              float* __restrict__ delta,
+                              const unsigned char* __restrict__ mask,
+                              bf16* __restrict__ dq, int H, int Tq, int Tk,
+                              int D, float scale) {
+  constexpr int NS = BK / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = nboxes(D);
+  const WgLayout L = wg_layout(2, nbox, BK, WG_STAGES, NWG, 2 * NS);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u, bar = base + L.bars;
+  const uint32_t sq = base, sdo = base + nbox * WG_ROWS * BOX_ROW_BYTES;
+  float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
+  const int bh = blockIdx.x, q0 = blockIdx.y * WG_ROWS;
+  const int ntiles = (Tk + BK - 1) / BK;
+  const uint32_t ktile = BK * BOX_ROW_BYTES;
+
+  start_copies(&tm_q, &tm_do, &tm_k, &tm_v, base, bar, L, nbox, BK, q0,
+               ntiles, bh, 4 * NWG);
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
+  // the k-step bounds and box counts drawn from it) uniform across the
+  // warp: wgmma in a branch it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+
+  const int ct = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
+  const int nks = (D + 15) >> 4, kper = (nks + NWG - 1) / NWG;
+  const int ks0 = wg * kper, ks1 = min(nks, ks0 + kper);
+  const int oper = (nbox + NWG - 1) / NWG, ob0 = wg * oper;
+  const int nob = min(oper, nbox - ob0);
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const size_t qoff = (size_t)bh * Tq * D;
+  const float scale2 = scale * LOG2E;
+
+  // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp;
+  // each lane of a quad sums every fourth column pair
+  const int row = q0 + 16 * warp + g;
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    float d = 0.f;
+    if (i < Tq) {
+      const bf16* go = dout + qoff + (size_t)i * D;
+      const bf16* oo = out + qoff + (size_t)i * D;
+      for (int c = 2 * t; c < D; c += 8) {
+        const float2 a = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(go + c));
+        const float2 b = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(oo + c));
+        d = fmaf(a.x, b.x, d);
+        d = fmaf(a.y, b.y, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta_r[r] = d;
+    lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] * LOG2E : 0.f;
+    if (wg == 0 && t == 0 && i < Tq) delta[(size_t)bh * Tq + i] = d;
+  }
+
+  float acc[NOB][32];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+
+  mbar_wait(bar + 16 * WG_STAGES, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % WG_STAGES;
+    mbar_wait(bar + 8 * s, (it / WG_STAGES) & 1);
+    const uint32_t sk = base + L.stage0 + s * L.stage;
+    const uint32_t sv = sk + nbox * ktile;
+
+    float sc[NS], dp[NS];  // S = Q K^T, dP = dO V^T
+    two_products<NWG>(sc, dp, sq, sk, sdo, sv, ks0, ks1, BK);
+    exchange<NWG>(sc, dp, xch, it, wg, ct);
+
+    // keys of this thread's columns in range (bit 2 j + e: column
+    // 8 j + 2 t + e) and unmasked
+    const int k0 = it * BK;
+    uint32_t in = ~0u, on = ~0u;
+    if (mb != nullptr || k0 + BK > Tk) {
+      in = on = 0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t + e;
+          if (key < Tk) {
+            in |= 1u << (2 * j + e);
+            if (mb == nullptr || mb[key]) on |= 1u << (2 * j + e);
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int bit = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+      float ds = 0.f;
+      if (((in >> bit) & 1u) && row + 8 * r < Tq) {
+        const float bias = ((on >> bit) & 1u) ? 0.f : BIAS2;
+        const float p = exp2f(fmaf(sc[i], scale2, bias) - lse_r[r]);
+        ds = p * (dp[i] - delta_r[r]) * scale;
+      }
+      sc[i] = ds;
+    }
+
+    // dQ += dS K: dS as hi + lo A fragments, K MN-major
+    uint32_t sh[BK / 16][4], sl[BK / 16][4];
+    split_acc(sc, sh, sl);
+#pragma unroll
+    for (int n = 0; n < NOB; ++n) fence_regs(acc[n]);
+    fence_regs(sh);
+    fence_regs(sl);
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < NOB; ++n)
+      if (n < nob) {
+#pragma unroll
+        for (int j = 0; j < BK / 16; ++j) {
+          const uint64_t db =
+              sw128_desc(sk + (ob0 + n) * ktile + j * 16 * BOX_ROW_BYTES);
+          wgmma_rs(acc[n], sl[j], db);
+          wgmma_rs(acc[n], sh[j], db);
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NOB; ++n) fence_regs(acc[n]);
+    fence_regs(sh);
+    fence_regs(sl);
+    release_stage(&tm_k, &tm_v, base, bar, L, nbox, BK, it, ntiles, bh);
+  }
+
+  bf16* dqb = dq + qoff;
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        if (row + 8 * r < Tq && col < D)
+          *reinterpret_cast<uint32_t*>(dqb + (size_t)(row + 8 * r) * D +
+                                       col) =
+              pack_bf16(acc[n][i], acc[n][i + 1]);
+      }
+    }
+}
+
+template <int NWG, int BQ, int NOB>
+__global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
+    flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const unsigned char* __restrict__ mask,
+                                bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                int H, int Tq, int Tk, int D, float scale) {
+  constexpr int NS = BQ / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = nboxes(D);
+  const WgLayout L = wg_layout(2, nbox, BQ, WG_STAGES, NWG, 2 * NS);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u, bar = base + L.bars;
+  const uint32_t sk = base, sv = base + nbox * WG_ROWS * BOX_ROW_BYTES;
+  float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
+  const int bh = blockIdx.x, k0 = blockIdx.y * WG_ROWS;
+  const int ntiles = (Tq + BQ - 1) / BQ;
+  const uint32_t qtile = BQ * BOX_ROW_BYTES;
+
+  start_copies(&tm_k, &tm_v, &tm_q, &tm_do, base, bar, L, nbox, BQ, k0,
+               ntiles, bh, 4 * NWG);
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
+  // the k-step bounds and box counts drawn from it) uniform across the
+  // warp: wgmma in a branch it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+
+  const int ct = threadIdx.x & 127, lane = threadIdx.x & 31;
+  const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
+  const int nks = (D + 15) >> 4, kper = (nks + NWG - 1) / NWG;
+  const int ks0 = wg * kper, ks1 = min(nks, ks0 + kper);
+  // this block's chunk of dK/dV boxes, and this warpgroup's share of it
+  const int cb0 = blockIdx.z * NWG * NOB;
+  const int nbc = min(NWG * NOB, nbox - cb0);
+  const int oper = (nbc + NWG - 1) / NWG, ob0 = cb0 + wg * oper;
+  const int nob = min(oper, nbc - wg * oper);
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+  const float scale2 = scale * LOG2E;
+
+  // key rows g and g + 8 of this warp: in range, and their mask bias
+  const int key = k0 + 16 * warp + g;
+  bool key_in[2];
+  float bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_in[r] = key + 8 * r < Tk;
+    bias[r] = (key_in[r] && mask && !mask[(size_t)(bh / H) * Tk + key +
+                                          8 * r])
+                  ? BIAS2
+                  : 0.f;
+  }
+
+  float acc_v[NOB][32], acc_k[NOB][32];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
+
+  mbar_wait(bar + 16 * WG_STAGES, 0);
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % WG_STAGES;
+    mbar_wait(bar + 8 * s, (it / WG_STAGES) & 1);
+    const uint32_t sq = base + L.stage0 + s * L.stage;
+    const uint32_t sdo = sq + nbox * qtile;
+
+    float sc[NS], dp[NS];  // S^T = K Q^T, dP^T = V dO^T
+    two_products<NWG>(sc, dp, sk, sq, sv, sdo, ks0, ks1, BQ);
+    exchange<NWG>(sc, dp, xch, it, wg, ct);
+
+    // lse and delta of this thread's query columns (8 j + 2 t + e)
+    const int q0 = it * BQ;
+    float lq[BQ / 4], dl[BQ / 4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + e;
+        lq[2 * j + e] = qi < Tq ? lb[qi] * LOG2E : 0.f;
+        dl[2 * j + e] = qi < Tq ? db[qi] : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+      const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      float p = 0.f, ds = 0.f;
+      if (qi < Tq && key_in[r]) {
+        p = exp2f(fmaf(sc[i], scale2, bias[r]) - lq[c]);
+        ds = p * (dp[i] - dl[c]) * scale;
+      }
+      sc[i] = p;
+      dp[i] = ds;
+    }
+
+    // dV += P^T dO, dK += dS^T Q: P^T and dS^T as hi + lo A fragments,
+    // dO and Q MN-major
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], sh[BQ / 16][4], sl[BQ / 16][4];
+    split_acc(sc, ph, pl);
+    split_acc(dp, sh, sl);
+#pragma unroll
+    for (int n = 0; n < NOB; ++n) {
+      fence_regs(acc_v[n]);
+      fence_regs(acc_k[n]);
+    }
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(sh);
+    fence_regs(sl);
+    wgmma_fence();
+#pragma unroll
+    for (int n = 0; n < NOB; ++n)
+      if (n < nob) {
+#pragma unroll
+        for (int j = 0; j < BQ / 16; ++j) {
+          const uint32_t off = (ob0 + n) * qtile + j * 16 * BOX_ROW_BYTES;
+          const uint64_t ddo = sw128_desc(sdo + off);
+          const uint64_t dqd = sw128_desc(sq + off);
+          wgmma_rs(acc_v[n], pl[j], ddo);
+          wgmma_rs(acc_v[n], ph[j], ddo);
+          wgmma_rs(acc_k[n], sl[j], dqd);
+          wgmma_rs(acc_k[n], sh[j], dqd);
+        }
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NOB; ++n) {
+      fence_regs(acc_v[n]);
+      fence_regs(acc_k[n]);
+    }
+    fence_regs(ph);
+    fence_regs(pl);
+    fence_regs(sh);
+    fence_regs(sl);
+    release_stage(&tm_q, &tm_do, base, bar, L, nbox, BQ, it, ntiles, bh);
+  }
+
+  const size_t koff = (size_t)bh * Tk * D;
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        if (key_in[r] && col < D) {
+          const size_t o = koff + (size_t)(key + 8 * r) * D + col;
+          *reinterpret_cast<uint32_t*>(dk + o) =
+              pack_bf16(acc_k[n][i], acc_k[n][i + 1]);
+          *reinterpret_cast<uint32_t*>(dv + o) =
+              pack_bf16(acc_v[n][i], acc_v[n][i + 1]);
+        }
+      }
+    }
+}
+
+using DqWgKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap,
+                            const bf16*, const bf16*, const float*, float*,
+                            const unsigned char*, bf16*, int, int, int, int,
+                            float);
+using DkdvWgKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, const CUtensorMap,
+                              const float*, const float*,
+                              const unsigned char*, bf16*, bf16*, int, int,
+                              int, int, float);
+
+// D <= 64 (one warpgroup, 64-row inner tiles), then 64 < D <= 512 (two
+// warpgroups, 16-row inner tiles; dq up to 4 boxes of dQ a warpgroup,
+// dkdv up to 2 boxes each of dK and dV)
+constexpr DqWgKernel DQ_WG_KERNELS[] = {flash_bwd_dq_wgmma_kernel<1, 64, 1>,
+                                        flash_bwd_dq_wgmma_kernel<2, 16, 4>};
+constexpr DkdvWgKernel DKDV_WG_KERNELS[] = {
+    flash_bwd_dkdv_wgmma_kernel<1, 64, 1>,
+    flash_bwd_dkdv_wgmma_kernel<2, 16, 2>};
+
+struct WgPlan {
+  int nwg, tile, chunks, idx, threads;
+  dim3 grid;
+  size_t smem;
+};
+
+// The dq plan and the dkdv plan of a shape, false for D > 512.
+bool plans_wg(WgPlan& pq, WgPlan& pkv, int B, int H, int Tq, int Tk,
+              int D) {
+  if (D > WG_MAX_D) return false;
+  const bool narrow = D <= 64;
+  const int nbox = nboxes(D);
+  for (WgPlan* p : {&pq, &pkv}) {
+    p->nwg = narrow ? 1 : 2;
+    p->tile = narrow ? 64 : 16;
+    p->idx = narrow ? 0 : 1;
+    p->threads = 128 * p->nwg;
+    p->smem = wg_layout(2, nbox, p->tile, WG_STAGES, p->nwg, p->tile).total;
+  }
+  pq.chunks = 1;
+  pq.grid = dim3(B * H, (Tq + WG_ROWS - 1) / WG_ROWS, 1);
+  const int per_chunk = narrow ? 1 : 2 * 2;  // warpgroups x boxes
+  pkv.chunks = (nbox + per_chunk - 1) / per_chunk;
+  pkv.grid = dim3(B * H, (Tk + WG_ROWS - 1) / WG_ROWS, pkv.chunks);
+  return true;
+}
+
+cudaError_t prepare_wg(const WgPlan& pq, const WgPlan& pkv) {
+  static size_t opted_q[MAX_DEVICES][2] = {};
+  static size_t opted_kv[MAX_DEVICES][2] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  cudaError_t err =
+      opt_in(DQ_WG_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  if (err != cudaSuccess) return err;
+  return opt_in(DKDV_WG_KERNELS[pkv.idx], pkv.smem,
+                &opted_kv[dev][pkv.idx]);
+}
+
+// The mma.sync kernels for D > 512. Shared bytes of either: two resident
+// tiles of `warps` x 16 rows (q and dO, or k and v) and two stages of two
+// inner tiles of t rows.
 size_t bwd16_smem(int D, int warps, int t) {
   const int ld = pad_ld16(round16(D));
   return sizeof(bf16) *
@@ -925,11 +1472,10 @@ size_t bwd16_smem(int D, int warps, int t) {
 // length the block's inner loop walks.
 bool plan_bwd16(Bf16Plan& p, int B, int H, int rows, int loop, int D,
                 bool dkdv) {
-  const bool narrow = D <= 64;
-  p.dc = narrow ? D : dkdv ? 64 : 128;
+  p.dc = dkdv ? 64 : 128;
   p.nchunk = (D + p.dc - 1) / p.dc;
-  p.idx = narrow ? 0 : 1;
-  return plan_bf16(p, B * H, rows, loop, narrow ? 64 : 32,
+  p.idx = 0;
+  return plan_bf16(p, B * H, rows, loop, 32,
                    [&](int warps, int t) { return bwd16_smem(D, warps, t); });
 }
 
@@ -1245,28 +1791,23 @@ using Dkdv16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
                               const unsigned char*, bf16*, bf16*, int, int,
                               int, int, int, int, float);
 
-// D <= 64 (one chunk, inner tiles up to 64 rows), then D > 64 (chunks of
-// 128 for dq and 64 for dkdv, inner tiles up to 32 rows) (Bf16Plan::idx)
-constexpr Dq16Kernel DQ16_KERNELS[] = {flash_bwd_dq_bf16_kernel<8, 8>,
-                                       flash_bwd_dq_bf16_kernel<16, 4>};
-constexpr Dkdv16Kernel DKDV16_KERNELS[] = {
-    flash_bwd_dkdv_bf16_kernel<8, 8>, flash_bwd_dkdv_bf16_kernel<8, 4>};
+// chunks of 128 for dq and 64 for dkdv, inner tiles up to 32 rows
+constexpr Dq16Kernel DQ16_KERNEL = flash_bwd_dq_bf16_kernel<16, 4>;
+constexpr Dkdv16Kernel DKDV16_KERNEL = flash_bwd_dkdv_bf16_kernel<8, 4>;
 
 cudaError_t prepare16(const Bf16Plan& pq, const Bf16Plan& pkv) {
-  static size_t opted_q[MAX_DEVICES][2] = {};
-  static size_t opted_kv[MAX_DEVICES][2] = {};
+  static size_t opted_q[MAX_DEVICES] = {};
+  static size_t opted_kv[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
-  cudaError_t err =
-      opt_in(DQ16_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  cudaError_t err = opt_in(DQ16_KERNEL, pq.smem, &opted_q[dev]);
   if (err != cudaSuccess) return err;
-  return opt_in(DKDV16_KERNELS[pkv.idx], pkv.smem, &opted_kv[dev][pkv.idx]);
+  return opt_in(DKDV16_KERNEL, pkv.smem, &opted_kv[dev]);
 }
 
 bool plans16(Bf16Plan& pq, Bf16Plan& pkv, int B, int H, int Tq, int Tk,
              int D) {
-  return valid_shape(B, H, Tq, Tk, D) &&
-         plan_bwd16(pq, B, H, Tq, Tk, D, false) &&
+  return plan_bwd16(pq, B, H, Tq, Tk, D, false) &&
          plan_bwd16(pkv, B, H, Tk, Tq, D, true);
 }
 
@@ -1280,8 +1821,39 @@ extern "C" int t2p_flash_bwd_bf16(const void* q, const void* k, const void* v,
                                   const void* mask, void* dq, void* dk,
                                   void* dv, int B, int H, int Tq, int Tk,
                                   int D, float scale, void* stream) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   if (!aligned16({q, k, v, dout, out, dq, dk, dv}))
     return (int)cudaErrorMisalignedAddress;
+  const bf16* gh = static_cast<const bf16*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  float* df = static_cast<float*>(delta);
+  const unsigned char* mf = static_cast<const unsigned char*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WgPlan wq{}, wkv{};
+  if (plans_wg(wq, wkv, B, H, Tq, Tk, D)) {
+    const int bh = B * H;
+    CUtensorMap mq, mdo, mk, mv, mq_t, mdo_t, mk_t, mv_t;
+    if (!tensor_map(&mq, q, bh, Tq, D, WG_ROWS) ||
+        !tensor_map(&mdo, dout, bh, Tq, D, WG_ROWS) ||
+        !tensor_map(&mk_t, k, bh, Tk, D, wq.tile) ||
+        !tensor_map(&mv_t, v, bh, Tk, D, wq.tile) ||
+        !tensor_map(&mk, k, bh, Tk, D, WG_ROWS) ||
+        !tensor_map(&mv, v, bh, Tk, D, WG_ROWS) ||
+        !tensor_map(&mq_t, q, bh, Tq, D, wkv.tile) ||
+        !tensor_map(&mdo_t, dout, bh, Tq, D, wkv.tile))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = prepare_wg(wq, wkv);
+    if (err != cudaSuccess) return (int)err;
+    DQ_WG_KERNELS[wq.idx]<<<wq.grid, wq.threads, wq.smem, s>>>(
+        mq, mdo, mk_t, mv_t, gh, static_cast<const bf16*>(out), lf, df, mf,
+        static_cast<bf16*>(dq), H, Tq, Tk, D, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    DKDV_WG_KERNELS[wkv.idx]<<<wkv.grid, wkv.threads, wkv.smem, s>>>(
+        mk, mv, mq_t, mdo_t, lf, df, mf, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), H, Tq, Tk, D, scale);
+    return (int)cudaGetLastError();
+  }
   Bf16Plan pq{}, pkv{};
   if (!plans16(pq, pkv, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare16(pq, pkv);
@@ -1289,49 +1861,58 @@ extern "C" int t2p_flash_bwd_bf16(const void* q, const void* k, const void* v,
   const bf16* qh = static_cast<const bf16*>(q);
   const bf16* kh = static_cast<const bf16*>(k);
   const bf16* vh = static_cast<const bf16*>(v);
-  const bf16* gh = static_cast<const bf16*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
-  const unsigned char* mf = static_cast<const unsigned char*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ16_KERNELS[pq.idx]<<<pq.grid, 32 * pq.warps, pq.smem, s>>>(
+  DQ16_KERNEL<<<pq.grid, 32 * pq.warps, pq.smem, s>>>(
       qh, kh, vh, gh, static_cast<const bf16*>(out), lf, df, mf,
       static_cast<bf16*>(dq), H, Tq, Tk, D, pq.dc, pq.t, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  DKDV16_KERNELS[pkv.idx]<<<pkv.grid, 32 * pkv.warps, pkv.smem, s>>>(
+  DKDV16_KERNEL<<<pkv.grid, 32 * pkv.warps, pkv.smem, s>>>(
       qh, kh, vh, gh, lf, df, mf, static_cast<bf16*>(dk),
       static_cast<bf16*>(dv), H, Tq, Tk, D, pkv.dc, pkv.t, scale);
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernels' launch plans, in t2p_flash_bwd_plan's layout (stages is
-// always 2; "narrow" = one chunk of all D columns).
+// The bf16 kernels' launch plans, the dq kernel's then the dkdv kernel's,
+// each in t2p_flash_fwd_bf16_plan's layout of ten.
 extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
                                        int* out) {
-  Bf16Plan plans[2] = {};
-  if (!plans16(plans[0], plans[1], B, H, Tq, Tk, D))
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  WgPlan w[2] = {};
+  Bf16Plan p[2] = {};
+  const bool wgmma = plans_wg(w[0], w[1], B, H, Tq, Tk, D);
+  if (!wgmma && !plans16(p[0], p[1], B, H, Tq, Tk, D))
     return (int)cudaErrorInvalidValue;
-  const bool ready = prepare16(plans[0], plans[1]) == cudaSuccess;
+  const bool ready = wgmma ? prepare_wg(w[0], w[1]) == cudaSuccess
+                           : prepare16(p[0], p[1]) == cudaSuccess;
   for (int i = 0; i < 2; ++i) {
-    const Bf16Plan& p = plans[i];
     int per_sm = -1;
-    if (ready &&
-        (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, DQ16_KERNELS[p.idx], 32 * p.warps, p.smem)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, DKDV16_KERNELS[p.idx], 32 * p.warps,
-                      p.smem)) != cudaSuccess)
-      per_sm = -1;
-    int* o = out + 8 * i;
-    o[0] = p.t;
-    o[1] = 2;
-    o[2] = p.nchunk;
-    o[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
-    o[4] = (int)p.smem;
-    o[5] = per_sm;
-    o[6] = 32 * p.warps;
-    o[7] = p.nchunk == 1;
+    cudaError_t err = cudaErrorInvalidValue;
+    if (ready && wgmma)
+      err = i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &per_sm, DQ_WG_KERNELS[w[0].idx], w[0].threads,
+                         w[0].smem)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &per_sm, DKDV_WG_KERNELS[w[1].idx], w[1].threads,
+                         w[1].smem);
+    else if (ready)
+      err = i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &per_sm, DQ16_KERNEL, 32 * p[0].warps, p[0].smem)
+                   : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &per_sm, DKDV16_KERNEL, 32 * p[1].warps,
+                         p[1].smem);
+    if (err != cudaSuccess) per_sm = -1;
+    const dim3 grid = wgmma ? w[i].grid : p[i].grid;
+    int* o = out + 10 * i;
+    o[0] = wgmma ? w[i].nwg : 0;
+    o[1] = wgmma ? w[i].chunks : p[i].nchunk;
+    o[2] = 2;
+    o[3] = wgmma ? w[i].tile : p[i].t;
+    o[4] = wgmma ? WG_ROWS : ROWS * p[i].warps;
+    o[5] = (int)(grid.x * grid.y * grid.z);
+    o[6] = (int)(wgmma ? w[i].smem : p[i].smem);
+    o[7] = per_sm;
+    o[8] = wgmma ? w[i].threads : 32 * p[i].warps;
+    o[9] = wgmma;
   }
   return 0;
 }

@@ -56,6 +56,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -562,32 +563,478 @@ extern "C" int t2p_flash_fwd_plan(int B, int H, int Tq, int Tk, int D,
 
 // ------------------------------------------------------------------ bf16
 //
-// The same function on bf16 q, k, v (the TPU kernel upcasts them to f32 and
-// writes `out` in the input's dtype, `lse` in f32): S = Q K^T and the
-// online softmax in f32, O = P V accumulated in f32, out rounded to bf16
-// once, lse f32.
+// The same function on bf16 q, k, v (the TPU kernel `_flash_kernel`
+// upcasts them to f32 and writes `out` in the input's dtype, `lse` in f32):
+// S = Q K^T and the online softmax in f32, the scale and the -1e30 mask
+// bias on the f32 scores, p *= mask (a dead row gives 0 and lse -1e30),
+// O = P V accumulated in f32 with P entering at f32 accuracy (hi + lo bf16
+// halves, wgmma_bf16.cuh), out rounded to bf16 once, lse f32.
 //
 // What bounds it on the card: at the N=256 serving shapes (B=4, T <= 1024,
 // H*D = 512) one call moves at most 16.8 MB of bf16 (5.0 us at 3.35 TB/s)
-// and does at most 4 B H Tq Tk D = 8.6 GFLOP, 8.7 us at the bf16 tensor-core
-// rate (989 TFLOP/s); the split P V issues a third more mma work than that.
+// and does at most 4 B H Tq Tk D = 8.6 GFLOP (8.7 us at 989 TFLOP/s), both
+// at the AttnBlock 32x32 (H=1, T=1024, D=512). The mma work this design
+// issues there is S once (4.3 GFLOP) and P V twice (hi and lo, 8.6 GFLOP):
+// 13.0 us, against 26.1 us for the mma.sync kernel it replaces, whose 4
+// column chunks each recomputed S.
 //
-// Design (mma_bf16.cuh): `mma.sync.m16n8k16`, bf16 operands, f32
-// accumulators. Q K^T is one exact mma per fragment pair; P stays in the
-// registers it was computed in and enters P V as a hi + lo pair of bf16
-// A fragments (two mmas), V's B fragments come from `ldmatrix .trans`.
-// Each warp owns 16 query rows (up to 4 warps a block share each k/v
-// tile, cp.async double-buffered). A block owns one chunk of the output
-// columns (grid z): all of D up to 64 (the self- and cross-attention
-// shapes, D = 64), chunks of 128 above (the AttnBlock shapes, D = 512),
-// where each chunk recomputes S over all of D. The scale and the -1e30 mask
-// bias go on the f32 accumulator; p *= mask as in the f32 kernel.
+// Design (D <= 512): a block owns 64 query rows (D > 64) or 128 (D <= 64),
+// all D output columns, and walks the keys.
+//   * TMA keeps K and V tiles in flight (two stages; K and V each with a
+//     full and an empty mbarrier); the Q tile is loaded once. One thread
+//     issues every copy, refilling a slot once every warp has released it:
+//     a producer warp of its own would be a ninth warp, and three warps in
+//     one of the SM's four register partitions cap every thread at 168
+//     registers (ptxas spilled O). TMA's zero fill replaces the row limit
+//     of ragged tiles and pads D to the 64-column boxes.
+//   * S = Q K^T is an SS wgmma (m64nBKk16, both operands K-major in shared
+//     memory), O += P V an RS wgmma (m64n64k16): P in registers as hi and
+//     lo halves, two wgmmas into one accumulator, V read MN-major through
+//     the transpose bit. The softmax runs in log2 units (one exp2f a
+//     score); a fully masked row keeps lse = -1e30 exactly.
+//   * D > 64 (the AttnBlock, D = 512): two warpgroups. Each computes S over
+//     its half of the D steps; the partial sums meet in shared memory (one
+//     named barrier a tile, buffers by tile parity), so S is computed once
+//     per 64-row tile and both warpgroups hold it. Each runs the same
+//     online softmax and owns half of O's column boxes (256 columns at
+//     D = 512: 128 f32 registers a thread). The tile loop is pipelined:
+//     S(it + 1) and P(it) V(it) are issued together, and the exchange and
+//     softmax of S(it + 1) run while P(it) V(it) does.
+//     Shared memory at D = 512, 32-key tiles: Q 64 KB + 2 stages x (K 32 KB
+//     + V 32 KB) + the S exchange (2 parities x 2 warpgroups x 16 floats
+//     x 128 threads, 32 KB) = 224 KB, + 1 KB of alignment and 72 bytes of
+//     mbarriers: 230,472 of 232,448 bytes, one block of 256 threads an SM.
+//     Registers (ptxas): 193 of the 255 that 256 threads may hold (O 128,
+//     S 16, P 16). Grid at the AttnBlock 32x32: 4 x 16 = 64 blocks on 132
+//     SMs. Splitting O's columns over two blocks would fill the card but
+//     compute S twice per tile (or need a 2-block cluster exchanging S
+//     through distributed shared memory, not built).
+//   * D <= 64 (self- and cross-attention, D = 64): a block owns 128 query
+//     rows, each of its two warpgroups 64 of them and all of D, sharing
+//     every K and V tile (half the L2 traffic and barrier waits a row of
+//     64-row blocks; device time at the self 32x32, B=4, chip_smoke.py on
+//     an H100 80GB HBM3 at 700 W: 53.9 against 59.3 us). 64-key tiles,
+//     50,248 bytes of shared memory, 113 registers: two blocks an SM (the
+//     self 32x32 at B=4: 256 blocks). Its tile loop runs S, softmax and
+//     P V in turn: pipelining it needs more registers than two blocks an
+//     SM leave.
+//   * The key mask is read once per tile into a bit set per thread (the
+//     2 BK / 8 keys its accumulator columns hold), not per score.
+// D > 512 (no shape of the model; the JAX rule admits up to 1024) keeps the
+// mma.sync kernel below: `mma.sync.m16n8k16`, 16 rows a warp, column chunks
+// of 128 that each recompute S, cp.async double buffering.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
+// 6): ptxas reports no spill and no stack frame. Per call at B=4 (device
+// time): AttnBlock 32x32 0.100 ms (the mma.sync kernel: 0.676; SDPA
+// 0.086), self 32x32 0.054 ms (0.157; SDPA 0.025-0.034); 2.52 ms per N=256
+// PC step over its 96 calls (11.42).
 
 namespace {
 
 using namespace t2p;
 
-// Shared bytes: q rows, then two stages of (k tile, v tile).
+
+// S (64 x BK) += Q K^T over this warpgroup's 16-column steps of D: with
+// DSPLIT the steps [ks0, ks1) of its half, else the whole 64-column box
+// (D <= 64; the columns past D are TMA's zeros).
+template <bool DSPLIT, int NS>
+__device__ __forceinline__ void issue_s(float (&sc)[NS], uint32_t sq,
+                                        uint32_t sk, uint32_t ktile,
+                                        int ks0, int ks1) {
+  if (!DSPLIT) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(sc, sw128_desc(sq + kk * 32), sw128_desc(sk + kk * 32));
+  } else {
+    for (int kk = ks0; kk < ks1; ++kk)
+      wgmma_ss(sc,
+               sw128_desc(sq + (kk >> 2) * WG_ROWS * BOX_ROW_BYTES +
+                          (kk & 3) * 32),
+               sw128_desc(sk + (kk >> 2) * ktile + (kk & 3) * 32));
+  }
+}
+
+// O (this warpgroup's nob boxes) += P V: P as hi + lo A fragments per
+// 16-key slice, V MN-major.
+template <int NOB, int NSL>
+__device__ __forceinline__ void issue_pv(float (&o)[NOB][32],
+                                         uint32_t (&ph)[NSL][4],
+                                         uint32_t (&pl)[NSL][4], uint32_t sv,
+                                         uint32_t ktile, int ob0, int nob) {
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int j = 0; j < NSL; ++j) {
+        const uint64_t db =
+            sw128_desc(sv + (ob0 + n) * ktile + j * 16 * BOX_ROW_BYTES);
+        wgmma_rs(o[n], pl[j], db);
+        wgmma_rs(o[n], ph[j], db);
+      }
+    }
+}
+
+// The scale and mask bias on one tile of S, then its share of the online
+// softmax of rows g and g + 8: the new row maxima and, in place, P and its
+// row sums. Bit 2 j + e of `live` is column 8 j + 2 t + e. The scores are
+// in log2 units (scale2 = scale * log2(e)), so P is one exp2f of a
+// difference: the maxima m_r, m_new are log2(e) times the JAX kernel's.
+template <int NS>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NS], uint32_t live,
+                                             float scale2,
+                                             const float (&m_r)[2],
+                                             float (&m_new)[2],
+                                             float (&sum)[2]) {
+  float mx[2] = {-1e30f, -1e30f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const bool lv = (live >> (2 * (i >> 2) + (i & 1))) & 1u;
+    sc[i] = fmaf(sc[i], scale2, lv ? 0.f : -1e30f);
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    m_new[r] = fmaxf(m_r[r], mx[r]);
+    sum[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    const bool lv = (live >> (2 * (i >> 2) + (i & 1))) & 1u;
+    const float p = lv ? exp2f(sc[i] - m_new[(i >> 1) & 1]) : 0.f;
+    sc[i] = p;
+    sum[(i >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+  }
+}
+
+// The wgmma forward: two warpgroups, BK keys a tile, at most NOB 64-column
+// boxes of O a warpgroup; with DSPLIT they split D's steps and boxes over
+// one 64-row tile, else each owns 64 rows. With two warpgroups the tile loop is
+// software-pipelined: iteration `it` issues S(it + 1) and then
+// O += P(it) V(it), and while the second runs exchanges and softmaxes
+// S(it + 1). K and V have barriers of their own, so K(it + 1)'s slot is
+// refilled once S(it + 1) is done, a full iteration before V(it)'s.
+constexpr int NWG = 2;  // warpgroups of a forward block
+
+template <int BK, int NOB, bool DSPLIT>
+__global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const unsigned char* __restrict__ mask,
+                           bf16* __restrict__ out, float* __restrict__ lse,
+                           int H, int Tq, int Tk, int D, float scale) {
+  constexpr int NS = BK / 2;  // S accumulator floats a thread
+  constexpr int S = WG_STAGES;
+  constexpr int QT = DSPLIT ? 1 : NWG;  // 64-row Q tiles of the block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = nboxes(D);
+  const WgLayout L = wg_layout(QT, nbox, BK, S, DSPLIT ? NWG : 1, NS);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sq = base, st0 = base + L.stage0, bar = base + L.bars;
+  float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
+  const int bh = blockIdx.x, q0 = blockIdx.y * QT * WG_ROWS;
+  const int ntiles = (Tk + BK - 1) / BK;
+  const uint32_t ktile = BK * BOX_ROW_BYTES;  // bytes of one box of a tile
+  const uint32_t half = nbox * ktile;         // bytes of a K (or V) tile
+  const int lane = threadIdx.x & 31;
+  // mbarriers of tile t: K full, V full, K empty, V empty; then Q's
+  auto fk = [&](int t) { return bar + 8 * (t % S); };
+  auto fv = [&](int t) { return bar + 8 * (S + t % S); };
+  auto ek = [&](int t) { return bar + 8 * (2 * S + t % S); };
+  auto ev = [&](int t) { return bar + 8 * (3 * S + t % S); };
+  const uint32_t bar_q = bar + 32 * S;
+  auto k_at = [&](int t) { return st0 + (t % S) * L.stage; };
+  auto v_at = [&](int t) { return st0 + (t % S) * L.stage + half; };
+
+  // thread 0 issues every copy
+  const bool issuer = threadIdx.x == 0;
+  auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t full,
+                  int t) {
+    mbar_expect_tx(full, half);
+    for (int b = 0; b < nbox; ++b)
+      tma_load(dst + b * ktile, map, full, b * BOX_COLS, t * BK, bh);
+  };
+  // a warp's release of K (or V) of tile t; thread 0 then refills the slot
+  // with tile t + S once every warp has released it
+  auto release = [&](const CUtensorMap* map, uint32_t empty, uint32_t dst,
+                     uint32_t full, int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty);
+    if (issuer && t + S < ntiles) {
+      mbar_wait(empty, (t / S) & 1);
+      load(map, dst, full, t + S);
+    }
+  };
+  if (issuer) {
+    for (int i = 0; i < 4 * S; ++i)
+      mbar_init(bar + 8 * i, i < 2 * S ? 1 : 4 * NWG);
+    mbar_init(bar_q, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (issuer) {
+    mbar_expect_tx(bar_q, QT * nbox * WG_ROWS * BOX_ROW_BYTES);
+    for (int w = 0; w < QT; ++w)
+      for (int b = 0; b < nbox; ++b)
+        tma_load(sq + (w * nbox + b) * WG_ROWS * BOX_ROW_BYTES, &tm_q, bar_q,
+                 b * BOX_COLS, q0 + w * WG_ROWS, bh);
+    for (int t = 0; t < S && t < ntiles; ++t) {
+      load(&tm_k, k_at(t), fk(t), t);
+      load(&tm_v, v_at(t), fv(t), t);
+    }
+  }
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
+  // the k-step bounds and box counts drawn from it) uniform across the
+  // warp: wgmma in a branch it cannot prove uniform is serialized
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  const int ct = threadIdx.x & 127;
+  const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
+  // this warpgroup's Q tile, 16-column steps of S and boxes of O: with
+  // DSPLIT a half of D's steps and boxes of the block's one Q tile, else
+  // its own 64 rows and all of D
+  const uint32_t sqw = sq + (DSPLIT ? 0 : wg * nbox * WG_ROWS * BOX_ROW_BYTES);
+  const int row0 = q0 + (DSPLIT ? 0 : wg * WG_ROWS);
+  const int nsp = DSPLIT ? NWG : 1;
+  const int nks = (D + 15) >> 4, kper = (nks + nsp - 1) / nsp;
+  const int ks0 = DSPLIT ? wg * kper : 0, ks1 = min(nks, ks0 + kper);
+  const int oper = (nbox + nsp - 1) / nsp, ob0 = DSPLIT ? wg * oper : 0;
+  const int nob = min(oper, nbox - ob0);
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const float scale2 = scale * LOG2E;
+
+  // the live keys of tile `it` among this thread's columns
+  auto live_bits = [&](int it) {
+    if (mb == nullptr && (it + 1) * BK <= Tk) return ~0u;
+    uint32_t live = 0;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = it * BK + 8 * j + 2 * t + e;
+        if (key < Tk && (mb == nullptr || mb[key])) live |= 1u << (2 * j + e);
+      }
+    return live;
+  };
+  // with DSPLIT, adds the other warpgroup's partial S (buffers by parity)
+  auto exchange = [&](float (&sc)[NS], int it) {
+    if (DSPLIT) {
+      float* buf = xch + (it & 1) * NWG * NS * 128;
+      xch_put(sc, buf + wg * NS * 128, ct);
+      warpgroups_sync(NWG * 128);
+      xch_add(sc, buf + (1 - wg) * NS * 128, ct);
+    }
+  };
+
+  float o[NOB][32];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
+  float m_new[2], sum[2];
+  float sc[NS];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+
+  if (!DSPLIT) {
+    // D <= 64: the warpgroups own separate rows and several blocks share
+    // an SM and hide each other's latency, so the tile loop runs S,
+    // softmax and P V in turn (pipelining it cost registers and a block
+    // per SM)
+    mbar_wait(bar_q, 0);
+    for (int it = 0; it < ntiles; ++it) {
+      mbar_wait(fk(it), (it / S) & 1);
+#pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+      fence_regs(sc);  // zeroed before the fence, not sunk past it
+      wgmma_fence();
+      issue_s<DSPLIT>(sc, sqw, k_at(it), ktile, ks0, ks1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release(&tm_k, ek(it), k_at(it), fk(it), it);
+      softmax_tile(sc, live_bits(it), scale2, m_r, m_new, sum);
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f(m_r[r] - m_new[r]);
+        l_r[r] = l_r[r] * alpha[r] + sum[r];
+        m_r[r] = m_new[r];
+      }
+#pragma unroll
+      for (int n = 0; n < NOB; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+      split_acc(sc, ph, pl);
+      mbar_wait(fv(it), (it / S) & 1);
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+      issue_pv(o, ph, pl, v_at(it), ktile, ob0, nob);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_regs(ph);
+      fence_regs(pl);
+      release(&tm_v, ev(it), v_at(it), fv(it), it);
+    }
+  } else {
+    // S(0) and its softmax
+    mbar_wait(bar_q, 0);
+    mbar_wait(fk(0), 0);
+  #pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+    fence_regs(sc);  // zeroed before the fence, not sunk past it
+    wgmma_fence();
+    issue_s<DSPLIT>(sc, sqw, k_at(0), ktile, ks0, ks1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(&tm_k, ek(0), k_at(0), fk(0), 0);
+    exchange(sc, 0);
+    softmax_tile(sc, live_bits(0), scale2, m_r, m_new, sum);
+  #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[r] = sum[r];
+      m_r[r] = m_new[r];
+    }
+    split_acc(sc, ph, pl);
+
+    for (int it = 0; it + 1 < ntiles; ++it) {
+      mbar_wait(fk(it + 1), ((it + 1) / S) & 1);
+      mbar_wait(fv(it), (it / S) & 1);
+  #pragma unroll
+      for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+  #pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_regs(ph);
+      fence_regs(pl);
+      wgmma_fence();
+      issue_s<DSPLIT>(sc, sqw, k_at(it + 1), ktile, ks0, ks1);
+      wgmma_commit();
+      issue_pv(o, ph, pl, v_at(it), ktile, ob0, nob);
+      wgmma_commit();
+      wgmma_wait<1>();  // S(it + 1) is done; P(it) V(it) may still run
+      fence_regs(sc);
+      release(&tm_k, ek(it + 1), k_at(it + 1), fk(it + 1), it + 1);
+      exchange(sc, it + 1);
+      softmax_tile(sc, live_bits(it + 1), scale2, m_r, m_new, sum);
+      wgmma_wait<0>();
+  #pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_regs(ph);
+      fence_regs(pl);
+      release(&tm_v, ev(it), v_at(it), fv(it), it);
+      float alpha[2];
+  #pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        alpha[r] = exp2f(m_r[r] - m_new[r]);
+        l_r[r] = l_r[r] * alpha[r] + sum[r];
+        m_r[r] = m_new[r];
+      }
+  #pragma unroll
+      for (int n = 0; n < NOB; ++n)
+  #pragma unroll
+        for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+      split_acc(sc, ph, pl);
+    }
+
+    // the last P V
+    mbar_wait(fv(ntiles - 1), ((ntiles - 1) / S) & 1);
+  #pragma unroll
+    for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    issue_pv(o, ph, pl, v_at(ntiles - 1), ktile, ob0, nob);
+    wgmma_commit();
+    wgmma_wait<0>();
+  #pragma unroll
+    for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+
+  }
+
+  bf16* ob = out + (size_t)bh * Tq * D;
+  const int row = row0 + 16 * warp + g;
+  const float l_div[2] = {fmaxf(l_r[0], 1e-30f), fmaxf(l_r[1], 1e-30f)};
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        if (row + 8 * r < Tq && col < D)
+          *reinterpret_cast<uint32_t*>(ob + (size_t)(row + 8 * r) * D +
+                                       col) =
+              pack_bf16(o[n][i] / l_div[r], o[n][i + 1] / l_div[r]);
+      }
+    }
+  // lse = m + log(l) in natural units; a fully masked row keeps the JAX
+  // kernel's m = -1e30 exactly (its log2-unit maximum never left -1e30)
+  if ((!DSPLIT || wg == 0) && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < Tq)
+        lse[(size_t)bh * Tq + row + 8 * r] =
+            (m_r[r] <= -1e30f ? -1e30f : m_r[r] * LN2) + logf(l_div[r]);
+  }
+}
+
+using FwdWgKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                             const CUtensorMap, const unsigned char*, bf16*,
+                             float*, int, int, int, int, float);
+
+// D <= 64 (two warpgroups on 64 rows each, 64-key tiles), then
+// 64 < D <= 512 (two warpgroups splitting D, 32-key tiles, up to 4 boxes of
+// O each)
+constexpr FwdWgKernel WG_KERNELS[] = {flash_fwd_wgmma_kernel<64, 1, false>,
+                                      flash_fwd_wgmma_kernel<32, 4, true>};
+
+struct WgPlan {
+  int nwg, tile, rows, chunks, idx, threads;
+  dim3 grid;
+  size_t smem;
+};
+
+bool plan_fwd_wg(WgPlan& p, int B, int H, int Tq, int D) {
+  if (D > WG_MAX_D) return false;
+  const bool narrow = D <= 64;
+  p.nwg = NWG;
+  p.tile = narrow ? 64 : 32;
+  p.rows = narrow ? 2 * WG_ROWS : WG_ROWS;
+  p.idx = narrow ? 0 : 1;
+  p.chunks = 1;
+  p.threads = 128 * p.nwg;
+  p.grid = dim3(B * H, (Tq + p.rows - 1) / p.rows, 1);
+  p.smem = wg_layout(p.rows / WG_ROWS, nboxes(D), p.tile, WG_STAGES,
+                     narrow ? 1 : p.nwg, p.tile / 2)
+               .total;
+  return true;
+}
+
+cudaError_t prepare_wg(int idx, size_t smem) {
+  static size_t opted[MAX_DEVICES][2] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  return opt_in(WG_KERNELS[idx], smem, &opted[dev][idx]);
+}
+
+// The mma.sync kernel for D > 512. Shared bytes: q rows, then two stages
+// of (k tile, v tile).
 size_t fwd16_smem(int D, int dc, int warps, int bk) {
   const int ldq = pad_ld16(round16(D)), ldv = pad_ld16(dc);
   return sizeof(bf16) *
@@ -595,9 +1042,9 @@ size_t fwd16_smem(int D, int dc, int warps, int bk) {
 }
 
 bool plan_fwd16(Bf16Plan& p, int B, int H, int Tq, int Tk, int D) {
-  p.dc = D <= 64 ? D : 128;
+  p.dc = 128;
   p.nchunk = (D + p.dc - 1) / p.dc;
-  p.idx = D <= 64 ? 0 : 1;
+  p.idx = 0;
   return plan_bf16(p, B * H, Tq, Tk, 64, [&](int warps, int bk) {
     return fwd16_smem(D, p.dc, warps, bk);
   });
@@ -764,16 +1211,13 @@ using Fwd16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
                              const unsigned char*, bf16*, float*, int, int,
                              int, int, int, int, float);
 
-// D <= 64 (one chunk of D columns), then D > 64 (chunks of 128)
-constexpr Fwd16Kernel KERNELS16[] = {flash_fwd_bf16_kernel<8>,
-                                     flash_fwd_bf16_kernel<16>};
-constexpr int NKERNELS16 = sizeof(KERNELS16) / sizeof(KERNELS16[0]);
+constexpr Fwd16Kernel KERNELS16[] = {flash_fwd_bf16_kernel<16>};
 
-cudaError_t prepare16(int idx, size_t smem) {
-  static size_t opted[MAX_DEVICES][NKERNELS16] = {};
+cudaError_t prepare16(size_t smem) {
+  static size_t opted[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
-  return opt_in(KERNELS16[idx], smem, &opted[dev][idx]);
+  return opt_in(KERNELS16[0], smem, &opted[dev]);
 }
 
 }  // namespace
@@ -785,12 +1229,27 @@ extern "C" int t2p_flash_fwd_bf16(const void* q, const void* k, const void* v,
                                   float scale, void* stream) {
   if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   if (!aligned16({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WgPlan w{};
+  if (plan_fwd_wg(w, B, H, Tq, D)) {
+    CUtensorMap mq, mk, mv;
+    if (!tensor_map(&mq, q, B * H, Tq, D, WG_ROWS) ||
+        !tensor_map(&mk, k, B * H, Tk, D, w.tile) ||
+        !tensor_map(&mv, v, B * H, Tk, D, w.tile))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = prepare_wg(w.idx, w.smem);
+    if (err != cudaSuccess) return (int)err;
+    WG_KERNELS[w.idx]<<<w.grid, w.threads, w.smem, s>>>(
+        mq, mk, mv, static_cast<const unsigned char*>(mask),
+        static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, D,
+        scale);
+    return (int)cudaGetLastError();
+  }
   Bf16Plan p{};
   if (!plan_fwd16(p, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare16(p.idx, p.smem);
+  cudaError_t err = prepare16(p.smem);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KERNELS16[p.idx]<<<p.grid, 32 * p.warps, p.smem, s>>>(
+  KERNELS16[0]<<<p.grid, 32 * p.warps, p.smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const unsigned char*>(mask),
       static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, D, p.dc,
@@ -798,25 +1257,39 @@ extern "C" int t2p_flash_fwd_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernel's launch plan, in t2p_flash_fwd_plan's layout (stages is
-// always 2; "narrow" = one chunk of all D columns).
+// The bf16 kernel's launch plan: {warpgroups (0: the mma.sync
+// kernel), column chunks (blocks per row tile, each computing S), pipeline
+// stages, inner tile rows, rows a block owns, blocks, dynamic shared bytes,
+// blocks per SM, threads per block, wgmma (1) or mma.sync (0)}.
 extern "C" int t2p_flash_fwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
                                        int* out) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  WgPlan w{};
   Bf16Plan p{};
-  if (!valid_shape(B, H, Tq, Tk, D) || !plan_fwd16(p, B, H, Tq, Tk, D))
+  const bool wgmma = plan_fwd_wg(w, B, H, Tq, D);
+  if (!wgmma && !plan_fwd16(p, B, H, Tq, Tk, D))
     return (int)cudaErrorInvalidValue;
   int per_sm = -1;
-  if (prepare16(p.idx, p.smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, KERNELS16[p.idx], 32 * p.warps, p.smem) != cudaSuccess)
-    per_sm = -1;
-  out[0] = p.t;
-  out[1] = 2;
-  out[2] = p.nchunk;
-  out[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
-  out[4] = (int)p.smem;
-  out[5] = per_sm;
-  out[6] = 32 * p.warps;
-  out[7] = p.nchunk == 1;
+  const bool ok =
+      wgmma ? prepare_wg(w.idx, w.smem) == cudaSuccess &&
+                  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, WG_KERNELS[w.idx], w.threads, w.smem) ==
+                      cudaSuccess
+            : prepare16(p.smem) == cudaSuccess &&
+                  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, KERNELS16[0], 32 * p.warps, p.smem) ==
+                      cudaSuccess;
+  if (!ok) per_sm = -1;
+  const dim3 grid = wgmma ? w.grid : p.grid;
+  out[0] = wgmma ? w.nwg : 0;
+  out[1] = wgmma ? w.chunks : p.nchunk;
+  out[2] = 2;
+  out[3] = wgmma ? w.tile : p.t;
+  out[4] = wgmma ? w.rows : ROWS * p.warps;
+  out[5] = (int)(grid.x * grid.y * grid.z);
+  out[6] = (int)(wgmma ? w.smem : p.smem);
+  out[7] = per_sm;
+  out[8] = wgmma ? w.threads : 32 * p.warps;
+  out[9] = wgmma;
   return 0;
 }

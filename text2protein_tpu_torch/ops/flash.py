@@ -71,23 +71,36 @@ def _call(fn, device, *args):
 
 
 def launch_plan(kind, b, h, tq, tk, d, dtype=torch.float32):
-    """The kernel's launch plan for a call of this shape, for reports:
-    forward {key tile, stages, column chunks, blocks, shared bytes, blocks
-    per SM, threads per block, narrow kernel}; backward the same eight for
-    the dq kernel and for the dkdv kernel. Needs a GPU."""
-    names = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
-             "threads", "narrow")
-    plan = "_plan" if dtype == torch.float32 else "_bf16_plan"
+    """The kernel's launch plan for a call of this shape, for reports.
+
+    float32: {key tile, stages, column chunks, blocks, shared bytes, blocks
+    per SM, threads per block, narrow kernel}. bfloat16: {warpgroups (0
+    for the mma.sync kernel of D > 512), column chunks (the
+    blocks of one row tile, each computing S), pipeline stages, inner tile
+    rows, rows a block owns, blocks, shared bytes, blocks per SM, threads
+    per block, wgmma (1, TMA-fed wgmma) or mma.sync (0)}. The backward
+    gives the same keys for the dq kernel and for the dkdv kernel, prefixed
+    `dq_` and `dkdv_`. Needs a GPU."""
+    if dtype == torch.float32:
+        names, plan = _PLAN_KEYS, "_plan"
+    else:
+        names, plan = _BF16_PLAN_KEYS, "_bf16_plan"
     if kind == "fwd":
         fn = _kernel(_SOURCE, _FUNCTIONS, "t2p_flash_fwd" + plan)
         keys = list(names)
     else:
         fn = _kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd" + plan)
         keys = [f"{k}_{n}" for k in ("dq", "dkdv") for n in names]
-    out = (ctypes.c_int * 16)()
+    out = (ctypes.c_int * 32)()
     if fn(b, h, tq, tk, d, out) != 0:
         raise ValueError(f"no {kind} plan for {(b, h, tq, tk, d)}")
     return dict(zip(keys, out))
+
+
+_PLAN_KEYS = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
+              "threads", "narrow")
+_BF16_PLAN_KEYS = ("warpgroups", "chunks", "stages", "tile", "rows",
+                   "blocks", "smem", "per_sm", "threads", "wgmma")
 
 
 _DEFAULT_BQ = 256
@@ -302,7 +315,8 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None, kv_mask=None):
     """dQ, dK, dV from the forward's residuals (out, lse) and the output
     gradient g: the kernel for a CUDA tensor (shapes of
     `supports_bwd_cuda`), the plain version for a CPU tensor. Shapes as in
-    `flash_attention_bwd_reference`; float32 only on the GPU."""
+    `flash_attention_bwd_reference`; float32 or bfloat16 on the GPU (lse
+    float32), each dtype to its own kernel entry."""
     if not q.is_cuda and q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, g, scale,
                                              kv_mask)
