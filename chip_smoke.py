@@ -28,7 +28,9 @@ Phases, each printing a flushed line with the seconds since start:
      steps; losses finite, exactly 18 backward and 30 forward launches per
      step (18 + the 12 of the rematted transformer blocks' recompute), the
      weights moved, the EMA apart from them. A Server loads the EMA weights
-     it wrote and answers a request.
+     it wrote and answers a request. The run's workdir (config.yml, the
+     split's ids, the meta, best_train and best_eval slots) goes under
+     build/chip_smoke/; phase 12's too, removed after it.
   7. train reference: one flagship train step at B=1 (dropout 0, injected
      draws) on the GPU against the CPU: loss and every gradient.
   8. kernels bf16: the bf16 kernels against their plain versions at every
@@ -57,6 +59,31 @@ Phases, each printing a flushed line with the seconds since start:
      step (the 16 masked cross-attention calls over the 16-token caption
      take the JAX route, the einsum recompute); then the peak memory of one
      step at batch 2 with and without remat.
+ 13. deployment serving: `cli/serve` with configs/deploy_l128.yml as
+     written (the hybrid sampler, 60 Heun + 170 PC steps, CFG 2.0) and
+     `--checkpoint` phase 6's workdir (its best_eval EMA; bench_l128 has the
+     same architecture) answers two batches of 4 requests (different
+     captions and lengths, the first batch seeded) over the full schedule:
+     maps finite, (5, 128, 128), the length mask as the last channel, nfe
+     920 in every response, exactly 16,560 f32 forward launches a batch
+     (920 evaluations x 18) and no backward launch.
+ 14. sampling CLI: `cli/sampling_6d.main` on the same config and
+     checkpoint, `--sampler pc --num_steps 10 --batch_size 4
+     --select_length --length_index 37`, the captions of the workdir's
+     held-out ids from phase 6's records: one pickle per held-out id of
+     the first full batch, (1, 5, 128, 128), finite, the length-100 mask
+     as the last channel.
+ 15. hybrid reference: a short hybrid (3 Heun + 3 PC steps, CFG 2.0) at
+     B=1 at the deployment widths, seeded random weights and injected
+     draws: the card with its kernels against the CPU with the plain
+     versions, within a tolerance derived from phase 5's per-evaluation
+     agreement.
+ 16. N=256 hybrid: `Server` with quality_n256.yml and `sampler="hybrid"`
+     (4 Heun + 6 PC steps, no CFG) at batch 4: 20 evaluations x 48 bf16
+     forward launches.
+Phase 3 also holds and times the f32 forward at the deployment config's
+cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
+a fully masked row).
 
 The f32 phases run in full f32 (TF32 off for matmuls and cuDNN); bf16 runs
 with f32 accumulation (`use_full_f32`). The last line of stdout is
@@ -69,6 +96,7 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -195,6 +223,29 @@ BWD_PER_TRAIN_STEP = FWD_PER_TRAIN_STEP  # 18
 # does the port: the backward recomputes self- and cross-attention of the 6
 # blocks
 REMAT_FWD_PER_TRAIN_STEP = 2 * 6
+
+
+# the deployment config (configs/deploy_l128.yml): the flagship widths with
+# the caption padded to a 16-token bucket, the hybrid sampler (60 Heun + 170
+# PC steps) under CFG 2.0: NFE (2 * 60 + 170 * 2) * 2 = 920 a batch, 18
+# f32 forward launches each
+DEPLOY_CONFIG = ROOT / "configs" / "deploy_l128.yml"
+DEPLOY_BATCH = 4
+DEPLOY_NFE = 920
+DEPLOY_LAUNCHES_PER_EVAL = 18
+# (name, H, Tq, Tk, D, masked, launches per evaluation): the deployment
+# path's cross-attention over the 16-token caption; its other 12 calls per
+# evaluation have the serving path's shapes (PATH_SHAPES, unmasked)
+DEPLOY_SHAPES = [
+    ("cross_16x16_tk16", 8, 256, 16, 32, True, 5),
+    ("cross_mid_4x4_tk16", 8, 16, 16, 32, True, 1),
+]
+SAMPLING_STEPS = 10  # PC steps of the sampling CLI phase
+# the N=256 hybrid: 4 Heun + 6 PC steps, quality_n256.yml has no CFG
+N256_HYBRID = (4, 6)
+N256_HYBRID_NFE = 2 * N256_HYBRID[0] + 2 * N256_HYBRID[1]  # 20
+HYBRID_REF_STEPS = (3, 3)  # the hybrid reference's Heun and PC steps
+WORK = ROOT / "build" / "chip_smoke"  # training workdirs, samples
 
 
 def log(msg):
@@ -348,7 +399,10 @@ def phase_build():
     return ptxas
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37)):
+    """The f32 forward at `shapes` (batch BATCH), a masked call's key
+    lengths `lengths` and then all keys (a length of 0: a fully masked
+    row)."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
@@ -356,14 +410,14 @@ def phase_kernels(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for name, h, tq, tk, d, masked, per_step in PATH_SHAPES:
+    for name, h, tq, tk, d, masked, per_step in shapes:
         b = BATCH
         q, k, v = (torch.randn((b, h, t, d), device=dev, generator=gen)
                    for t in (tq, tk, tk))
         mask = None
         if masked:
-            lengths = torch.tensor([5, 12, 37, tk], device=dev)[:b]
-            mask = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
+            lengths_t = torch.tensor([*lengths, tk], device=dev)[:b]
+            mask = torch.arange(tk, device=dev)[None, :] < lengths_t[:, None]
         scale = d**-0.5
         out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
         torch.cuda.synchronize()
@@ -397,8 +451,11 @@ def phase_kernels(torch):
             library_ms=library_ms,
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
             tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
+        if masked and 0 in lengths and not bool((out[0] == 0).all()):
+            raise AssertionError(f"{name}: the fully masked row is not 0")
         log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
-            f"mask={masked}: max_abs_err {err:.2e} (tol {TOL:.0e}) "
+            f"mask={masked}{' +dead row' if masked and 0 in lengths else ''}"
+            f": max_abs_err {err:.2e} (tol {TOL:.0e}) "
             f"kernel_ms {kernel_ms:.4f} host_us {host:.1f} device_us "
             f"{device:.1f} plain_ms {plain_ms:.4f} library_ms(sdpa) "
             f"{library_ms:.4f} bound_ms "
@@ -488,10 +545,29 @@ def phase_kernels_bwd(torch):
     return rows
 
 
-def phase_serving(torch):
+def check_maps(results, reqs, n):
+    """Every response's map finite, (5, n, n), its last channel the
+    request's length mask."""
     import numpy as np
 
-    from text2protein_tpu_torch.cli.serve import Server, decode_coords
+    from text2protein_tpu_torch.cli.serve import decode_coords
+
+    for req, res in zip(reqs, results):
+        cnn = decode_coords(res)
+        L = req["length"]
+        if cnn.shape != (5, n, n) or not np.isfinite(cnn).all():
+            raise AssertionError(f"bad map {cnn.shape} for {req}")
+        want = np.zeros((n, n), np.float32)
+        want[:L, :L] = 1.0
+        if not np.array_equal(cnn[-1], want):
+            raise AssertionError(f"last channel is not the length mask for "
+                                 f"{req}")
+        if "seed" in req and res["seed"] != req["seed"]:
+            raise AssertionError("the request's seed was not used")
+
+
+def phase_serving(torch):
+    from text2protein_tpu_torch.cli.serve import Server
     from text2protein_tpu_torch.config import flagship_config
     from text2protein_tpu_torch.ops import flash
 
@@ -528,18 +604,7 @@ def phase_serving(torch):
                                  f"{STEPS}")
         if flash.flash_attention_bwd.launches:
             raise AssertionError("serving launched the backward kernel")
-        for req, res in zip(reqs, results):
-            cnn = decode_coords(res)
-            L = req["length"]
-            if cnn.shape != (5, 128, 128) or not np.isfinite(cnn).all():
-                raise AssertionError(f"bad map {cnn.shape} for {req}")
-            want = np.zeros((128, 128), np.float32)
-            want[:L, :L] = 1.0
-            if not np.array_equal(cnn[-1], want):
-                raise AssertionError(f"last channel is not the length mask "
-                                     f"for {req}")
-            if "seed" in req and res["seed"] != req["seed"]:
-                raise AssertionError("the request's seed was not used")
+        check_maps(results, reqs, 128)
         log(f"serving: batch of {len(reqs)} request(s) in "
             f"{seconds[-1]:.3f}s, flash_fwd launches {got} "
             f"(= {LAUNCHES_PER_STEP} x {STEPS} steps), maps finite "
@@ -605,7 +670,8 @@ def phase_training(torch, records, weights):
     flash.flash_attention_fwd.launches = 0
     flash.flash_attention_bwd.launches = 0
     res = train.main(["--data", str(records), "--max_steps", str(steps),
-                      "--out", str(weights)])
+                      "--out", str(weights), "--workdir_root",
+                      str(WORK / "training")])
     fwd = flash.flash_attention_fwd.launches
     bwd = flash.flash_attention_bwd.launches
     peak = torch.cuda.max_memory_allocated()
@@ -658,6 +724,7 @@ def phase_training(torch, records, weights):
         f"{', '.join(f'{x * 1e3:.1f}' for x in secs[:TRAIN_WARMUP])} ms), "
         f"{TRAIN_BATCH / ms * 1e3:.1f} samples/s, max_memory_allocated "
         f"{peak / 2**30:.2f} GiB")
+    workdir = res["workdir"]
     del state, res
 
     server = Server(bench_l128_config(), batch_size=1, num_steps=STEPS,
@@ -675,12 +742,238 @@ def phase_training(torch, records, weights):
         f"answered a request: finite (5, 128, 128) map, flash_fwd launches "
         f"{served}")
     weights.unlink()
+    slots = sorted(str(p.relative_to(workdir))
+                   for p in workdir.rglob("*.pt"))
+    if slots != ["checkpoints-meta/checkpoint.pt",
+                 "checkpoints/best_eval.pt", "checkpoints/best_train.pt"]:
+        raise AssertionError(f"the training workdir holds {slots}")
+    log(f"training: workdir {workdir.relative_to(ROOT)}: config.yml, "
+        f"train_ids.txt, test_ids.txt, {', '.join(slots)}")
     return dict(steps=steps, losses=losses, step_seconds=secs,
+                workdir=str(workdir),
                 ms_per_step=ms, ms_per_step_range=[float(timed.min()),
                                                    float(timed.max())],
                 samples_per_s=TRAIN_BATCH / ms * 1e3,
                 eval_loss=eval_loss, peak_bytes=peak, lrs=lrs[:3],
                 fwd_launches=fwd, bwd_launches=bwd)
+
+
+DEPLOY_REQUESTS = [
+    [{"caption": "A small alpha-helical bundle that binds zinc.",
+      "length": 64, "seed": 2024},
+     {"caption": "beta barrel membrane transporter", "length": 100},
+     {"caption": "", "length": 128},
+     {"caption": "three helix bundle", "length": 77}],
+    [{"caption": "Kinase domain with a long activation loop.",
+      "length": 90},
+     {"caption": "A de novo designed four-helix bundle with a hydrophobic "
+                 "core.", "length": 117},
+     {"caption": "zinc finger", "length": 64},
+     {"caption": "beta barrel membrane transporter", "length": 128}],
+]
+
+
+def phase_deploy(torch, workdir):
+    """`cli/serve --config configs/deploy_l128.yml --checkpoint WORKDIR`
+    answers two batches of 4 over the full hybrid + CFG schedule."""
+    from text2protein_tpu_torch.cli import serve
+    from text2protein_tpu_torch.ops import flash
+
+    t = time.perf_counter()
+    server = serve.server_from_args(serve.build_parser().parse_args([
+        "--config", str(DEPLOY_CONFIG), "--checkpoint", str(workdir),
+        "--batch_size", str(DEPLOY_BATCH)]))
+    log(f"deploy: Server from {DEPLOY_CONFIG.name} with the EMA of step "
+        f"{server.step} of {workdir.relative_to(ROOT)} (best_eval), batch "
+        f"{DEPLOY_BATCH}, built in {time.perf_counter() - t:.2f}s")
+    want = DEPLOY_NFE * DEPLOY_LAUNCHES_PER_EVAL
+    seconds, launches = [], 0
+    for reqs in DEPLOY_REQUESTS:
+        flash.flash_attention_fwd.launches = 0
+        flash.flash_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results = server.run_batch(reqs)
+        seconds.append(time.perf_counter() - t)
+        got = flash.flash_attention_fwd.launches
+        launches += got
+        nfes = sorted({r["nfe"] for r in results})
+        if nfes != [DEPLOY_NFE]:
+            raise AssertionError(f"deploy nfe {nfes}, expected {DEPLOY_NFE}")
+        if got != want or flash.flash_attention_bwd.launches:
+            raise AssertionError(
+                f"deploy launches: flash_fwd {got} (expected {want}), "
+                f"flash_bwd {flash.flash_attention_bwd.launches} (expected "
+                f"0)")
+        check_maps(results, reqs, 128)
+        log(f"deploy: batch of {len(reqs)} in {seconds[-1]:.3f}s "
+            f"({DEPLOY_BATCH * 60 / seconds[-1]:.3f} samples/min at batch "
+            f"{DEPLOY_BATCH}), nfe {DEPLOY_NFE} in every response, "
+            f"flash_fwd launches {got} (= {DEPLOY_NFE} x "
+            f"{DEPLOY_LAUNCHES_PER_EVAL}), flash_bwd 0, maps finite "
+            f"(5, 128, 128), last channel = length mask")
+    return dict(step=server.step, batch_seconds=seconds,
+                samples_per_min=[DEPLOY_BATCH * 60 / x for x in seconds],
+                ms_per_eval=[x / DEPLOY_NFE * 1e3 for x in seconds],
+                launches=launches)
+
+
+def phase_sampling_cli(torch, workdir, records):
+    """`cli/sampling_6d.main` on the deployment config and phase 6's
+    best_eval: the PC sampler (10 steps, CFG 2.0) at the selected length
+    100 over the held-out captions."""
+    import pickle
+
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import sampling_6d
+    from text2protein_tpu_torch.config import load_config
+    from text2protein_tpu_torch.ops import flash
+
+    config = load_config(DEPLOY_CONFIG)
+    index = 37
+    length = config.data.min_res_num + index - 1
+    flash.flash_attention_fwd.launches = 0
+    t = time.perf_counter()
+    out = sampling_6d.main([
+        str(DEPLOY_CONFIG), str(workdir / "checkpoints" / "best_eval.pt"),
+        "--sampler", "pc", "--num_steps", str(SAMPLING_STEPS),
+        "--batch_size", str(DEPLOY_BATCH), "--select_length",
+        "--length_index", str(index), "--processed_dir", str(records),
+        "--workdir_root", str(WORK / "sampling")])
+    secs = time.perf_counter() - t
+    launches = flash.flash_attention_fwd.launches
+    ids = (workdir / "test_ids.txt").read_text().split("\n")
+    chunk = (ids * DEPLOY_BATCH)[:DEPLOY_BATCH]  # the first full batch
+    got = sorted(p.name for p in out.glob("*.pkl"))
+    if got != sorted({f"sampled_{i}.pkl" for i in chunk}):
+        raise AssertionError(f"sampling CLI wrote {got} for ids {ids}")
+    want = np.zeros((128, 128), np.float32)
+    want[:length, :length] = 1.0
+    for name in got:
+        with open(out / name, "rb") as f:
+            a = pickle.load(f)
+        if (a.shape != (1, 5, 128, 128) or a.dtype != np.float32
+                or not np.isfinite(a).all()
+                or not np.array_equal(a[0, -1], want)):
+            raise AssertionError(f"{name}: {a.shape} {a.dtype}")
+    evals = SAMPLING_STEPS * 2 * 2  # corrector + predictor, CFG
+    if launches != evals * DEPLOY_LAUNCHES_PER_EVAL:
+        raise AssertionError(f"sampling CLI launched flash_fwd {launches} "
+                             f"times, expected {evals} x 18")
+    log(f"sampling CLI: {len(got)} pickles for {len(ids)} held-out ids "
+        f"(first full batch of {DEPLOY_BATCH}), (1, 5, 128, 128) finite, "
+        f"last channel = the length-{length} mask; flash_fwd launches "
+        f"{launches}; {secs:.2f}s with the restore")
+    return dict(pickles=got, launches=launches, seconds=secs)
+
+
+def phase_hybrid_reference(torch, e2e):
+    """A short hybrid under CFG 2.0 at B=1 and the deployment widths,
+    seeded random weights and injected draws: the card (kernels) against
+    the CPU (plain versions). Tolerance: each guided score is 2 s_c - s_n,
+    within 3x phase 5's per-evaluation agreement; the differences of the
+    evaluations add up along the trajectory, and a factor 10 covers the
+    Langevin step size's ratio of norms, taken from the scores."""
+    import copy
+
+    import numpy as np
+
+    from text2protein_tpu_torch.conditioning import length_mask
+    from text2protein_tpu_torch.config import load_config
+    from text2protein_tpu_torch.diffusion.ode import get_hybrid_sampler
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+
+    config = load_config(DEPLOY_CONFIG)
+    ode_steps, pc_steps = HYBRID_REF_STEPS
+    sde, eps = get_sde(config)
+    gpu_model = init_random_weights(build_model(config, device="cuda"), 3)
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    shape = (1, 128, 128, 5)
+    rng = np.random.default_rng(4)
+    draws = [rng.standard_normal(shape).astype(np.float32)
+             for _ in range(1 + 2 * pc_steps)]
+    ctx, ctx_mask = build_text_encoder(config).encode(
+        ["A small alpha-helical bundle that binds zinc."])
+    cond = length_mask(torch.tensor([100]), 128)
+    outs, nfes, secs = [], [], []
+    for model, dev in ((gpu_model, "cuda"), (cpu_model, "cpu")):
+        it = iter(draws)
+        sampler = get_hybrid_sampler(
+            sde, model, shape, ode_steps=ode_steps, pc_steps=pc_steps,
+            cfg_scale=float(config.sampling.cfg_scale), eps=eps)
+        before = flash.flash_attention_fwd.launches
+        t = time.perf_counter()
+        out, nfe = sampler(
+            condition={"length": cond.to(dev)},
+            context=torch.from_numpy(ctx).to(dev),
+            context_mask=torch.from_numpy(ctx_mask).to(dev),
+            noise_fn=lambda s: torch.from_numpy(next(it)).to(dev))
+        outs.append(out.cpu().numpy())
+        secs.append(time.perf_counter() - t)
+        nfes.append((nfe, flash.flash_attention_fwd.launches - before))
+    (nfe, launched), (_, cpu_launched) = nfes
+    if launched != nfe * DEPLOY_LAUNCHES_PER_EVAL or cpu_launched:
+        raise AssertionError(f"hybrid reference launches GPU {launched}, "
+                             f"CPU {cpu_launched}")
+    gpu, cpu = outs
+    diff = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    tol = 10 * 3 * nfe // 2 * e2e
+    log(f"hybrid reference: {ode_steps} Heun + {pc_steps} PC steps, CFG "
+        f"{config.sampling.cfg_scale}, B=1, deployment widths, GPU vs CPU "
+        f"rel max diff {diff:.2e} (tol 10 x 3 x {nfe // 2} evaluations x "
+        f"phase 5's {e2e:.2e} = {tol:.2e}); NFE {nfe}, GPU launches "
+        f"{launched}; GPU {secs[0]:.2f}s, CPU {secs[1]:.2f}s")
+    if not (np.isfinite(gpu).all() and diff <= tol):
+        raise AssertionError("the GPU hybrid disagrees (line above)")
+    return dict(rel_diff=diff, tol=tol, nfe=nfe)
+
+
+def phase_hybrid_n256(torch):
+    """A Server with quality_n256.yml and the hybrid sampler (4 Heun + 6 PC
+    steps), seeded random weights, batch 4: the bf16 forward serves it."""
+    from text2protein_tpu_torch.cli.serve import Server
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.ops import flash
+
+    config = quality_n256_config()
+    config.sampling.hybrid_ode_steps, config.sampling.hybrid_pc_steps = (
+        N256_HYBRID)
+    server = Server(config, batch_size=N256_BATCH, device="cuda",
+                    weight_seed=0, sampler="hybrid")
+    reqs = N256_REQUESTS[0]
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = server.run_batch(reqs)
+    secs = time.perf_counter() - t
+    got = flash.flash_attention_fwd.launches_bf16
+    others = sum(c.launches for c in counters) + \
+        flash.flash_attention_bwd.launches_bf16
+    want = N256_HYBRID_NFE * N256_LAUNCHES_PER_STEP // 2
+    nfes = sorted({r["nfe"] for r in results})
+    if nfes != [N256_HYBRID_NFE] or got != want or others:
+        raise AssertionError(f"N=256 hybrid: nfe {nfes}, bf16 forward "
+                             f"launches {got} (expected {want}), others "
+                             f"{others}")
+    check_maps(results, reqs, 256)
+    log(f"hybrid N=256: quality_n256.yml, {N256_HYBRID[0]} Heun + "
+        f"{N256_HYBRID[1]} PC steps at batch {N256_BATCH}: nfe "
+        f"{N256_HYBRID_NFE}, flash_fwd_bf16 launches {got} (= "
+        f"{N256_HYBRID_NFE} x {N256_LAUNCHES_PER_STEP // 2}), maps finite "
+        f"(5, 256, 256), last channel = length mask; {secs:.2f}s (the "
+        f"first batch of this Server)")
+    del server
+    torch.cuda.empty_cache()
+    return dict(launches=got, seconds=secs, nfe=N256_HYBRID_NFE)
 
 
 def worst_grad_diff(got, want):
@@ -967,9 +1260,7 @@ N256_REQUESTS = [
 def phase_serving_n256(torch):
     """A Server with quality_n256.yml's widths, bf16, seeded random
     weights, batch 4, N256_STEPS PC steps, two batches of requests."""
-    import numpy as np
-
-    from text2protein_tpu_torch.cli.serve import Server, decode_coords
+    from text2protein_tpu_torch.cli.serve import Server
     from text2protein_tpu_torch.config import quality_n256_config
     from text2protein_tpu_torch.ops import flash
 
@@ -1001,16 +1292,7 @@ def phase_serving_n256(torch):
         if others:
             raise AssertionError(f"serving N=256 launched {others} f32 or "
                                  "backward kernels")
-        for req, res in zip(reqs, results):
-            cnn = decode_coords(res)
-            L = req["length"]
-            if cnn.shape != (5, 256, 256) or not np.isfinite(cnn).all():
-                raise AssertionError(f"bad map {cnn.shape} for {req}")
-            want = np.zeros((256, 256), np.float32)
-            want[:L, :L] = 1.0
-            if not np.array_equal(cnn[-1], want):
-                raise AssertionError(f"last channel is not the length mask "
-                                     f"for {req}")
+        check_maps(results, reqs, 256)
         log(f"serving N=256: batch of {len(reqs)} request(s) in "
             f"{seconds[-1]:.3f}s, flash_fwd_bf16 launches {got} (= "
             f"{N256_LAUNCHES_PER_STEP} x {N256_STEPS} steps), maps finite "
@@ -1118,7 +1400,9 @@ def phase_training_n256(torch, records):
     for c in (flash.flash_attention_fwd, flash.flash_attention_bwd):
         c.launches = c.launches_bf16 = 0
     res = train.main(["--config", str(ROOT / "configs/quality_n256.yml"),
-                      "--data", str(records), "--max_steps", str(steps)])
+                      "--data", str(records), "--max_steps", str(steps),
+                      "--workdir_root", str(WORK / "training_n256")])
+    shutil.rmtree(res["workdir"])  # two 6 GB slots
     fwd = flash.flash_attention_fwd.launches_bf16
     bwd = flash.flash_attention_bwd.launches_bf16
     f32 = (flash.flash_attention_fwd.launches
@@ -1355,6 +1639,7 @@ def main():
     kind, smi = phase_device(torch)
     ptxas = phase_build()
     rows = phase_kernels(torch)
+    deploy_rows = phase_kernels(torch, DEPLOY_SHAPES, lengths=(0, 3, 9))
     bwd_rows = phase_kernels_bwd(torch)
     server, launches, seconds = phase_serving(torch)
     e2e = phase_reference(torch, server)
@@ -1365,11 +1650,16 @@ def main():
     weights.parent.mkdir(parents=True, exist_ok=True)
     training = phase_training(torch, records, weights)
     train_ref = phase_train_reference(torch, records)
+    workdir = Path(training["workdir"])
+    deploy = phase_deploy(torch, workdir)
+    sampling = phase_sampling_cli(torch, workdir, records)
+    hybrid_ref = phase_hybrid_reference(torch, e2e)
     fwd16_rows, bwd16_rows = phase_kernels_bf16(torch, ptxas)
     server, launches16, serving16 = phase_serving_n256(torch)
     ref16 = phase_reference_n256(torch, server)
     del server
     torch.cuda.empty_cache()
+    hybrid16 = phase_hybrid_n256(torch)
     records16 = OUT / "train_records_n256"
     helix_records.write_records(records16, N256_RECORDS, lengths=(128, 256),
                                 seed=1)
@@ -1409,12 +1699,30 @@ def main():
             "per": what,
         }
 
+    # one evaluation of the deployment path: the serving path's unmasked
+    # calls (half of a PC step's) and the cross-attention over 16 keys
+    deploy_calls = ([(r, r["per_step"] // 2) for r in rows
+                     if not r["masked"]]
+                    + [(r, r["per_step"]) for r in deploy_rows])
+
+    def per_eval(key):
+        return sum(r[key] * n for r, n in deploy_calls)
+
+    fwd_f32 = kernel(
+        "flash_fwd_f32", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
+        "text2protein_tpu/ops/flash.py:50",
+        launches + training["fwd_launches"] + deploy["launches"]
+        + sampling["launches"], rows, f"PC step at batch {BATCH}")
+    fwd_f32["deploy"] = dict(
+        per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
+        **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "library_ms",
+                                    "tc_bound_ms")},
+        max_abs_err=max(r["max_abs_err"] for r in deploy_rows))
     kernels = [
-        # launches on the main paths: serving, then training (+ its eval)
-        kernel("flash_fwd_f32", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
-               "text2protein_tpu/ops/flash.py:50",
-               launches + training["fwd_launches"], rows,
-               f"PC step at batch {BATCH}"),
+        # launches on the main paths: serving, training (+ its eval), the
+        # deployment batches and the sampling CLI
+        fwd_f32,
         kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
                "text2protein_tpu/ops/flash.py:168",
                training["bwd_launches"], bwd_rows,
@@ -1422,7 +1730,8 @@ def main():
         # N=256 in bf16: serving, then training (+ its eval)
         kernel("flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
                "text2protein_tpu/ops/flash.py:50",
-               launches16 + training16["fwd_launches"], fwd16_rows,
+               launches16 + training16["fwd_launches"]
+               + hybrid16["launches"], fwd16_rows,
                f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S),
         kernel("flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
                "text2protein_tpu/ops/flash.py:168",
@@ -1439,6 +1748,9 @@ def main():
         "bf16_shapes": fwd16_rows, "bf16_bwd_shapes": bwd16_rows,
         "serving_n256": serving16, "reference_n256": ref16,
         "training_n256": training16, "train_reference_n256": train_ref16,
+        "deploy_shapes": deploy_rows, "deploy": deploy,
+        "sampling_cli": sampling, "hybrid_reference": hybrid_ref,
+        "hybrid_n256": hybrid16,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -27,6 +27,7 @@ from text2protein_tpu_torch.config import (
     load_config,
     parse_yaml,
     quality_n256_config,
+    save_config,
 )
 from text2protein_tpu_torch.interop.from_jax import (
     state_dict_from_flax_params,
@@ -149,6 +150,34 @@ def _typed(x):
 def test_parse_yaml_reads_every_config_as_pyyaml(path):
     text = path.read_text()
     assert _typed(parse_yaml(text)) == _typed(yaml.safe_load(text))
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_save_config_reads_back_equal(path, tmp_path):
+    """`save_config` (the trainer's workdir config.yml) writes YAML that
+    `parse_yaml` and PyYAML read back as the same config, types
+    included."""
+    cfg = load_config(path)
+    save_config(cfg, tmp_path / "c.yml")
+    text = (tmp_path / "c.yml").read_text()
+    assert _typed(parse_yaml(text)) == _typed(cfg.to_dict())
+    assert _typed(yaml.safe_load(text)) == _typed(cfg.to_dict())
+    assert load_config(tmp_path / "c.yml") == cfg
+
+
+def test_save_config_quotes_what_would_read_otherwise(tmp_path):
+    d = {"s": {"word": "yes", "num": "1e-4", "int": "7", "empty": "",
+               "hash": "a # b", "colon": "a: b", "nothing": "null",
+               "quote": "it's", "slash": "lmsys/vicuna-7b-v1.3",
+               "dash": "-x", "space": " x"},
+         "f": [1e-4, 3.0, -2.5e-07, 1e20], "b": [True, None],
+         "e": [], "m": {}}
+    save_config(d, tmp_path / "c.yml")
+    text = (tmp_path / "c.yml").read_text()
+    assert _typed(parse_yaml(text)) == _typed(d)
+    assert _typed(yaml.safe_load(text)) == _typed(d)
+    with pytest.raises(ValueError, match="inf"):
+        save_config({"x": float("inf")}, tmp_path / "inf.yml")
 
 
 def test_norm_dtype_bf16_in_an_f32_unet_matches_jax():

@@ -95,7 +95,7 @@ def test_train_cli_with_the_n256_settings_at_tiny_width(tmp_path):
     (tmp_path / "cfg.yml").write_text(yaml.safe_dump(cfg))
     res = ttrain.main(["--config", str(tmp_path / "cfg.yml"), "--data",
                        str(tmp_path), "--max_steps", "2", "--device",
-                       "cpu"])
+                       "cpu", "--workdir_root", str(tmp_path / "runs")])
     assert res["steps"] == 2 and np.isfinite(res["losses"]).all()
     assert np.isfinite(res["eval_loss"])
     state = res["state"]

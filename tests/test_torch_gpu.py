@@ -349,6 +349,66 @@ def test_pc_trajectory_on_gpu_matches_cpu(cuda):
     assert rel_max_diff(outs[1], outs[0]) < 1e-3
 
 
+# (H, Tq, Tk, D) of the deployment config's cross-attention
+# (configs/deploy_l128.yml: the caption padded to a 16-token bucket): the
+# 16x16 level and the 4x4 mid block
+DEPLOY_SHAPES = [(8, 256, 16, 32), (8, 16, 16, 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,tq,tk,d", DEPLOY_SHAPES)
+def test_flash_kernel_at_the_deploy_caption_bucket(cuda, h, tq, tk, d):
+    """The f32 forward over a 16-key masked caption, one row fully masked
+    (its output 0), at batch 4: atol/rtol 1e-4 against the plain
+    version."""
+    q, k, v, _ = _inputs(cuda, 4, h, tq, tk, d, False, seed=9)
+    lengths = torch.tensor([0, 3, 9, 16], device=cuda)
+    mask = torch.arange(tk, device=cuda)[None, :] < lengths[:, None]
+    before = tflash.flash_attention_fwd.launches
+    got_o, got_l = tflash.flash_attention_fwd(q, k, v, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_fwd.launches == before + 1
+    assert torch.all(got_o[0] == 0)
+    want_o, want_l = tflash.flash_attention_fwd_reference(q, k, v,
+                                                          kv_mask=mask)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_l, want_l, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_hybrid_with_cfg_on_gpu_matches_cpu(cuda):
+    """A short hybrid (2 Heun steps, 3 PC steps) under CFG 2.0 with the
+    same injected draws on both devices: relative max diff < 1e-3, the
+    bar of the PC trajectory test on the card."""
+    from text2protein_tpu_torch.diffusion.ode import get_hybrid_sampler
+
+    cpu, gpu = _tiny_models(cuda)
+    shape = (2, N, N, C)
+    rng = np.random.default_rng(2)
+    draws = [rng.standard_normal(shape).astype(np.float32)
+             for _ in range(1 + 3 * 2)]
+    ctx = torch.from_numpy(rng.standard_normal((2, 8, CONTEXT_DIM))
+                           .astype(np.float32))
+    mask = torch.ones((2, 8), dtype=torch.bool)
+    mask[1, 5:] = False
+    sde = tsde.VESDE(N=100, sigma_min=0.01, sigma_max=100.0)
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        it = iter(draws)
+        sampler = get_hybrid_sampler(sde, model, shape, ode_steps=2,
+                                     pc_steps=3, cfg_scale=2.0)
+        before = tflash.flash_attention_fwd.launches
+        out, nfe = sampler(context=ctx.to(dev), context_mask=mask.to(dev),
+                           noise_fn=lambda s: torch.from_numpy(
+                               next(it)).to(dev))
+        launched = tflash.flash_attention_fwd.launches - before
+        assert nfe == (2 * 2 + 3 * 2) * 2
+        assert launched == (0 if dev == "cpu" else 18 * nfe)  # 18 per eval
+        outs.append(out.cpu().numpy())
+    assert np.isfinite(outs[1]).all()
+    assert rel_max_diff(outs[1], outs[0]) < 1e-3
+
+
 @pytest.mark.gpu
 def test_train_step_gradients_on_gpu_match_cpu(cuda):
     """One tiny train step (dropout 0, injected t and z, a 64-token caption

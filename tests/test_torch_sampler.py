@@ -293,10 +293,40 @@ def test_pc_trajectory_matches_jax(models, num_steps, cfg_scale):
 
 
 def test_sampling_fn_builds_the_pc_sampler_only():
+    """The dispatch of `sampling.method` (the name dates from when only pc
+    was ported): pc, ode and hybrid build, each with the PC sampler's call
+    signature; ode under guidance raises, as in the JAX package; an
+    unknown method raises."""
+    import inspect
+
     cfg = load_config(tiny_config_dict())
     ts, eps = tsde.get_sde(cfg)
     model = build_model(cfg, device="cpu")
-    assert callable(tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps))
+    want = inspect.signature(tsampling.get_sampling_fn(
+        cfg, ts, model, SHAPE, eps))
+    for method in ("pc", "ode", "hybrid"):
+        cfg.sampling.method = method
+        fn = tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps)
+        assert inspect.signature(fn) == want, method
     cfg.sampling.method = "ode"
-    with pytest.raises(NotImplementedError):
+    cfg.sampling.cfg_scale = 2.0
+    with pytest.raises(NotImplementedError, match="cfg_scale"):
         tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps)
+    cfg.sampling.method = "hybrid"
+    assert callable(tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps))
+    with pytest.warns(UserWarning, match="num_steps"):
+        tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps, num_steps=8)
+    cfg.sampling.method = "ddpm"
+    with pytest.raises(ValueError, match="ddpm"):
+        tsampling.get_sampling_fn(cfg, ts, model, SHAPE, eps)
+
+
+@pytest.mark.parametrize("stop", [1e-5, 0.5753, 0.3456, 0.0])
+def test_linspace_f32_equals_jax_linspace(stop):
+    """`sde.linspace_f32`, which builds the ODE and hybrid grids (and the
+    DDIM step indices, test_torch_ddim.py), equals jnp.linspace with
+    runtime endpoints bit for bit."""
+    for num in list(range(1, 20)) + [39, 61, 171, 231, 295]:
+        np.testing.assert_array_equal(
+            tsde.linspace_f32(1.0, stop, num).numpy(),
+            np.asarray(jnp.linspace(1.0, stop, num)))

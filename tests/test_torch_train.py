@@ -443,7 +443,8 @@ def test_train_cli_two_steps_then_serve(tmp_path):
               tflash.flash_attention_bwd.launches)
     res = ttrain.main(["--config", str(tmp_path / "cfg.yml"), "--data",
                        str(tmp_path), "--max_steps", "2", "--device", "cpu",
-                       "--out", str(out)])
+                       "--out", str(out), "--workdir_root",
+                       str(tmp_path / "runs")])
     assert (tflash.flash_attention_fwd.launches,
             tflash.flash_attention_bwd.launches) == before
     assert res["steps"] == 2 and len(res["losses"]) == 2

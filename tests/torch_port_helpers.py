@@ -77,6 +77,18 @@ def rel_max_diff(got, want):
     return float(np.abs(got - want).max() / np.abs(want).max())
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for the module's tests, restored after.
+    The test runner puts several worker processes on the CPU's cores, and
+    at these tiny sizes every worker's spinning thread pool slows all of
+    them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda():
     """A CUDA device, or a skip when there is none."""
@@ -84,3 +96,44 @@ def cuda():
         pytest.skip("needs a CUDA device; run with `pytest -m gpu` on the "
                     "GPU machine")
     return torch.device("cuda")
+
+
+def _atom(serial, name, res, chain, seq, xyz, altloc=" ", rec="ATOM  "):
+    an = f" {name:<3s}" if len(name) < 4 else name
+    return (f"{rec}{serial:5d} {an}{altloc}{res:>3s} {chain}{seq:4d}    "
+            f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}  1.00  0.00"
+            f"           {name[0]}")
+
+
+HELIX_PDB_LENGTHS = (14, 6)  # chains A and B
+
+
+def write_helix_pdb(path):
+    """A two-chain helix PDB: residue 4 of chain A is MSE (non-standard),
+    residue 8 of chain A has no C atom, residue 6 of chain A has an
+    alternate location B (dropped by the reader), then a water and a
+    truncated record. Returns `path`."""
+    from text2protein_tpu_torch.data.helix_records import helix_backbone
+
+    L_A, L_B = HELIX_PDB_LENGTHS
+    rng = np.random.default_rng(11)
+    lines, serial = [], 1
+    for chain, length in (("A", L_A), ("B", L_B)):
+        bb = helix_backbone(rng, length)
+        for i in range(length):
+            res = "MSE" if (chain, i) == ("A", 3) else "ALA"
+            for j, name in enumerate(("N", "CA", "C")):
+                if (chain, i, name) == ("A", 7, "C"):
+                    continue  # a residue missing an atom
+                lines.append(_atom(serial, name, res, chain, i + 1, bb[i, j]))
+                serial += 1
+                if (chain, i, name) == ("A", 5, "CA"):  # altloc B: dropped
+                    lines.append(_atom(serial, name, res, chain, i + 1,
+                                       bb[i, j] + 5.0, altloc="B"))
+                    serial += 1
+    lines.append(_atom(serial, "O", "HOH", "A", 100, (0.0, 0.0, 0.0),
+                       rec="HETATM"))
+    lines.append("ATOM  99999  CA  ALA A  99       1.0")  # truncated
+    lines.append("END")
+    path.write_text("\n".join(lines) + "\n")
+    return path

@@ -1,32 +1,41 @@
 """Sampling server (counterpart of text2protein_tpu/cli/serve.py).
 
-`Server` owns the model and the PC sampler at a fixed batch size; each call
+`Server` owns the model and the sampler (`sampling.method`: pc, ode or
+hybrid, or `--sampler`) at a fixed batch size; each call
 of `run_batch(requests)` encodes the captions, builds the length masks, runs
 one trajectory for the batch (padded with copies of the last request) and
 returns one response per request, with the same fields as the JAX server:
 {"length", "nfe", "seed", "coords_6d_b64"} where `coords_6d_b64` is a base64
 npz holding "coords_6d", the (C, N, N) float32 map.
 
-The weights come from a torch state-dict file (`--weights state.pt`, e.g.
-written from JAX params by `interop.from_jax`) or, without one, are random
-from `--seed`. A thin stdlib HTTP front end serves POST /v1/sample and
+The weights come from the EMA of a training workdir's checkpoint
+(`--checkpoint`: a slot file such as `{workdir}/checkpoints/best_eval.pt`,
+or the workdir, whose best_eval, best_train or meta slot is taken in that
+order), from a torch state-dict file (`--weights state.pt`, e.g. written
+from JAX params by `interop.from_jax`) or, without either, are random from
+`--seed`. A thin stdlib HTTP front end serves POST /v1/sample and
 GET /healthz.
 
 Usage:
   python -m text2protein_tpu_torch.cli.serve [--config cfg.yml]
-      [--weights state.pt] [--batch_size 8] [--num_steps 100] [--port 8080]
+      [--checkpoint PATH | --weights state.pt] [--sampler pc|ode|hybrid]
+      [--batch_size 8] [--num_steps 100] [--port 8080] [--device cpu]
+  e.g. --config configs/deploy_l128.yml --checkpoint WORKDIR: the
+  deployment sampler (hybrid ODE head + PC tail, CFG 2.0, NFE 920)
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import copy
 import io
 import json
 import os
 import queue
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -38,13 +47,19 @@ from ..diffusion.sampling import get_sampling_fn
 from ..diffusion.sde import get_sde
 from ..models.unet import build_model, init_random_weights
 from ..text.encoder import build_text_encoder
+from ..training.checkpoint import restore_ema_params
 
 
 class Server:
     """The model, the sampler and the request batching of one server."""
 
     def __init__(self, config, batch_size=8, num_steps=None, weights=None,
-                 weight_seed=0, device=None):
+                 weight_seed=0, device=None, sampler=None, checkpoint=None):
+        if weights is not None and checkpoint is not None:
+            raise ValueError("pass weights or checkpoint, not both")
+        if sampler is not None:
+            config = copy.deepcopy(config)
+            config.sampling.method = sampler
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # every call has the same shapes, so cuDNN's search pays once
@@ -54,7 +69,15 @@ class Server:
         self.b = batch_size
         sde, eps = get_sde(config)
         model = build_model(config, device=self.device)
-        if weights is not None:
+        self.step = None  # the training step of a checkpoint's weights
+        if checkpoint is not None:
+            path = Path(checkpoint)
+            workdir, slot = ((path, None) if path.is_dir()
+                             else (path.parent.parent, path))
+            state, self.step = restore_ema_params(workdir, config, model,
+                                                  checkpoint=slot)
+            model.load_state_dict(state, strict=True)
+        elif weights is not None:
             state = torch.load(weights, map_location=self.device,
                                weights_only=True)
             model.load_state_dict(state, strict=True)
@@ -204,8 +227,14 @@ def build_parser():
     p.add_argument("--config", type=str, default=None,
                    help="YAML config (default: the flagship L=128 model; "
                         "configs/quality_n256.yml: the N=256 model in bf16)")
+    p.add_argument("--checkpoint", type=str, default=None,
+                   help="a training workdir or one of its checkpoint files: "
+                        "serve its EMA weights")
     p.add_argument("--weights", type=str, default=None,
                    help="torch state dict; default: random weights")
+    p.add_argument("--sampler", type=str, default=None,
+                   choices=["pc", "ode", "hybrid"],
+                   help="override sampling.method")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights")
     p.add_argument("--batch_size", type=int, default=8)
@@ -222,15 +251,23 @@ def make_http_server(server: Server, host="127.0.0.1", port=8080):
     return ThreadingHTTPServer((host, port), handler)
 
 
+def server_from_args(args) -> Server:
+    """The Server the command line asks for."""
+    config = load_config(args.config) if args.config else flagship_config()
+    return Server(config, batch_size=args.batch_size,
+                  num_steps=args.num_steps, weights=args.weights,
+                  weight_seed=args.seed, device=args.device,
+                  sampler=args.sampler, checkpoint=args.checkpoint)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    config = load_config(args.config) if args.config else flagship_config()
-    server = Server(config, batch_size=args.batch_size,
-                    num_steps=args.num_steps, weights=args.weights,
-                    weight_seed=args.seed, device=args.device)
+    server = server_from_args(args)
     httpd = make_http_server(server, args.host, args.port)
+    weights = (f"checkpoint step {server.step}" if server.step is not None
+               else args.weights or f"random weights (seed {args.seed})")
     print(f"serving on http://{args.host}:{httpd.server_address[1]} "
-          f"({server.device}, batch {server.b})", flush=True)
+          f"({server.device}, batch {server.b}, {weights})", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:

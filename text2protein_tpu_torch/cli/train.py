@@ -2,21 +2,37 @@
 
 config -> processed records -> 95/5 split -> a loop of train steps (loss
 and backward -> clip -> Adam -> EMA) on batches the loader reads ahead,
-each caption encoded by the text encoder -> one eval pass with the EMA
-params -> the EMA params written as a state dict that
+each caption encoded by the text encoder, with an eval pass of the EMA
+params every `training.eval_freq` steps and at the end.
+
+Every run has a workdir, `{--workdir_root}/{config stem}/{timestamp}` or
+the `--resume` directory, holding `config.yml`, `train_ids.txt`,
+`test_ids.txt` and the checkpoint triad (`training/checkpoint.py`): the
+meta checkpoint every `training.snapshot_freq_for_preemption` steps and at
+the end, `best_train` / `best_eval` at the eval boundaries where the
+average improved, and `snapshot_<step>` at `training.snapshot_steps`. A
+workdir that holds a checkpoint is resumed from its newest state and goes
+on bit for bit: the step's generator and the data order are functions of
+the step. `--out` also writes the EMA params as a state dict that
 `text2protein_tpu_torch.cli.serve --weights` loads.
+
+`training.best_save_min_interval` (steps) defers best saves; a deferred
+save stores the state of the boundary whose average the gate recorded, not
+the state of the boundary where the save happens (the JAX trainer stores
+the latter).
 
 Runs on the GPU unless `--device cpu` is given; on the GPU the model runs in
 the config's `model.dtype` under `use_full_f32()` (TF32 off for matmuls and
 cuDNN, f32 accumulation of bf16 products) with cuDNN's per-shape algorithm
 search on. With `data.featurize_on_device` the batches carry backbones and
-the step builds the 6D maps on the device. Not ported yet: the checkpoint
-triad and resume, snapshot sampling, the resident-context table and fused
-multi-step paths, and multi-device meshes.
+the step builds the 6D maps on the device. Not ported yet: snapshot
+sampling, the resident-context table and fused multi-step paths, and
+multi-device meshes.
 
 Usage:
   python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
-      [--data DIR] [--max_steps N] [--out ema.pt] [--device cpu]
+      [--data DIR] [--max_steps N] [--workdir_root DIR | --resume DIR]
+      [--out ema.pt] [--device cpu]
   e.g. --config configs/quality_n256.yml --data DIR: the N=256 model in
   bf16 with remat and featurization on the device, batch 8
 """
@@ -24,19 +40,23 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import time
+from datetime import datetime
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from .. import resolve_device, use_full_f32
 from ..conditioning import batch_to_device_arrays
-from ..config import bench_l128_config, load_config
+from ..config import bench_l128_config, load_config, save_config
 from ..data.dataset import ProteinProcessedDataset
 from ..data.loader import PrefetchLoader
 from ..diffusion.sde import get_sde
 from ..models.unet import build_model, init_random_weights
 from ..text.encoder import build_text_encoder
+from ..training.checkpoint import CheckpointManager, state_slot
 from ..training.state import create_train_state, param_count
 from ..training.steps import make_eval_step, make_train_step
 
@@ -51,8 +71,13 @@ def build_argparser():
                         "data.processed_dataset_path)")
     p.add_argument("--max_steps", type=int, default=None,
                    help="override training.n_iters")
+    p.add_argument("--workdir_root", type=str, default="training",
+                   help="a new run's workdir is {root}/{config stem}/"
+                        "{timestamp}")
+    p.add_argument("--resume", type=str, default=None,
+                   help="workdir to resume from its newest checkpoint")
     p.add_argument("--out", type=str, default=None,
-                   help="write the EMA params here (torch state dict)")
+                   help="also write the EMA params here (torch state dict)")
     p.add_argument("--device", type=str, default=None)
     return p
 
@@ -72,6 +97,21 @@ def batches(dataset, indices, batch_size, max_len, rng, shuffle=True,
                             seed=int(rng.randint(2**31)), shuffle=shuffle,
                             drop_last=drop_last)
     yield from loader
+
+
+def train_batches_from(dataset, indices, batch_size, max_len, seed, step):
+    """The training stream from step `step` on: epoch e shuffles with the
+    (e + 1)-th draw of RandomState(seed), as the JAX trainer's stream does
+    from step 0, and a resumed run starts inside its epoch."""
+    host_rng = np.random.RandomState(seed)
+    epoch, skip = divmod(step, max(1, len(indices) // batch_size))
+    for _ in range(epoch):
+        host_rng.randint(2**31)
+    while True:
+        yield from PrefetchLoader(dataset, indices, batch_size, max_len,
+                                  seed=int(host_rng.randint(2**31)),
+                                  start=skip)
+        skip = 0
 
 
 def make_eval_pass(config, dataset, eval_idx, bs, max_len, prepare,
@@ -98,14 +138,72 @@ def make_eval_pass(config, dataset, eval_idx, bs, max_len, prepare,
     return eval_pass
 
 
+class BestGate:
+    """Which states become best_train / best_eval. At an eval boundary,
+    `offer` records an average that beats the kind's best together with
+    the state of that boundary (`snapshot()`, a host copy); `due` hands out
+    the recorded states once `min_interval` steps have passed since the
+    last best save (or at the end of the run). So a deferred save stores
+    the state whose average the gate holds. `saved` is the average of the
+    state each best file holds."""
+
+    def __init__(self, min_interval=0, saved=None, last_save=0):
+        self.min_interval = int(min_interval)
+        self.saved = dict(saved or {"train": math.inf, "eval": math.inf})
+        self.best = dict(self.saved)
+        self.pending = {}  # kind -> (average, slot)
+        self.last_save = last_save
+
+    def offer(self, kind, average, snapshot):
+        if average < self.best[kind]:
+            self.best[kind] = average
+            self.pending[kind] = (average, snapshot())
+
+    def due(self, step, done):
+        """{kind: (average, slot)} to save now (and forget)."""
+        if not self.pending or not (
+                done or step - self.last_save >= self.min_interval):
+            return {}
+        out, self.pending = self.pending, {}
+        self.last_save = step
+        for kind, (average, _) in out.items():
+            self.saved[kind] = average
+        return out
+
+
+def _once(fn):
+    """fn, called at most once; later calls return the first result."""
+    box = []
+
+    def call():
+        if not box:
+            box.append(fn())
+        return box[0]
+
+    return call
+
+
 def main(argv=None):
-    """Train; returns {"losses", "step_seconds", "lrs", "eval_loss", "state",
-    "steps", "records", "out"}."""
+    """Train; returns {"losses", "step_seconds", "lrs", "eval_loss",
+    "evals", "state", "steps", "records", "workdir", "out"}; `evals` holds
+    (step, avg_train, avg_eval) per eval boundary."""
     args = build_argparser().parse_args(argv)
     config = load_config(args.config) if args.config else bench_l128_config()
     device = resolve_device(args.device)
     if device.type == "cuda":
         use_full_f32()
+    if config.training.get("snapshot_sampling", False):
+        raise NotImplementedError(
+            "training.snapshot_sampling is not ported yet")
+
+    if args.resume:
+        workdir = Path(args.resume)
+    else:
+        cfg_name = Path(args.config).stem if args.config else "bench_l128"
+        stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
+        workdir = Path(args.workdir_root) / cfg_name / stamp
+    workdir.mkdir(parents=True, exist_ok=True)
+    save_config(config, workdir / "config.yml")
 
     dataset = ProteinProcessedDataset(args.data
                                       or config.data.processed_dataset_path)
@@ -114,6 +212,10 @@ def main(argv=None):
         raise ValueError(f"need at least 2 records, found {n_total} in "
                          f"{dataset.root_path}")
     train_idx, eval_idx = split_dataset(n_total, config.seed)
+    for name, idx in (("train_ids.txt", train_idx),
+                      ("test_ids.txt", eval_idx)):
+        (workdir / name).write_text("\n".join(
+            dataset.data_paths[i].split(".")[0] for i in idx))
 
     sde, _ = get_sde(config)
     # random weights from config.seed (the JAX package's flax initializers
@@ -122,6 +224,17 @@ def main(argv=None):
                                 config.seed)
     encoder = build_text_encoder(config)
     state = create_train_state(config, model)
+    ckpt = CheckpointManager(workdir)
+    trainer = {}
+    if ckpt.has_meta() or args.resume:
+        try:
+            slot = (ckpt.restore_meta(state) if ckpt.has_meta()
+                    else ckpt.restore_newest(state))
+            trainer = slot["trainer"]
+            print(f"resumed {workdir} at step {state.step}", flush=True)
+        except FileNotFoundError:
+            print(f"no checkpoint in {workdir}; starting from step 0",
+                  flush=True)
     train_step = make_train_step(config, sde, model)
     eval_step = make_eval_step(config, sde, model)
     bs = config.training.batch_size
@@ -136,20 +249,30 @@ def main(argv=None):
 
     print(f"model params: {param_count(model) / 1e6:.2f}M  device: "
           f"{device}  records: {n_total} (train {len(train_idx)}, eval "
-          f"{len(eval_idx)})  batch: {bs}", flush=True)
+          f"{len(eval_idx)})  batch: {bs}  workdir: {workdir}", flush=True)
 
     steps_per_epoch = max(1, len(train_idx) // bs)
     budget = min(args.max_steps or config.training.n_iters,
                  int(config.training.epochs) * steps_per_epoch)
-    host_rng = np.random.RandomState(config.seed)
+    meta_freq = max(1, int(config.training.snapshot_freq_for_preemption))
+    eval_freq = max(1, int(config.training.eval_freq))
+    gate = BestGate(config.training.get("best_save_min_interval", 0),
+                    trainer.get("saved_best"), last_save=state.step)
+    snap_steps = [int(s) for s in config.training.get("snapshot_steps", [])
+                  if int(s) >= state.step
+                  and not ckpt.snapshot_path(int(s)).exists()]
+    stream = train_batches_from(dataset, train_idx, bs, max_len,
+                                config.seed, state.step)
+    eval_pass = make_eval_pass(config, dataset, eval_idx, bs, max_len,
+                               prepare, eval_step)
 
-    def train_batches_forever():
-        while True:
-            yield from batches(dataset, train_idx, bs, max_len, host_rng)
+    def slot(extra=None):
+        return state_slot(state, config, dict(
+            saved_best=dict(gate.saved), **(extra or {})))
 
-    stream = train_batches_forever()
-    losses, step_seconds, lrs = [], [], []
+    losses, step_seconds, lrs, evals, window = [], [], [], [], []
     log_freq = max(1, int(config.training.log_freq))
+    last_meta = last_eval = state.step
     while state.step < budget:
         t0 = time.perf_counter()
         lrs.append(state.optimizer.learning_rate(state.optimizer.count))
@@ -157,23 +280,55 @@ def main(argv=None):
                                 config.seed + 1))
         step_seconds.append(time.perf_counter() - t0)
         losses.append(loss)
-        if state.step % log_freq == 0 or state.step == budget:
-            print(f"step {state.step} loss {loss:.5f} "
+        window.append(loss)
+        step, done = state.step, state.step >= budget
+        if step % log_freq == 0 or done:
+            print(f"step {step} loss {loss:.5f} "
                   f"({bs / step_seconds[-1]:.1f} samples/s)", flush=True)
 
-    eval_pass = make_eval_pass(config, dataset, eval_idx, bs, max_len,
-                               prepare, eval_step)
-    eval_loss = eval_pass(state)
+        if step - last_eval >= eval_freq or done:
+            last_eval = step
+            avg_train = float(np.mean(window)) if window else math.inf
+            window = []
+            avg_eval = eval_pass(state)
+            evals.append((step, avg_train, avg_eval))
+            print(f"step {step}: avg_train {avg_train:.5f} avg_eval "
+                  f"{avg_eval:.5f}", flush=True)
+            snapshot = _once(slot)  # one host copy for both kinds
+            gate.offer("train", avg_train, snapshot)
+            gate.offer("eval", avg_eval, snapshot)
+            due = gate.due(step, done)
+            # kinds that share one boundary's state share one file
+            by_slot = {}
+            for kind, (average, s) in due.items():
+                by_slot.setdefault(id(s), (s, []))[1].append(kind)
+            for s, kinds in by_slot.values():
+                s["trainer"]["best"] = {k: due[k][0] for k in kinds}
+                ckpt.save_best(s, *kinds)
+                print(f"saved best_{'/best_'.join(kinds)} of step "
+                      f"{s['step']}", flush=True)
+            for s in [s for s in snap_steps if s <= step]:
+                ckpt.save_snapshot(slot(), s)
+                snap_steps.remove(s)
+
+        # after the boundary's best saves, so that the meta slot's
+        # saved_best describes the best files on disk
+        if step - last_meta >= meta_freq or done:
+            ckpt.save_meta(slot())
+            last_meta = step
+
+    eval_loss = evals[-1][2] if evals else eval_pass(state)
     print(f"done at step {state.step}: avg_train "
           f"{np.mean(losses) if losses else float('nan'):.5f} eval (EMA) "
-          f"{eval_loss:.5f}", flush=True)
+          f"{eval_loss:.5f}; workdir {workdir}", flush=True)
     if args.out:
         torch.save({k: v.detach().cpu()
                     for k, v in state.ema.params.items()}, args.out)
         print(f"EMA params written to {args.out}", flush=True)
     return {"losses": losses, "step_seconds": step_seconds, "lrs": lrs,
-            "eval_loss": eval_loss, "state": state, "steps": state.step,
-            "records": n_total, "out": args.out}
+            "eval_loss": eval_loss, "evals": evals, "state": state,
+            "steps": state.step, "records": n_total, "workdir": workdir,
+            "out": args.out}
 
 
 if __name__ == "__main__":

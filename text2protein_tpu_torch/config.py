@@ -10,6 +10,7 @@ reads configs/quality_n256.yml as written.
 from __future__ import annotations
 
 import copy
+import math
 import re
 from pathlib import Path
 
@@ -66,6 +67,8 @@ _DEFAULTS = {
         "n_iters": 1_000_000,
         "batch_size": 8,
         "log_freq": 50,
+        "eval_freq": 100,
+        "snapshot_freq_for_preemption": 10_000,
         "epochs": 1000,
     },
     "sampling": {
@@ -222,6 +225,68 @@ def load_config(path_or_dict) -> ConfigDict:
     cfg = ConfigDict(_merge(copy.deepcopy(_DEFAULTS), user))
     validate_config(cfg)
     return cfg
+
+
+# a string written without quotes: letters, digits and a few marks
+_PLAIN = re.compile(r"[A-Za-z_./][A-Za-z0-9_./-]*")
+
+
+def _yaml_scalar(v) -> str:
+    """`v` as a YAML 1.1 scalar that `_scalar` (and PyYAML) read back as
+    the same value."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if not math.isfinite(v):
+            raise ValueError(f"cannot write the float {v} as YAML")
+        text = repr(v)
+        if "." not in text:  # YAML 1.1 reads a float only with a dot
+            mant, _, exp = text.partition("e")
+            text = f"{mant}.0" + (f"e{exp}" if exp else "")
+        if "e" in text and text.split("e")[1][0] not in "+-":
+            text = text.replace("e", "e+")
+        return text
+    if isinstance(v, str):
+        if _PLAIN.fullmatch(v) and _scalar(v) == v:
+            return v
+        if "\n" not in v and '"' not in v and "\\" not in v:
+            return f'"{v}"'
+        if "\n" not in v and "'" not in v:
+            return f"'{v}'"
+        raise ValueError(f"cannot write the string {v!r} as YAML")
+    raise TypeError(f"cannot write {type(v).__name__} {v!r} as YAML")
+
+
+def _yaml_lines(d: dict, indent: int) -> list:
+    lines, pad = [], " " * indent
+    for k, v in d.items():
+        if isinstance(v, dict):
+            if v:
+                lines.append(f"{pad}{k}:")
+                lines += _yaml_lines(v, indent + 2)
+            else:
+                lines.append(f"{pad}{k}: {{}}")
+        elif isinstance(v, (list, tuple)):
+            if v:
+                lines.append(f"{pad}{k}:")
+                lines += [f"{pad}- {_yaml_scalar(i)}" for i in v]
+            else:
+                lines.append(f"{pad}{k}: []")
+        else:
+            lines.append(f"{pad}{k}: {_yaml_scalar(v)}")
+    return lines
+
+
+def save_config(cfg, path) -> None:
+    """Write `cfg` as YAML that `parse_yaml` (and PyYAML) read back equal:
+    nested mappings, block lists of scalars, scalars quoted where they
+    would read as something else."""
+    data = cfg.to_dict() if isinstance(cfg, ConfigDict) else dict(cfg)
+    Path(path).write_text("\n".join(_yaml_lines(data, 0)) + "\n")
 
 
 def validate_config(cfg: ConfigDict) -> None:

@@ -1,12 +1,12 @@
-"""Processed records -> padded numpy batches (counterpart of
-text2protein_tpu/data/dataset.py: `save_record`, `load_record`,
-`ProteinProcessedDataset`, `PaddingCollate`, `make_batch`).
+"""PDB files -> records -> padded numpy batches (counterpart of
+text2protein_tpu/data/dataset.py: `featurize_pdb_file`, `save_record`,
+`load_record`, `ProteinProcessedDataset`, `PaddingCollate`, `make_batch`).
 
 Record schema, one .npz per protein:
   {id, coords (L,3,3), coords_6d (C,L,L), aa (L,), aa_str, mask_pair (L,L),
    ss_indices, caption}
-Building records from a PDB tree (`ProteinDataset`) waits for the PDB
-reader.
+Building a processed directory from a PDB tree (`ProteinDataset`) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,10 +16,78 @@ from pathlib import Path
 
 import numpy as np
 
+from .featurize import featurize_structure
+from .pdbio import read_pdb
 from .ss import parse_ss_spans
-from .vocab import AA_PAD_CHAR, AA_PAD_ID
+from .vocab import (
+    AA_PAD_CHAR,
+    AA_PAD_ID,
+    LETTER_TO_NUM,
+    NON_STANDARD_TO_STANDARD,
+    THREE_TO_ONE,
+)
 
 MAX_SS_BLOCKS = 32  # fixed-shape bound for SS block dropout
+
+
+def standard_name(name: str) -> str:
+    """A residue's 3-letter name mapped to a standard one (UNK where it is
+    neither standard nor a known non-standard name)."""
+    if name in THREE_TO_ONE:
+        return name
+    return NON_STANDARD_TO_STANDARD.get(name, "UNK")
+
+
+def featurize_pdb_file(path, min_res_num: int, max_res_num: int,
+                       ss_constraints: bool, caption: str = "") -> dict | None:
+    """Parse and featurize one PDB file. Returns a record, or None when the
+    protein is filtered out (several models, no amino residue, a length
+    outside [min_res_num, max_res_num]). A residue missing any of N/CA/C is
+    zeroed and masks itself and both neighbours, since all three atoms feed
+    the virtual-Cb rebuild. The C=8 layout (`ss_constraints`) raises, as
+    `featurize_structure` does."""
+    path = Path(path)
+    structure = read_pdb(path)
+    if structure.num_models > 1:
+        return None
+    residues = structure.amino_residues()
+    if not residues:
+        return None
+    one_letter = [THREE_TO_ONE[standard_name(r.name)] for r in residues]
+    aa = [LETTER_TO_NUM[c] for c in one_letter]
+    nres = len(aa)
+    if nres > max_res_num or nres < min_res_num:
+        return None
+
+    mask = np.ones(nres)
+    bb_coords = np.zeros((nres, 3, 3), dtype=np.float32)
+    for res_idx, res in enumerate(residues):
+        for atom_idx, a in enumerate(("N", "CA", "C")):
+            coord = res.atom(a)
+            if coord is None:
+                mask[max(res_idx - 1, 0): res_idx + 2] = 0
+            else:
+                bb_coords[res_idx, atom_idx] = coord
+
+    # the SS annotation (C=8) runs over the CAs of the first chain only
+    first_chain = residues[0].chain
+    ca_chain = np.array(
+        [r.atom("CA") for r in residues
+         if r.chain == first_chain and r.atom("CA") is not None],
+        dtype=np.float64,
+    ).reshape(-1, 3)
+    coords_6d, mask_pair, ss_indices = featurize_structure(
+        bb_coords, mask, ss_constraints, ca_coords=ca_chain)
+    return {
+        "id": path.stem.replace(".pdb", ""),
+        "coords": bb_coords,
+        "coords_6d": coords_6d,
+        "aa": np.asarray(aa, dtype=np.int64),
+        "aa_str": "".join(one_letter),
+        "mask_pair": mask_pair,
+        "ss_indices": ss_indices,
+        "caption": caption,
+    }
 
 
 def save_record(record: dict, path) -> None:

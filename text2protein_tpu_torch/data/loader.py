@@ -19,10 +19,12 @@ class PrefetchLoader:
       indices: index array of this split.
       batch_size, max_len: batch geometry.
       seed: the shuffle's seed (an explicit numpy RandomState).
+      start: the number of the epoch's first batches to leave out (a
+        resumed run continues inside its epoch).
     """
 
     def __init__(self, dataset, indices, batch_size, max_len, seed=0,
-                 prefetch=2, shuffle=True, drop_last=True):
+                 prefetch=2, shuffle=True, drop_last=True, start=0):
         self.dataset = dataset
         self.indices = np.asarray(indices)
         self.batch_size = batch_size
@@ -30,6 +32,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.start = start
         self.rng = np.random.RandomState(seed)
 
     def __len__(self):
@@ -52,7 +55,7 @@ class PrefetchLoader:
 
     def __iter__(self):
         order = (self.rng.permutation(self.indices) if self.shuffle
-                 else self.indices)
+                 else self.indices)[self.start * self.batch_size:]
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         t = threading.Thread(target=self._produce, args=(order, q),
                              daemon=True)

@@ -11,6 +11,7 @@ inject the JAX package's draws and compare trajectories.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -160,6 +161,35 @@ def apply_condition(x, condition):
     return x, cmask
 
 
+def default_noise_fn(noise_fn, generator, device):
+    """`noise_fn` when given, else standard-normal draws from `generator`
+    on `device`."""
+    if noise_fn is not None:
+        return noise_fn
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    return draw
+
+
+def guided_score_fn(base_score_fn, context, context_mask, cfg_scale):
+    """The context-bound score(x, t). With cfg_scale != 1 and a context,
+    classifier-free guidance: w s(x, ctx) + (1 - w) s(x, 0 ctx), two
+    separate UNet calls, the second with the zeroed caption."""
+    if cfg_scale != 1.0 and context is not None:
+        null = torch.zeros_like(context)
+
+        def score_fn(x, t):
+            s_cond = base_score_fn(x, t, context, context_mask)
+            s_null = base_score_fn(x, t, null, context_mask)
+            return cfg_scale * s_cond + (1.0 - cfg_scale) * s_null
+    else:
+        def score_fn(x, t):
+            return base_score_fn(x, t, context, context_mask)
+    return score_fn
+
+
 def get_pc_sampler(
     sde,
     model,
@@ -197,20 +227,9 @@ def get_pc_sampler(
     def sampler(generator=None, condition=None, context=None,
                 context_mask=None, noise_fn=None):
         device = next(model.parameters()).device
-        if noise_fn is None:
-            def noise_fn(s):
-                return torch.randn(s, generator=generator, device=device)
-
-        if guided and context is not None:
-            def score_fn(x, t):
-                s_cond = base_score_fn(x, t, context, context_mask)
-                s_null = base_score_fn(x, t, torch.zeros_like(context),
-                                       context_mask)
-                return cfg_scale * s_cond + (1.0 - cfg_scale) * s_null
-        else:
-            def score_fn(x, t):
-                return base_score_fn(x, t, context, context_mask)
-
+        noise_fn = default_noise_fn(noise_fn, generator, device)
+        score_fn = guided_score_fn(base_score_fn, context, context_mask,
+                                   cfg_scale)
         pred = predictor_cls(sde_sampler, score_fn, probability_flow)
         corr = corrector_cls(sde_sampler, score_fn, snr, n_steps)
 
@@ -233,12 +252,50 @@ def get_pc_sampler(
 
 
 def get_sampling_fn(config, sde, model, shape, eps, num_steps=None):
-    """Config-driven sampler factory. Only `sampling.method: pc` is ported;
-    the ODE and hybrid samplers come with a later part of the port."""
+    """Config-driven sampler factory (JAX `get_sampling_fn`):
+    `sampling.method` pc (the reference's), ode (Heun probability flow,
+    `num_steps` or 100 steps, `sampling.ode_final_langevin` Langevin steps,
+    default 10; no guidance) or hybrid (ODE head + PC tail, phase lengths
+    from `sampling.hybrid_{ode_steps,pc_steps,sigma_cross}`). Every sampler
+    has the signature of `get_pc_sampler`'s."""
     method = str(config.sampling.get("method", "pc")).lower()
+    cfg_scale = float(config.sampling.get("cfg_scale", 1.0))
+    if method == "hybrid":
+        from .ode import get_hybrid_sampler
+
+        if num_steps is not None:
+            warnings.warn(
+                "sampling.method=hybrid ignores num_steps: the phase lengths "
+                "come from sampling.hybrid_ode_steps/hybrid_pc_steps, and "
+                "the sampler's NFE reflects the actual trajectory",
+                stacklevel=2)
+        return get_hybrid_sampler(
+            sde, model, shape,
+            ode_steps=int(config.sampling.get("hybrid_ode_steps", 60)),
+            pc_steps=int(config.sampling.get("hybrid_pc_steps", 170)),
+            sigma_cross=float(config.sampling.get("hybrid_sigma_cross", 2.0)),
+            snr=config.sampling.snr,
+            n_steps=config.sampling.n_steps_each,
+            denoise=config.sampling.noise_removal,
+            eps=eps,
+            cfg_scale=cfg_scale,
+        )
+    if method == "ode":
+        if cfg_scale != 1.0:
+            raise NotImplementedError(
+                "sampling.cfg_scale is only wired into the PC and hybrid "
+                "samplers; an ODE run would ignore guidance")
+        from .ode import get_ode_sampler
+
+        return get_ode_sampler(
+            sde, model, shape, num_steps=num_steps or 100,
+            denoise=config.sampling.noise_removal, eps=eps,
+            final_langevin=int(config.sampling.get("ode_final_langevin", 10)),
+            snr=config.sampling.snr,
+        )
     if method != "pc":
-        raise NotImplementedError(
-            f"sampling.method={method} is not ported yet; use pc")
+        raise ValueError(f"sampling.method={method} unknown; pc, ode or "
+                         "hybrid")
     return get_pc_sampler(
         sde=sde,
         model=model,
@@ -251,5 +308,5 @@ def get_sampling_fn(config, sde, model, shape, eps, num_steps=None):
         denoise=config.sampling.noise_removal,
         eps=eps,
         num_steps=num_steps,
-        cfg_scale=float(config.sampling.get("cfg_scale", 1.0)),
+        cfg_scale=cfg_scale,
     )

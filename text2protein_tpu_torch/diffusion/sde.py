@@ -19,6 +19,25 @@ def bcast(v, ndim):
     return v.reshape(v.shape + (1,) * (ndim - 1))
 
 
+def linspace_f32(start: float, stop: float, num: int) -> torch.Tensor:
+    """An f32 linspace computed as XLA compiles `jnp.linspace` on the CPU:
+    step = i * f32(1 / (num - 1)), then i * f32(stop / (num - 1)) +
+    start * (1 - step) as one fused multiply-add, and `stop` as the last
+    point. Equal bit for bit to JAX's linspace of the ODE and hybrid grids
+    (runtime endpoints) and of the DDIM step indices (stop 0), where
+    `torch.linspace` differs in the last places."""
+    f32 = np.float32
+    if num < 2:
+        return torch.full((num,), float(start), dtype=torch.float32)
+    i = np.arange(num - 1, dtype=f32)
+    r = f32(1.0 / (num - 1))
+    rest = f32(start) * (f32(1.0) - i * r)
+    # the product of two f32 is exact in f64: one rounding, as an FMA
+    out = (i.astype(np.float64) * np.float64(f32(f32(stop) * r))
+           + rest.astype(np.float64)).astype(f32)
+    return torch.from_numpy(np.append(out, f32(stop)).astype(f32))
+
+
 def get_sigmas(sigma_min: float, sigma_max: float, num_scales: int) -> np.ndarray:
     """Geometric sigma ladder, DESCENDING (sigma_max first): the model-side
     table."""
