@@ -81,6 +81,33 @@ Phases, each printing a flushed line with the seconds since start:
  16. N=256 hybrid: `Server` with quality_n256.yml and `sampler="hybrid"`
      (4 Heun + 6 PC steps, no CFG) at batch 4: 20 evaluations x 48 bf16
      forward launches.
+ 17. SS training: `cli/train.main --config configs/quality_ss.yml` as
+     written (length + SS + inpainting, C=8 featurized on the device, the
+     caption padded to 16 tokens, batch 16, the JAX initializers) on C=8
+     helix records written here, 2 warm-up and 6 timed steps: losses
+     finite, weights and EMA moved, exactly 30 f32 forward (18 + the 12 of
+     the transformer blocks' recompute) and 12 f32 backward launches per
+     step (the 6 masked cross-attention calls over 16 keys take the JAX
+     route, the einsum recompute); ms per step, samples/s, peak memory.
+     First the f32 forward is held and timed at the step's 16-key shapes
+     (batch 16, a fully masked row).
+ 18. SS train reference: one quality_ss.yml train step at B=1, dropout 0,
+     injected t, z, inpainting mask and SS block dropout, on the card
+     against the CPU (phase 7's tolerances).
+ 19. SS sampling: `cli/sampling_6d.main` with quality_ss.yml, phase 17's
+     checkpoint and `--pdb` (a backbone written from one of its records)
+     `--mask_info 1:5,10:15`, 10 PC steps at batch 4, `--n_iter 2`:
+     pickles (1, 8, 128, 128), finite, their SS channels the PDB's, every
+     entry outside the inpainting region the condition's, the last channel
+     the length mask, exactly 720 f32 forward launches; s per PC step at
+     batch 4 from the CLI's own sampler calls (the better of the two).
+ 20. bf16 at L=128 (configs/quality_ss_vp.yml): both bf16 kernels against
+     their plain versions at every shape of its train step (batch 16: the
+     AttnBlock at D=256, the transformer's 8 heads of 32, the
+     cross-attention over 16 keys with a fully masked row, the 4x4 mid
+     block), timed as in 8; then `cli/train.main --config
+     configs/quality_ss_vp.yml` for 2 + 2 steps: finite losses, exactly 30
+     bf16 forward and 12 bf16 backward launches per step, no f32 launch.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -247,6 +274,40 @@ N256_HYBRID_NFE = 2 * N256_HYBRID[0] + 2 * N256_HYBRID[1]  # 20
 HYBRID_REF_STEPS = (3, 3)  # the hybrid reference's Heun and PC steps
 WORK = ROOT / "build" / "chip_smoke"  # training workdirs, samples
 
+# configs/quality_ss.yml (C=8, length + ss + inpainting, f32, batch 16) and
+# its bf16 sibling quality_ss_vp.yml, trained on SS_RECORDS C=8 helix
+# records of the yml's lengths 64-128 (the 95/5 split leaves 138 train
+# records, 8 batches of 16: one epoch, the loader reads ahead; the 7 eval
+# records are filled to one batch)
+SS_CONFIG = ROOT / "configs" / "quality_ss.yml"
+SS_VP_CONFIG = ROOT / "configs" / "quality_ss_vp.yml"
+SS_RECORDS = 145
+SS_BATCH = 16
+SS_WARMUP, SS_TIMED = 2, 6
+SS_VP_WARMUP, SS_VP_TIMED = 2, 2
+# (name, H, Tq, Tk, D, masked, calls per train step) of a quality_ss train
+# step: the flagship's attention with the caption padded to 16 tokens
+# (text.pad_to_bucket), forward calls counting the transformer blocks'
+# recompute (self and cross twice); the masked calls over 16 keys fail the
+# backward gate (`supports_bwd`, Tk % 64) and take the einsum recompute
+SS_TRAIN_SHAPES = [
+    ("attnblock_16x16", 1, 256, 256, 256, False, 5),
+    ("self_16x16", 8, 256, 256, 32, False, 10),
+    ("cross_16x16_tk16", 8, 256, 16, 32, True, 10),
+    ("attnblock_mid_4x4", 1, 16, 16, 256, False, 1),
+    ("self_mid_4x4", 8, 16, 16, 32, False, 2),
+    ("cross_mid_4x4_tk16", 8, 16, 16, 32, True, 2),
+]
+SS_FWD_PER_TRAIN_STEP = sum(s[6] for s in SS_TRAIN_SHAPES)  # 30
+SS_FWD_PER_EVAL = 18  # an eval batch: one call each, no recompute
+SS_BWD_SHAPES = [(n, h, tq, tk, d, m, c if "attnblock" in n else c // 2)
+                 for n, h, tq, tk, d, m, c in SS_TRAIN_SHAPES if not m]
+SS_BWD_PER_TRAIN_STEP = sum(s[6] for s in SS_BWD_SHAPES)  # 12
+SS_SAMPLING_STEPS = 10
+SS_SAMPLING_BATCH = 4
+SS_SAMPLING_ITERS = 2  # the CLI's --n_iter: the second call is warm
+SS_MASK_INFO = "1:5,10:15"
+
 
 def log(msg):
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
@@ -399,10 +460,9 @@ def phase_build():
     return ptxas
 
 
-def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37)):
-    """The f32 forward at `shapes` (batch BATCH), a masked call's key
-    lengths `lengths` and then all keys (a length of 0: a fully masked
-    row)."""
+def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
+    """The f32 forward at `shapes` (batch b), a masked call's key lengths
+    `lengths` and then all keys (a length of 0: a fully masked row)."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
@@ -411,12 +471,12 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37)):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for name, h, tq, tk, d, masked, per_step in shapes:
-        b = BATCH
         q, k, v = (torch.randn((b, h, t, d), device=dev, generator=gen)
                    for t in (tq, tk, tk))
         mask = None
         if masked:
-            lengths_t = torch.tensor([*lengths, tk], device=dev)[:b]
+            lengths_t = torch.tensor(
+                [*lengths] + [tk] * max(1, b - len(lengths)), device=dev)[:b]
             mask = torch.arange(tk, device=dev)[None, :] < lengths_t[:, None]
         scale = d**-0.5
         out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
@@ -649,6 +709,26 @@ def phase_reference(torch, server):
     return diff
 
 
+def moved_from_start(torch, config, state):
+    """(params moved from the trainer's start, params the EMA holds apart
+    from them, the number of params) after a run of cli/train.main; the
+    start is the JAX initializers' draw from config.seed (`init_params`).
+    Fails unless at least half moved and half stand apart."""
+    from text2protein_tpu_torch.models.unet import build_model, init_params
+
+    start = dict(init_params(build_model(config, device="cpu"),
+                             torch.Generator().manual_seed(int(config.seed)))
+                 .named_parameters())
+    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
+    moved = sum(not torch.equal(params[k], start[k]) for k in params)
+    ema_apart = sum(not torch.equal(params[k], state.ema.params[k].cpu())
+                    for k in params)
+    if moved < len(params) // 2 or ema_apart < len(params) // 2:
+        raise AssertionError(f"{moved} of {len(params)} params moved, "
+                             f"{ema_apart} EMA params differ from them")
+    return moved, ema_apart, len(params)
+
+
 def phase_training(torch, records, weights):
     """cli/train.main at bench_l128_config(), batch 16, from seeded random
     weights; then a Server answers one request from the EMA weights it
@@ -659,10 +739,6 @@ def phase_training(torch, records, weights):
     from text2protein_tpu_torch.cli.serve import Server, decode_coords
     from text2protein_tpu_torch.config import bench_l128_config
     from text2protein_tpu_torch.data.helix_records import CAPTIONS
-    from text2protein_tpu_torch.models.unet import (
-        build_model,
-        init_random_weights,
-    )
     from text2protein_tpu_torch.ops import flash
 
     steps = TRAIN_WARMUP + TRAIN_TIMED
@@ -698,16 +774,7 @@ def phase_training(torch, records, weights):
     if config.training.batch_size != TRAIN_BATCH:
         raise AssertionError("bench_l128_config() trains at batch "
                              f"{config.training.batch_size}")
-    start = init_random_weights(build_model(config, device="cpu"),
-                                config.seed)
-    start = dict(start.named_parameters())
-    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
-    moved = sum(not torch.equal(params[k], start[k]) for k in params)
-    ema_apart = sum(not torch.equal(params[k], state.ema.params[k].cpu())
-                    for k in params)
-    if moved < len(params) // 2 or ema_apart < len(params) // 2:
-        raise AssertionError(f"{moved} of {len(params)} params moved, "
-                             f"{ema_apart} EMA params differ from them")
+    moved, ema_apart, n_params = moved_from_start(torch, config, state)
     timed = np.asarray(secs[TRAIN_WARMUP:]) * 1e3
     ms = float(np.median(timed))
     log(f"training: bench_l128 at batch {TRAIN_BATCH}, {steps} steps on "
@@ -716,8 +783,9 @@ def phase_training(torch, records, weights):
         f"flash_bwd launches {bwd} (= {BWD_PER_TRAIN_STEP} x {steps}), "
         f"flash_fwd {fwd} (= {per_step} x {steps} + {FWD_PER_TRAIN_STEP} "
         f"eval); "
-        f"lr {lrs[0]} then {lrs[1]:.1e}; {moved}/{len(params)} "
-        f"params moved, {ema_apart} EMA params apart from them")
+        f"lr {lrs[0]} then {lrs[1]:.1e}; {moved}/{n_params} "
+        f"params moved from the JAX initializers' draw, {ema_apart} EMA "
+        f"params apart from them")
     log(f"training: {ms:.2f} ms per train step (median of the last "
         f"{TRAIN_TIMED}, range {timed.min():.2f}-{timed.max():.2f}; first "
         f"{TRAIN_WARMUP}: "
@@ -840,7 +908,7 @@ def phase_sampling_cli(torch, workdir, records):
         "--sampler", "pc", "--num_steps", str(SAMPLING_STEPS),
         "--batch_size", str(DEPLOY_BATCH), "--select_length",
         "--length_index", str(index), "--processed_dir", str(records),
-        "--workdir_root", str(WORK / "sampling")])
+        "--workdir_root", str(WORK / "sampling")])["workdir"]
     secs = time.perf_counter() - t
     launches = flash.flash_attention_fwd.launches
     ids = (workdir / "test_ids.txt").read_text().split("\n")
@@ -1120,21 +1188,24 @@ def bf16_mma_flops(kind, b, h, tq, tk, d, plan):
     return dq + dkdv
 
 
-def phase_kernels_bf16(torch, ptxas):
-    """The bf16 kernels at every N=256 path shape: the forward at B=4 (the
-    serving batch), the backward at B=8 (the training batch) on the
-    forward kernel's residuals, with a fully masked batch row where the
-    call is masked. Each against its plain version, with the times of
-    phase 3 and the bf16 bounds."""
+N256_BF16_RUNS = (("fwd", N256_SHAPES, N256_BATCH),
+                  ("bwd", N256_BWD_SHAPES, N256_TRAIN_BATCH))
+
+
+def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
+    """The bf16 kernels at every shape of a path, by default N=256's: the
+    forward at B=4 (the serving batch), the backward at B=8 (the training
+    batch) on the forward kernel's residuals, with a fully masked batch
+    row where the call is masked. Each against its plain version, with the
+    times of phase 3 and the bf16 bounds."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     fwd_rows, bwd_rows = [], []
-    for kind, shapes, b in (("fwd", N256_SHAPES, N256_BATCH),
-                            ("bwd", N256_BWD_SHAPES, N256_TRAIN_BATCH)):
+    for kind, shapes, b in runs:
         for name, h, tq, tk, d, masked, per_step in shapes:
             q, k, v, g = (torch.randn((b, h, t, d), device=dev,
                                       generator=gen).bfloat16()
@@ -1385,10 +1456,6 @@ def phase_training_n256(torch, records):
 
     from text2protein_tpu_torch.cli import train
     from text2protein_tpu_torch.config import quality_n256_config
-    from text2protein_tpu_torch.models.unet import (
-        build_model,
-        init_random_weights,
-    )
     from text2protein_tpu_torch.ops import flash
 
     steps = N256_WARMUP + N256_TIMED
@@ -1420,15 +1487,7 @@ def phase_training_n256(torch, records):
             f"N=256 launches: fwd_bf16 {fwd} (expected {want_fwd}), "
             f"bwd_bf16 {bwd} (expected {N256_BWD_PER_TRAIN_STEP * steps}), "
             f"f32 {f32} (expected 0)")
-    start = dict(init_random_weights(build_model(config, device="cpu"),
-                                     config.seed).named_parameters())
-    params = {k: p.detach().cpu() for k, p in state.model.named_parameters()}
-    moved = sum(not torch.equal(params[k], start[k]) for k in params)
-    ema_apart = sum(not torch.equal(params[k], state.ema.params[k].cpu())
-                    for k in params)
-    if moved < len(params) // 2 or ema_apart < len(params) // 2:
-        raise AssertionError(f"{moved} of {len(params)} params moved, "
-                             f"{ema_apart} EMA params differ from them")
+    moved, ema_apart, n_params = moved_from_start(torch, config, state)
     timed = np.asarray(secs[N256_WARMUP:]) * 1e3
     ms = float(np.median(timed))
     log(f"training N=256: quality_n256.yml (bf16, remat, featurize on "
@@ -1438,7 +1497,7 @@ def phase_training_n256(torch, records):
         f"flash_fwd_bf16 launches {fwd} (= {per_step} x {steps} + "
         f"{N256_FWD_PER_TRAIN_STEP} eval), flash_bwd_bf16 {bwd} (= "
         f"{N256_BWD_PER_TRAIN_STEP} x {steps}), f32 kernels 0; "
-        f"{moved}/{len(params)} params moved, {ema_apart} EMA params apart")
+        f"{moved}/{n_params} params moved, {ema_apart} EMA params apart")
     log(f"training N=256: {ms:.2f} ms per train step (median of the last "
         f"{N256_TIMED}, range {timed.min():.2f}-{timed.max():.2f}; first "
         f"{N256_WARMUP}: "
@@ -1451,7 +1510,7 @@ def phase_training_n256(torch, records):
                samples_per_s=N256_TRAIN_BATCH / ms * 1e3,
                eval_loss=res["eval_loss"], peak_bytes=peak,
                fwd_launches=fwd, bwd_launches=bwd)
-    del state, res, params, start
+    del state, res
     torch.cuda.empty_cache()
     out["remat_peak_bytes"] = remat_peak_memory(torch, records)
     return out
@@ -1631,6 +1690,310 @@ def phase_train_reference_n256(torch, records):
                 kernels_vs_plain_bwd=kernel_gap, bf16_vs_f32=bf16_gap)
 
 
+def phase_training_ss(torch, records):
+    """cli/train.main on configs/quality_ss.yml as written (C=8 on the
+    device, length + ss + inpainting, batch 16) from the JAX initializers;
+    first the f32 forward at the step's masked 16-key shapes, batch 16."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.config import quality_ss_config
+    from text2protein_tpu_torch.ops import flash
+
+    config = quality_ss_config()
+    if (config.training.batch_size, config.data.num_channels) != (SS_BATCH,
+                                                                  8):
+        raise AssertionError("quality_ss.yml trains C=8 at batch "
+                             f"{config.training.batch_size}")
+    rows = phase_kernels(torch, [s for s in SS_TRAIN_SHAPES if s[5]],
+                         lengths=(0, 3, 9), b=SS_BATCH)
+    steps = SS_WARMUP + SS_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    res = train.main(["--config", str(SS_CONFIG), "--data", str(records),
+                      "--max_steps", str(steps), "--workdir_root",
+                      str(WORK / "training_ss")])
+    fwd = flash.flash_attention_fwd.launches
+    bwd = flash.flash_attention_bwd.launches
+    bf16 = sum(c.launches_bf16 for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs, state = res["losses"], res["step_seconds"], res["state"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"SS train losses {losses}")
+    if not np.isfinite(res["eval_loss"]):
+        raise AssertionError(f"SS eval loss {res['eval_loss']}")
+    want_fwd = SS_FWD_PER_TRAIN_STEP * steps + SS_FWD_PER_EVAL
+    want_bwd = SS_BWD_PER_TRAIN_STEP * steps
+    if (fwd, bwd, bf16) != (want_fwd, want_bwd, 0):
+        raise AssertionError(f"SS launches: flash_fwd {fwd} (expected "
+                             f"{want_fwd}), flash_bwd {bwd} (expected "
+                             f"{want_bwd}), bf16 {bf16} (expected 0)")
+    moved, ema_apart, n_params = moved_from_start(torch, config, state)
+    timed = np.asarray(secs[SS_WARMUP:]) * 1e3
+    ms = float(np.median(timed))
+    log(f"training SS: quality_ss.yml (C=8 on the device, length + ss + "
+        f"inpainting, the JAX initializers) at batch {SS_BATCH}, {steps} "
+        f"steps on {res['records']} records: losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (all finite), eval (EMA) {res['eval_loss']:.4f}; "
+        f"flash_fwd launches {fwd} (= {SS_FWD_PER_TRAIN_STEP} x {steps} + "
+        f"{SS_FWD_PER_EVAL} eval), flash_bwd {bwd} (= "
+        f"{SS_BWD_PER_TRAIN_STEP} x {steps}), bf16 0; {moved}/{n_params} "
+        f"params moved from the JAX initializers' draw, {ema_apart} EMA "
+        f"params apart")
+    log(f"training SS: {ms:.2f} ms per train step (median of the last "
+        f"{SS_TIMED}, range {timed.min():.2f}-{timed.max():.2f}; first "
+        f"{SS_WARMUP}: "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in secs[:SS_WARMUP])} ms), "
+        f"{SS_BATCH / ms * 1e3:.1f} samples/s, max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    out = dict(steps=steps, losses=losses, step_seconds=secs,
+               workdir=str(res["workdir"]), ms_per_step=ms,
+               ms_per_step_range=[float(timed.min()), float(timed.max())],
+               samples_per_s=SS_BATCH / ms * 1e3, eval_loss=res["eval_loss"],
+               peak_bytes=peak, fwd_launches=fwd, bwd_launches=bwd,
+               kernel_rows=rows)
+    del state, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_reference_ss(torch, records):
+    """One quality_ss.yml train step at B=1, dropout 0, from the same
+    weights, with injected t, z, inpainting mask (the random branch) and
+    SS block dropout: the card (kernels) against the CPU (plain versions),
+    and the card against itself with the attention backward through its
+    plain version."""
+    import copy
+
+    import numpy as np
+
+    from text2protein_tpu_torch.conditioning import (
+        batch_to_device_arrays,
+        random_mask_batch,
+    )
+    from text2protein_tpu_torch.config import quality_ss_config
+    from text2protein_tpu_torch.data.dataset import (
+        ProteinProcessedDataset,
+        make_batch,
+    )
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import (
+        build_model,
+        init_random_weights,
+    )
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+    from text2protein_tpu_torch.training.steps import featurize
+
+    config = quality_ss_config()
+    config.model.dropout = 0.0
+    condition = tuple(config.model.condition)
+    sde, _ = get_sde(config)
+    gpu_model = init_random_weights(build_model(config, device="cuda"), 1)
+    cpu_model = copy.deepcopy(gpu_model).to("cpu")
+    rec = ProteinProcessedDataset(records)[3]
+    host = make_batch([rec], config.data.max_res_num)
+    ctx, ctx_mask = build_text_encoder(config).encode(host["caption"])
+    rng = np.random.default_rng(2)
+    t = torch.from_numpy(rng.uniform(0.05, 1.0, 1).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((1, 128, 128, 8))
+                         .astype(np.float32))
+    mask = random_mask_batch(
+        torch.from_numpy(host["length"]), 128, config,
+        draws={"prob": 0.0, "span": rng.uniform(size=1),
+               "scores": rng.uniform(size=(1, 128)),
+               "start": rng.uniform(size=1)})
+    drop = torch.from_numpy(rng.uniform(size=(1, 32)) < 0.5)
+    kernel_bwd = flash.flash_attention_bwd
+
+    def step(model, dev):
+        batch = featurize(config, batch_to_device_arrays(host, config,
+                                                         device=dev))
+        batch.update(context=torch.from_numpy(ctx).to(dev),
+                     context_mask=torch.from_numpy(ctx_mask).to(dev),
+                     mask_inpaint=mask.to(dev))
+        loss_fn = get_sde_loss_fn(sde, model, train=True,
+                                  condition=condition)
+        model.zero_grad(set_to_none=True)
+        before = kernel_bwd.launches
+        loss = loss_fn(None, batch, t=t.to(dev), z=z.to(dev),
+                       ss_drop=drop.to(dev))
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().cpu() for k, p in
+                             model.named_parameters()}, \
+            kernel_bwd.launches - before
+
+    g_loss, g_grads, g_launch = step(gpu_model, "cuda")
+    flash.flash_attention_bwd = flash.flash_attention_bwd_reference
+    try:
+        _, p_grads, _ = step(gpu_model, "cuda")
+    finally:
+        flash.flash_attention_bwd = kernel_bwd
+    c_loss, c_grads, c_launch = step(cpu_model, "cpu")
+    if g_launch != SS_BWD_PER_TRAIN_STEP or c_launch != 0:
+        raise AssertionError(f"SS backward launches GPU {g_launch}, CPU "
+                             f"{c_launch}; expected "
+                             f"{SS_BWD_PER_TRAIN_STEP}, 0")
+    loss_diff = abs(g_loss - c_loss) / abs(c_loss)
+    worst, worst_key = worst_grad_diff(g_grads, c_grads)
+    kernel_worst, kernel_key = worst_grad_diff(g_grads, p_grads)
+    log(f"train reference SS: quality_ss.yml step at B=1 (inpainting mask "
+        f"{int(mask.sum())} of {mask.numel()} entries free, SS blocks "
+        f"{rec['ss_indices']}), GPU (kernels) vs CPU: loss {g_loss:.6f} vs "
+        f"{c_loss:.6f} (rel {loss_diff:.2e}, tol {TRAIN_LOSS_TOL:.0e}); "
+        f"worst of {len(c_grads)} gradients {worst_key} {worst:.2e} (tol "
+        f"{TRAIN_GRAD_TOL:.0e}); GPU kernels vs GPU plain attention "
+        f"backward: worst {kernel_key} {kernel_worst:.2e} (tol "
+        f"{TRAIN_KERNEL_TOL:.0e}); GPU backward launches {g_launch}")
+    if not (loss_diff < TRAIN_LOSS_TOL and worst < TRAIN_GRAD_TOL
+            and kernel_worst < TRAIN_KERNEL_TOL):
+        raise AssertionError("the GPU SS train step disagrees (line above)")
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    return dict(loss_gpu=g_loss, loss_cpu=c_loss, loss_rel_diff=loss_diff,
+                worst_grad=worst_key, worst_grad_rel_diff=worst,
+                kernel_vs_plain_bwd_worst=kernel_worst)
+
+
+def phase_sampling_ss(torch, workdir, records):
+    """`cli/sampling_6d.main` on quality_ss.yml and phase 17's best_eval,
+    conditioned on a PDB written from one of its records with an
+    inpainting mask, twice (--n_iter 2); the PC step's time at batch 4 is
+    the CLI's own timing of its sampler calls."""
+    import pickle
+
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import sampling_6d
+    from text2protein_tpu_torch.conditioning import get_conditions_from_pdb
+    from text2protein_tpu_torch.config import quality_ss_config
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.data.pdbio import write_backbone_pdb
+    from text2protein_tpu_torch.ops import flash
+
+    config = quality_ss_config()
+    rec = ProteinProcessedDataset(records)[0]
+    pdb = WORK / "ss_condition.pdb"
+    write_backbone_pdb(pdb, rec["coords"], seq=rec["aa_str"])
+    ckpt = workdir / "checkpoints" / "best_eval.pt"
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    t = time.perf_counter()
+    res = sampling_6d.main([
+        str(SS_CONFIG), str(ckpt), "--pdb", str(pdb), "--chain", "A",
+        "--mask_info", SS_MASK_INFO, "--sampler", "pc", "--num_steps",
+        str(SS_SAMPLING_STEPS), "--batch_size", str(SS_SAMPLING_BATCH),
+        "--n_iter", str(SS_SAMPLING_ITERS), "--processed_dir", str(records),
+        "--workdir_root", str(WORK / "sampling_ss")])
+    secs = time.perf_counter() - t
+    out, times = res["workdir"], res["sample_seconds"]
+    launches = flash.flash_attention_fwd.launches
+    others = (flash.flash_attention_bwd.launches
+              + sum(c.launches_bf16 for c in counters))
+    # one batch per call, no CFG
+    want = SS_SAMPLING_ITERS * SS_SAMPLING_STEPS * 2 * SS_FWD_PER_EVAL
+    if launches != want or others:
+        raise AssertionError(f"SS sampling CLI launched flash_fwd {launches} "
+                             f"times (expected {want}), others {others}")
+    cond = get_conditions_from_pdb(str(pdb), config, "A", SS_MASK_INFO,
+                                   batch_size=1)
+    coords = cond["inpainting"]["coords_6d"][0].numpy()
+    free = cond["inpainting"]["mask_inpaint"][0].numpy()
+    ss = cond["ss"][0].numpy()
+    length = cond["length"][0].numpy()
+    pickles = sorted(out.glob("*.pkl"))
+    if (len(pickles) != SS_SAMPLING_BATCH * SS_SAMPLING_ITERS
+            or len(times) != SS_SAMPLING_ITERS):
+        raise AssertionError(f"SS sampling CLI wrote {len(pickles)} "
+                             f"pickles in {len(times)} sampler calls")
+    for p in pickles:
+        with open(p, "rb") as f:
+            a = pickle.load(f)
+        if a.shape != (1, 8, 128, 128) or not np.isfinite(a).all():
+            raise AssertionError(f"{p.name}: {a.shape}")
+        x = a[0].transpose(1, 2, 0)
+        if not (np.array_equal(x[..., 4:7], ss)
+                and np.array_equal(x[~free], coords[~free])
+                and np.array_equal(x[..., -1], length)):
+            raise AssertionError(f"{p.name}: the conditions are not clamped")
+    s_per_step = min(times) / SS_SAMPLING_STEPS
+    log(f"sampling SS: cli/sampling_6d --pdb (record {rec['id']}, length "
+        f"{len(rec['aa'])}, SS blocks {rec['ss_indices']}) --mask_info "
+        f"{SS_MASK_INFO} --n_iter {SS_SAMPLING_ITERS}: {len(pickles)} "
+        f"pickles (1, 8, 128, 128), finite, SS channels = the PDB's, the "
+        f"{int((~free).sum())} entries outside the inpainting region = the "
+        f"condition, last channel = the length mask; flash_fwd launches "
+        f"{launches} (= {SS_SAMPLING_ITERS} x {SS_SAMPLING_STEPS} x 2 x "
+        f"{SS_FWD_PER_EVAL}); {secs:.2f}s with the restore")
+    log(f"sampling SS: {s_per_step * 1e3:.2f} ms per PC step at batch "
+        f"{SS_SAMPLING_BATCH} (the better of the CLI's {SS_SAMPLING_ITERS} "
+        f"sampler calls of {SS_SAMPLING_STEPS} steps: "
+        f"{', '.join(f'{x:.3f}' for x in times)} s); "
+        f"{SS_SAMPLING_BATCH * 60 / (s_per_step * 2000):.3f} samples/min at "
+        f"the yml's 2000 steps")
+    return dict(launches=launches, cli_seconds=secs, run_seconds=times,
+                ms_per_pc_step=s_per_step * 1e3,
+                samples_per_min_2000=SS_SAMPLING_BATCH * 60
+                / (s_per_step * 2000))
+
+
+def phase_bf16_l128(torch, ptxas, records):
+    """The bf16 kernels at every shape of a quality_ss_vp.yml train step
+    (batch 16), then cli/train.main on the yml for 2 + 2 steps: a launch
+    check."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.config import quality_ss_vp_config
+    from text2protein_tpu_torch.ops import flash
+
+    config = quality_ss_vp_config()
+    if (str(config.model.dtype), config.training.batch_size) != (
+            "bfloat16", SS_BATCH):
+        raise AssertionError("quality_ss_vp.yml is not bf16 at batch "
+                             f"{SS_BATCH}")
+    fwd_rows, bwd_rows = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", SS_TRAIN_SHAPES, SS_BATCH),
+                            ("bwd", SS_BWD_SHAPES, SS_BATCH)), seed=5)
+    steps = SS_VP_WARMUP + SS_VP_TIMED
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+    for c in counters:
+        c.launches = c.launches_bf16 = 0
+    res = train.main(["--config", str(SS_VP_CONFIG), "--data", str(records),
+                      "--max_steps", str(steps), "--workdir_root",
+                      str(WORK / "training_ss_vp")])
+    shutil.rmtree(res["workdir"])
+    fwd = flash.flash_attention_fwd.launches_bf16
+    bwd = flash.flash_attention_bwd.launches_bf16
+    f32 = sum(c.launches for c in counters)
+    losses, secs = res["losses"], res["step_seconds"]
+    if len(losses) != steps or not (np.isfinite(losses).all()
+                                    and np.isfinite(res["eval_loss"])):
+        raise AssertionError(f"SS bf16 losses {losses}, eval "
+                             f"{res['eval_loss']}")
+    want_fwd = SS_FWD_PER_TRAIN_STEP * steps + SS_FWD_PER_EVAL
+    want_bwd = SS_BWD_PER_TRAIN_STEP * steps
+    if (fwd, bwd, f32) != (want_fwd, want_bwd, 0):
+        raise AssertionError(f"SS bf16 launches: fwd_bf16 {fwd} (expected "
+                             f"{want_fwd}), bwd_bf16 {bwd} (expected "
+                             f"{want_bwd}), f32 {f32} (expected 0)")
+    timed = np.asarray(secs[SS_VP_WARMUP:]) * 1e3
+    log(f"bf16 L=128: quality_ss_vp.yml at batch {SS_BATCH}, {steps} steps: "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f} (all finite), eval "
+        f"{res['eval_loss']:.4f}; flash_fwd_bf16 launches {fwd} (= "
+        f"{SS_FWD_PER_TRAIN_STEP} x {steps} + {SS_FWD_PER_EVAL} eval), "
+        f"flash_bwd_bf16 {bwd} (= {SS_BWD_PER_TRAIN_STEP} x {steps}), f32 0; "
+        f"last {SS_VP_TIMED} steps {', '.join(f'{x:.1f}' for x in timed)} ms")
+    del res
+    torch.cuda.empty_cache()
+    return dict(fwd_rows=fwd_rows, bwd_rows=bwd_rows, fwd_launches=fwd,
+                bwd_launches=bwd, losses=losses, step_seconds=secs)
+
+
 def main():
     import torch
 
@@ -1665,6 +2028,14 @@ def main():
                                 seed=1)
     train_ref16 = phase_train_reference_n256(torch, records16)
     training16 = phase_training_n256(torch, records16)
+    records_ss = WORK / "train_records_ss"
+    helix_records.write_records(records_ss, SS_RECORDS, lengths=(64, 128),
+                                seed=2, num_channels=8)
+    training_ss = phase_training_ss(torch, records_ss)
+    train_ref_ss = phase_train_reference_ss(torch, records_ss)
+    sampling_ss = phase_sampling_ss(torch, Path(training_ss["workdir"]),
+                                    records_ss)
+    bf16_l128 = phase_bf16_l128(torch, ptxas, records_ss)
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -1712,31 +2083,51 @@ def main():
         "flash_fwd_f32", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
         "text2protein_tpu/ops/flash.py:50",
         launches + training["fwd_launches"] + deploy["launches"]
-        + sampling["launches"], rows, f"PC step at batch {BATCH}")
+        + sampling["launches"] + training_ss["fwd_launches"]
+        + sampling_ss["launches"], rows, f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
         **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "library_ms",
                                     "tc_bound_ms")},
         max_abs_err=max(r["max_abs_err"] for r in deploy_rows))
+    def per_row_step(rs, what):
+        """A bf16 kernel's share of one quality_ss_vp train step."""
+        return dict(per=what, max_abs_err=max(r["max_abs_err"] for r in rs),
+                    **{k: per_step(rs, k) for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms",
+                        "library_ms", "tc_bound_ms")},
+                    bound_by=bound_by(rs, PEAK_BF16_S))
+
+    fwd_bf16 = kernel(
+        "flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
+        "text2protein_tpu/ops/flash.py:50",
+        launches16 + training16["fwd_launches"] + hybrid16["launches"]
+        + bf16_l128["fwd_launches"], fwd16_rows,
+        f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S)
+    fwd_bf16["l128"] = per_row_step(
+        bf16_l128["fwd_rows"],
+        f"quality_ss_vp train step at batch {SS_BATCH} (forward calls)")
+    bwd_bf16 = kernel(
+        "flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
+        "text2protein_tpu/ops/flash.py:168",
+        training16["bwd_launches"] + bf16_l128["bwd_launches"], bwd16_rows,
+        f"N=256 train step at batch {N256_TRAIN_BATCH}", PEAK_BF16_S)
+    bwd_bf16["l128"] = per_row_step(
+        bf16_l128["bwd_rows"],
+        f"quality_ss_vp train step at batch {SS_BATCH}")
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
-        # deployment batches and the sampling CLI
+        # deployment batches, the sampling CLI, SS training and sampling
         fwd_f32,
         kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
                "text2protein_tpu/ops/flash.py:168",
-               training["bwd_launches"], bwd_rows,
-               f"train step at batch {TRAIN_BATCH}"),
-        # N=256 in bf16: serving, then training (+ its eval)
-        kernel("flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
-               "text2protein_tpu/ops/flash.py:50",
-               launches16 + training16["fwd_launches"]
-               + hybrid16["launches"], fwd16_rows,
-               f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S),
-        kernel("flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
-               "text2protein_tpu/ops/flash.py:168",
-               training16["bwd_launches"], bwd16_rows,
-               f"N=256 train step at batch {N256_TRAIN_BATCH}", PEAK_BF16_S),
+               training["bwd_launches"] + training_ss["bwd_launches"],
+               bwd_rows, f"train step at batch {TRAIN_BATCH}"),
+        # bf16: N=256 serving, training (+ its eval) and hybrid; the
+        # quality_ss_vp train steps (+ eval)
+        fwd_bf16,
+        bwd_bf16,
     ]
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps({
@@ -1750,7 +2141,9 @@ def main():
         "training_n256": training16, "train_reference_n256": train_ref16,
         "deploy_shapes": deploy_rows, "deploy": deploy,
         "sampling_cli": sampling, "hybrid_reference": hybrid_ref,
-        "hybrid_n256": hybrid16,
+        "hybrid_n256": hybrid16, "training_ss": training_ss,
+        "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
+        "bf16_l128": bf16_l128,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -305,7 +305,7 @@ def test_deferred_best_save_stores_the_state_the_gate_keeps(tmp_path):
     eval_pass = ttrain.make_eval_pass(
         cfg, dataset, eval_idx, 2, N, prepare,
         make_eval_step(cfg, get_sde(cfg)[0], model))
-    assert eval_pass(state) == slot["trainer"]["best"]["eval"]
+    assert eval_pass(state)[0] == slot["trainer"]["best"]["eval"]
     meta = read_slot(res["workdir"] / "checkpoints-meta/checkpoint.pt")
     assert meta["trainer"]["saved_best"] == {
         "train": min(e[1] for e in evals), "eval": min(e[2] for e in evals)}

@@ -53,8 +53,10 @@ def test_featurize_batch_matches_jax(lengths):
 
 
 def test_featurize_batch_refuses_the_c8_layout():
+    """C=8 without the SS block channels is refused (with them it is held
+    to JAX in test_torch_ss.py)."""
     bb = torch.zeros((1, 8, 3, 3))
-    with pytest.raises(NotImplementedError, match="C=8"):
+    with pytest.raises(ValueError, match="C=8"):
         featurize_batch(bb, torch.ones((1, 8), dtype=torch.bool), 8)
 
 

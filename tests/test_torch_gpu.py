@@ -483,6 +483,16 @@ BF16_SHAPES = [
     (2, 1, 64, 64, 520, False),
     (1, 1, 64, 64, 512, False),
     (1, 1, 64, 64, 64, False),
+    # configs/quality_ss_vp.yml's train step at L=128, batch 16: the
+    # AttnBlock at D=256 (two warpgroups split D), the transformer's 8 heads
+    # of 32 (padded to 64 by TMA zeros), the caption's 16 keys, the 4x4 mid
+    # block (Tq = 16 in a 64-row block)
+    (16, 1, 256, 256, 256, False),
+    (16, 8, 256, 256, 32, False),
+    (16, 8, 256, 16, 32, True),
+    (16, 1, 16, 16, 256, False),
+    (16, 8, 16, 16, 32, False),
+    (16, 8, 16, 16, 32, True),
 ]
 
 
@@ -686,3 +696,46 @@ def test_bf16_remat_step_on_gpu_matches_no_remat(cuda):
     for k, want in g0.items():
         diff = (g1[k].float() - want.float()).abs().max().item()
         assert diff <= 1e-5 * max(want.abs().max().item(), floor), k
+
+
+@pytest.mark.gpu
+def test_c8_inpainting_batch_on_gpu_matches_cpu(cuda):
+    """The SS + inpainting batch on the card: random inpainting masks from
+    the same injected draws, and from a generator on the card, are exact
+    masks of the right kind; the C=8 featurization on the card within 1e-5
+    of the CPU's (f32 sums in another order), its SS and mask channels
+    exactly."""
+    from text2protein_tpu_torch.conditioning import random_mask_batch
+    from text2protein_tpu_torch.data.featurize import featurize_batch
+    from text2protein_tpu_torch.data.helix_records import (
+        helix_bundle_backbone,
+    )
+
+    cfg = load_config({"data": {"max_res_num": 64},
+                       "model": {"condition": ["length", "inpainting"]}})
+    rng = np.random.default_rng(3)
+    lengths = torch.tensor([0, 5, 40, 64])
+    draws = {"prob": 0.1, "span": rng.uniform(size=4),
+             "scores": rng.uniform(size=(4, 64)),
+             "start": rng.uniform(size=4)}
+    want = random_mask_batch(lengths, 64, cfg, draws=draws)
+    got = random_mask_batch(lengths.to(cuda), 64, cfg, draws=draws)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    drawn = random_mask_batch(lengths.to(cuda), 64, cfg, generator=gen)
+    assert drawn.shape == (4, 64, 64) and drawn.dtype == torch.bool
+
+    bb = np.zeros((2, 64, 3, 3), np.float32)
+    mask = np.zeros((2, 64), bool)
+    for i, L in enumerate((40, 64)):
+        bb[i, :L] = helix_bundle_backbone(rng, L)
+        mask[i, :L] = True
+    ss = (rng.uniform(size=(2, 64, 64, 3)) < 0.3).astype(np.uint8)
+    args = [torch.from_numpy(a) for a in (bb, mask)]
+    want, want_pair = featurize_batch(*args, 8,
+                                      ss_block=torch.from_numpy(ss))
+    got, pair = featurize_batch(*[a.to(cuda) for a in args], 8,
+                                ss_block=torch.from_numpy(ss).to(cuda))
+    assert torch.equal(pair.cpu(), want_pair)
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    assert torch.equal(got[..., 4:].cpu(), want[..., 4:])

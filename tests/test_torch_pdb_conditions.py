@@ -76,7 +76,8 @@ def test_format_backbone_pdb_text_equals_jax(tmp_path):
 def test_featurize_pdb_file_matches_jax(pdb):
     """The same record, the 6D maps within 1e-6 (the host featurizer's
     bar); MSE maps to M, the residue missing C masks itself and its
-    neighbours; out-of-range lengths are refused; C=8 raises."""
+    neighbours; out-of-range lengths are refused; with C=8 both refuse it
+    (P-SEA covers chain A's 14 residues, the map 20)."""
     want = jdataset.featurize_pdb_file(pdb, 4, 64, ss_constraints=False)
     got = tdataset.featurize_pdb_file(pdb, 4, 64, ss_constraints=False)
     assert got["id"] == want["id"] == "helix"
@@ -89,8 +90,10 @@ def test_featurize_pdb_file_matches_jax(pdb):
     assert not got["mask_pair"][[6, 7, 8]].any()
     assert tdataset.featurize_pdb_file(pdb, 4, 10, False) is None
     assert tdataset.featurize_pdb_file(pdb, 40, 64, False) is None
-    with pytest.raises(NotImplementedError):
-        tdataset.featurize_pdb_file(pdb, 4, 64, ss_constraints=True)
+    assert jdataset.featurize_pdb_file(pdb, 4, 64, ss_constraints=True) \
+        is None
+    assert tdataset.featurize_pdb_file(pdb, 4, 64, ss_constraints=True) \
+        is None
 
 
 @pytest.mark.parametrize("spec", ["1:5,10:12", "0", "3,7:9", "0:15"])
@@ -144,8 +147,9 @@ def test_get_condition_from_batch_matches_jax(pdb, layout, condition):
 
 
 def test_random_training_masks_raise(pdb):
+    """Random inpainting masks without a generator (or draws) raise."""
     cfg = load_config(tiny_config_dict(condition=["length", "inpainting"]))
-    with pytest.raises(NotImplementedError, match="random"):
+    with pytest.raises(ValueError, match="random"):
         tcond.get_condition_from_batch(cfg, _batch(pdb))
 
 

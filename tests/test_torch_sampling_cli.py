@@ -77,6 +77,8 @@ def test_sampling_cli_writes_a_pickle_per_held_out_id(run, sampler):
         "--select_length", "--length_index", "5", "--processed_dir",
         str(tmp / "rec"), "--device", "cpu", "--workdir_root",
         str(tmp / f"sampling_{sampler}"), "--n_iter", "2"])
+    assert len(out["sample_seconds"]) == 2
+    out = out["workdir"]
     assert out == (tmp / f"sampling_{sampler}" / "coords_6d" / "tiny"
                    / wd.name / "test")
     ids = (wd / "test_ids.txt").read_text().split("\n")
@@ -100,12 +102,12 @@ def test_sampling_cli_pdb_inpainting_keeps_the_known_region(run):
     inpaint = tmp / "inpaint.yml"
     inpaint.write_text(yaml.safe_dump(cfg))
     pdb = write_helix_pdb(tmp / "helix.pdb")
-    out = sampling_6d.main([
+    res = sampling_6d.main([
         str(inpaint), str(wd / "checkpoints" / "best_train.pt"),
         "--pdb", str(pdb), "--chain", "B", "--mask_info", "1:3",
         "--num_steps", "2", "--batch_size", "2", "--device", "cpu",
         "--workdir_root", str(tmp / "sampling_pdb"), "--tag", "pdb"])
-    maps = _pickles(out)
+    maps = _pickles(res["workdir"])
     assert sorted(maps) == ["sampled_design_0.pkl", "sampled_design_1.pkl"]
     from text2protein_tpu_torch.conditioning import get_conditions_from_pdb
     from text2protein_tpu_torch.config import load_config

@@ -390,9 +390,11 @@ def test_make_batch_and_device_arrays_match_jax():
     for k in tarr:
         np.testing.assert_array_equal(tarr[k].numpy(), np.asarray(jarr[k]),
                                       err_msg=k)
-    with pytest.raises(NotImplementedError):
-        batch_to_device_arrays(got, load_config(
-            {"model": {"condition": ["inpainting"]}}))
+    # the inpainting condition: the same arrays; the train and eval steps
+    # draw the masks on the device (test_torch_inpainting_masks.py)
+    icfg = load_config({"data": {"max_res_num": 64},
+                        "model": {"condition": ["inpainting"]}})
+    assert set(batch_to_device_arrays(got, icfg)) == set(jarr)
 
 
 def test_featurize_structure_matches_jax(tmp_path):

@@ -3,9 +3,10 @@
 Builds the bench_l128 model, or the model of `--config` (seeded random
 weights), and its train step at the config's training batch size (16 for
 bench_l128, 8 for configs/quality_n256.yml), makes one batch on the device
-(random maps under length masks, hash-encoded captions), runs warm-up
-steps and then
-profiles a few steps with torch.profiler: device time summed by kernel name and by kind
+(random maps under length masks, hash-encoded captions, no SS block; the
+step draws its inpainting masks where the config conditions on them), runs
+warm-up steps and then profiles a few steps with torch.profiler: device
+time summed by kernel name and by kind
 (convolutions, the flash kernels, optimizer, elementwise and reductions),
 the wall time per step without the profiler, and the device's busy share
 of it.
@@ -101,6 +102,9 @@ def main(argv=None):
         [f"a helical bundle of {int(x)} residues" for x in lengths])
     batch = {"coords_6d": coords * mask_pair[..., None],
              "mask_pair": mask_pair,
+             "length": lengths.to(torch.int32),
+             "ss_spans": torch.full((b, 32, 2), -1, dtype=torch.int32,
+                                    device="cuda"),
              "context": torch.from_numpy(ctx).cuda(),
              "context_mask": torch.from_numpy(ctx_mask).cuda()}
 

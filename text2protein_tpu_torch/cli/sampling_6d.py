@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import pickle
+import time
 from pathlib import Path
 
 import torch
@@ -85,7 +86,9 @@ def load_test_captions(checkpoint, processed_dir):
 
 
 def main(argv=None):
-    """Sample; returns the directory the pickles went to."""
+    """Sample; returns {"workdir": the directory the pickles went to,
+    "sample_seconds": the wall time of each sampler call, the samples
+    copied to the host}."""
     args = build_argparser().parse_args(argv)
     if args.pdb is not None and args.select_length:
         raise ValueError("--pdb and --select_length exclude each other")
@@ -133,17 +136,20 @@ def main(argv=None):
 
     gen = torch.Generator(device=device).manual_seed(int(config.seed))
     n_batches = max(len(captions) // b, 1)
+    sample_seconds = []
     for bi in range(n_batches):
         chunk = captions[bi * b: (bi + 1) * b]
         if len(chunk) != b:
             continue  # a ragged last batch
         emb, emb_mask = encoder.encode([cap for _, cap in chunk])
         for it in range(args.n_iter):
+            t0 = time.perf_counter()
             sample, nfe = sampling_fn(
                 gen, condition=condition,
                 context=torch.from_numpy(emb).to(device),
                 context_mask=torch.from_numpy(emb_mask).to(device))
             sample = sample.cpu().numpy().transpose(0, 3, 1, 2)
+            sample_seconds.append(time.perf_counter() - t0)
             tag = f"_{it}" if args.n_iter > 1 else ""
             for i, (pid, _) in enumerate(chunk):
                 with open(workdir / f"sampled_{pid}{tag}.pkl", "wb") as f:
@@ -151,7 +157,7 @@ def main(argv=None):
         print(f"[{bi + 1}/{n_batches}] saved {b} samples (NFE {int(nfe)})",
               flush=True)
     print(f"samples under {workdir}", flush=True)
-    return workdir
+    return {"workdir": workdir, "sample_seconds": sample_seconds}
 
 
 if __name__ == "__main__":

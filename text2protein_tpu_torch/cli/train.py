@@ -14,7 +14,17 @@ average improved, and `snapshot_<step>` at `training.snapshot_steps`. A
 workdir that holds a checkpoint is resumed from its newest state and goes
 on bit for bit: the step's generator and the data order are functions of
 the step. `--out` also writes the EMA params as a state dict that
-`text2protein_tpu_torch.cli.serve --weights` loads.
+`text2protein_tpu_torch.cli.serve --weights` loads. A new run starts from
+the JAX model's initializers (`models.unet.init_params`), drawn from
+`config.seed`.
+
+With the inpainting condition each train step draws its random inpainting
+masks on the device (`training.steps`); the eval pass draws them from its
+batches' fixed seeds. With `training.snapshot_sampling` every eval boundary
+samples one batch with the EMA params, conditioned on the last eval batch
+(random inpainting masks), and pickles it (B, C, N, N) to
+`samples/epoch_{epoch}/sample.pkl` in the workdir; the sampler is built
+once.
 
 `training.best_save_min_interval` (steps) defers best saves; a deferred
 save stores the state of the boundary whose average the gate recorded, not
@@ -24,23 +34,27 @@ the latter).
 Runs on the GPU unless `--device cpu` is given; on the GPU the model runs in
 the config's `model.dtype` under `use_full_f32()` (TF32 off for matmuls and
 cuDNN, f32 accumulation of bf16 products) with cuDNN's per-shape algorithm
-search on. With `data.featurize_on_device` the batches carry backbones and
-the step builds the 6D maps on the device. Not ported yet: snapshot
-sampling, the resident-context table and fused multi-step paths, and
-multi-device meshes.
+search on. With `data.featurize_on_device` the batches carry backbones (and
+the SS block channels for C=8) and the step builds the 6D maps on the
+device. Not ported: the resident-context table and fused multi-step paths
+(`training.steps_per_launch`, which hide a TPU's dispatch latency; here
+every step is its own call), and multi-device meshes.
 
 Usage:
   python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
       [--data DIR] [--max_steps N] [--workdir_root DIR | --resume DIR]
       [--out ema.pt] [--device cpu]
   e.g. --config configs/quality_n256.yml --data DIR: the N=256 model in
-  bf16 with remat and featurization on the device, batch 8
+  bf16 with remat and featurization on the device, batch 8;
+  --config configs/quality_ss.yml --data DIR: the SS + inpainting model
+  (C=8 records, see `cli/prepare_dataset`)
 """
 
 from __future__ import annotations
 
 import argparse
 import math
+import pickle
 import time
 from datetime import datetime
 from pathlib import Path
@@ -49,16 +63,23 @@ import numpy as np
 import torch
 
 from .. import resolve_device, use_full_f32
-from ..conditioning import batch_to_device_arrays
+from ..conditioning import batch_to_device_arrays, get_condition_from_batch
 from ..config import bench_l128_config, load_config, save_config
 from ..data.dataset import ProteinProcessedDataset
 from ..data.loader import PrefetchLoader
+from ..diffusion.sampling import get_sampling_fn
 from ..diffusion.sde import get_sde
-from ..models.unet import build_model, init_random_weights
+from ..models.unet import build_model, init_params
 from ..text.encoder import build_text_encoder
 from ..training.checkpoint import CheckpointManager, state_slot
 from ..training.state import create_train_state, param_count
-from ..training.steps import make_eval_step, make_train_step
+from ..training.steps import (
+    make_eval_step,
+    make_train_step,
+    step_generator,
+)
+
+SNAPSHOT_STREAM = 2  # step_generator stream of the snapshot samples
 
 
 def build_argparser():
@@ -119,7 +140,9 @@ def make_eval_pass(config, dataset, eval_idx, bs, max_len, prepare,
     """A deterministic eval pass: the eval order and each batch's draws are
     fixed by config.seed, so two passes at the same params give the same
     loss. A split smaller than one batch is filled once by sampling with
-    replacement."""
+    replacement. Returns eval_pass(state) -> (the average loss, the pass's
+    last batch as the loader gave it); snapshot sampling is conditioned on
+    that batch."""
     if len(eval_idx) < bs:
         idx = np.random.RandomState(config.seed + 17).choice(
             eval_idx, size=bs, replace=True)
@@ -127,13 +150,14 @@ def make_eval_pass(config, dataset, eval_idx, bs, max_len, prepare,
         idx = np.asarray(eval_idx)
 
     def eval_pass(state):
-        losses = []
+        losses, last = [], None
         loader_rng = np.random.RandomState(config.seed + 23)
         for bi, batch in enumerate(batches(dataset, idx, bs, max_len,
                                            loader_rng, shuffle=False)):
             seed = (config.seed + 7919) * 1_000_003 + bi
             losses.append(float(eval_step(state, prepare(batch), seed)))
-        return float(np.mean(losses)) if losses else float("inf")
+            last = batch
+        return (float(np.mean(losses)) if losses else float("inf")), last
 
     return eval_pass
 
@@ -192,9 +216,6 @@ def main(argv=None):
     device = resolve_device(args.device)
     if device.type == "cuda":
         use_full_f32()
-    if config.training.get("snapshot_sampling", False):
-        raise NotImplementedError(
-            "training.snapshot_sampling is not ported yet")
 
     if args.resume:
         workdir = Path(args.resume)
@@ -217,11 +238,9 @@ def main(argv=None):
         (workdir / name).write_text("\n".join(
             dataset.data_paths[i].split(".")[0] for i in idx))
 
-    sde, _ = get_sde(config)
-    # random weights from config.seed (the JAX package's flax initializers
-    # are not ported)
-    model = init_random_weights(build_model(config, device=device),
-                                config.seed)
+    sde, sampling_eps = get_sde(config)
+    model = init_params(build_model(config, device=device),
+                        torch.Generator().manual_seed(int(config.seed)))
     encoder = build_text_encoder(config)
     state = create_train_state(config, model)
     ckpt = CheckpointManager(workdir)
@@ -266,6 +285,37 @@ def main(argv=None):
     eval_pass = make_eval_pass(config, dataset, eval_idx, bs, max_len,
                                prepare, eval_step)
 
+    sampler_cache = {}  # the sampler and the model that holds the EMA
+
+    def snapshot_sample(batch, epoch):
+        """Sample one batch with the EMA params, conditioned on `batch`
+        (its random inpainting masks drawn too), and pickle it. The model
+        and the sampler are built at the first call and reused."""
+        if not sampler_cache:
+            ema_model = build_model(config, device=device)
+            ema_model.requires_grad_(False)
+            shape = (bs, max_len, max_len, config.data.num_channels)
+            sampler_cache["model"] = ema_model
+            sampler_cache["fn"] = get_sampling_fn(config, sde, ema_model,
+                                                  shape, sampling_eps)
+        sampler_cache["model"].load_state_dict(state.ema.params,
+                                               strict=True)
+        gen = step_generator(config.seed, state.step, device,
+                             SNAPSHOT_STREAM)
+        condition = get_condition_from_batch(config, batch, device=device,
+                                             generator=gen)
+        emb, emb_mask = encoder.encode(batch["caption"])
+        sample, _ = sampler_cache["fn"](
+            gen, condition=condition,
+            context=torch.from_numpy(emb).to(device),
+            context_mask=torch.from_numpy(emb_mask).to(device))
+        sdir = workdir / "samples" / f"epoch_{epoch}"
+        sdir.mkdir(parents=True, exist_ok=True)
+        with open(sdir / "sample.pkl", "wb") as f:
+            pickle.dump(sample.cpu().numpy().transpose(0, 3, 1, 2), f)
+        print(f"snapshot sample (EMA) of step {state.step} written to "
+              f"{sdir / 'sample.pkl'}", flush=True)
+
     def slot(extra=None):
         return state_slot(state, config, dict(
             saved_best=dict(gate.saved), **(extra or {})))
@@ -290,13 +340,16 @@ def main(argv=None):
             last_eval = step
             avg_train = float(np.mean(window)) if window else math.inf
             window = []
-            avg_eval = eval_pass(state)
+            avg_eval, last_eval_batch = eval_pass(state)
             evals.append((step, avg_train, avg_eval))
             print(f"step {step}: avg_train {avg_train:.5f} avg_eval "
                   f"{avg_eval:.5f}", flush=True)
-            snapshot = _once(slot)  # one host copy for both kinds
-            gate.offer("train", avg_train, snapshot)
-            gate.offer("eval", avg_eval, snapshot)
+            if (config.training.snapshot_sampling
+                    and last_eval_batch is not None):
+                snapshot_sample(last_eval_batch, step // steps_per_epoch)
+            boundary_slot = _once(slot)  # one host copy for both kinds
+            gate.offer("train", avg_train, boundary_slot)
+            gate.offer("eval", avg_eval, boundary_slot)
             due = gate.due(step, done)
             # kinds that share one boundary's state share one file
             by_slot = {}
@@ -317,7 +370,7 @@ def main(argv=None):
             ckpt.save_meta(slot())
             last_meta = step
 
-    eval_loss = evals[-1][2] if evals else eval_pass(state)
+    eval_loss = evals[-1][2] if evals else eval_pass(state)[0]
     print(f"done at step {state.step}: avg_train "
           f"{np.mean(losses) if losses else float('nan'):.5f} eval (EMA) "
           f"{eval_loss:.5f}; workdir {workdir}", flush=True)

@@ -69,6 +69,7 @@ _DEFAULTS = {
         "log_freq": 50,
         "eval_freq": 100,
         "snapshot_freq_for_preemption": 10_000,
+        "snapshot_sampling": False,
         "epochs": 1000,
     },
     "sampling": {
@@ -81,6 +82,8 @@ _DEFAULTS = {
         "corrector": "langevin",
     },
     "data": {
+        "dataset_path": "",
+        "caption_path": "",
         "processed_dataset_path": "",
         "min_res_num": 40,
         "max_res_num": 128,
@@ -106,6 +109,13 @@ _DEFAULTS = {
         "resblock_type": "biggan",
         "n_heads": 8,
         "context_dim": 4096,
+        "init_scale": 0.0,
+        "inpainting": {
+            "random_mask_prob": 0.33,
+            "contiguous_mask_prob": 0.33,
+            "mask_min_len": 0.05,
+            "mask_max_len": 0.95,
+        },
     },
     "optim": {
         "weight_decay": 0,
@@ -349,6 +359,8 @@ def bench_l128_config() -> ConfigDict:
     `model.dtype` float32 it is the same function (`check_ported_model`)."""
     cfg = flagship_config()
     cfg.training.batch_size = 16
+    cfg.data.dataset_path = "./data/pdbs"
+    cfg.data.caption_path = "./data/captions.json"
     cfg.data.processed_dataset_path = "./data/processed"
     return cfg
 
@@ -358,3 +370,16 @@ def quality_n256_config() -> ConfigDict:
     model (N=256, nf=256, attention at 32, 16 and 8, context 4096) in bf16
     with remat of the residual blocks, on-device featurization, batch 8."""
     return load_config(CONFIGS / "quality_n256.yml")
+
+
+def quality_ss_config() -> ConfigDict:
+    """configs/quality_ss.yml as written: the flagship L=128 widths
+    conditioned on length, SS blocks and inpainting (C=8, featurization on
+    the device, a 16-token caption), float32, batch 16."""
+    return load_config(CONFIGS / "quality_ss.yml")
+
+
+def quality_ss_vp_config() -> ConfigDict:
+    """configs/quality_ss_vp.yml as written: quality_ss.yml computed in
+    bf16."""
+    return load_config(CONFIGS / "quality_ss_vp.yml")

@@ -1,17 +1,19 @@
 """PDB files -> records -> padded numpy batches (counterpart of
-text2protein_tpu/data/dataset.py: `featurize_pdb_file`, `save_record`,
-`load_record`, `ProteinProcessedDataset`, `PaddingCollate`, `make_batch`).
+text2protein_tpu/data/dataset.py: `featurize_pdb_file`, `ProteinDataset`,
+`save_record`, `load_record`, `ProteinProcessedDataset`, `PaddingCollate`,
+`make_batch`).
 
 Record schema, one .npz per protein:
   {id, coords (L,3,3), coords_6d (C,L,L), aa (L,), aa_str, mask_pair (L,L),
    ss_indices, caption}
-Building a processed directory from a PDB tree (`ProteinDataset`) is not
-ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import multiprocessing
 import os
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -42,10 +44,10 @@ def featurize_pdb_file(path, min_res_num: int, max_res_num: int,
                        ss_constraints: bool, caption: str = "") -> dict | None:
     """Parse and featurize one PDB file. Returns a record, or None when the
     protein is filtered out (several models, no amino residue, a length
-    outside [min_res_num, max_res_num]). A residue missing any of N/CA/C is
-    zeroed and masks itself and both neighbours, since all three atoms feed
-    the virtual-Cb rebuild. The C=8 layout (`ss_constraints`) raises, as
-    `featurize_structure` does."""
+    outside [min_res_num, max_res_num], or with `ss_constraints` (C=8) an
+    SS annotation that fails). A residue missing any of N/CA/C is zeroed
+    and masks itself and both neighbours, since all three atoms feed the
+    virtual-Cb rebuild."""
     path = Path(path)
     structure = read_pdb(path)
     if structure.num_models > 1:
@@ -78,6 +80,8 @@ def featurize_pdb_file(path, min_res_num: int, max_res_num: int,
     ).reshape(-1, 3)
     coords_6d, mask_pair, ss_indices = featurize_structure(
         bb_coords, mask, ss_constraints, ca_coords=ca_chain)
+    if coords_6d is None:
+        return None
     return {
         "id": path.stem.replace(".pdb", ""),
         "coords": bb_coords,
@@ -116,6 +120,88 @@ def load_record(path) -> dict:
             "ss_indices": str(z["ss_indices"]),
             "caption": str(z["caption"]),
         }
+
+
+def _load_captions(description_path) -> dict:
+    """A caption file: a JSON list of {pdb_id, caption} or a JSON object
+    id -> caption. {} without a path or a file."""
+    if not description_path:
+        return {}
+    p = Path(description_path)
+    if not p.exists():
+        return {}
+    with open(p) as f:
+        ann = json.load(f)
+    if isinstance(ann, dict):
+        return {str(k): str(v) for k, v in ann.items()}
+    return {str(a["pdb_id"]): str(a["caption"]) for a in ann}
+
+
+class _Worker:
+    """Featurize one file and save its record; picklable, for the pool."""
+
+    def __init__(self, out_dir, min_res_num, max_res_num, ss_constraints,
+                 ann_dict):
+        self.out_dir = out_dir
+        self.min_res_num = min_res_num
+        self.max_res_num = max_res_num
+        self.ss_constraints = ss_constraints
+        self.ann_dict = ann_dict
+
+    def __call__(self, path):
+        """1 when a record was written, else 0: a file without a caption
+        (when captions are given), filtered out, or that fails to parse."""
+        try:
+            path = Path(path)
+            if self.ann_dict and path.stem not in self.ann_dict:
+                return 0
+            rec = featurize_pdb_file(path, self.min_res_num,
+                                     self.max_res_num, self.ss_constraints,
+                                     caption=self.ann_dict.get(path.stem, ""))
+            if rec is None:
+                return 0
+            save_record(rec, Path(self.out_dir) / f"{rec['id']}.npz")
+            return 1
+        except Exception:  # a broken file is skipped, as the JAX package does
+            return 0
+
+
+class ProteinDataset:
+    """Walk a PDB tree, featurize every file and write one record per
+    accepted protein to `out_dir`. `local_test` keeps the first 200 files
+    of the walk."""
+
+    def __init__(self, dataset_path, description_path="", out_dir="processed",
+                 min_res_num=40, max_res_num=256, ss_constraints=True,
+                 local_test=False, num_workers=None):
+        self.dataset_path = dataset_path
+        self.out_dir = Path(out_dir)
+        self.min_res_num = min_res_num
+        self.max_res_num = max_res_num
+        self.ss_constraints = ss_constraints
+        self.ann_dict = _load_captions(description_path)
+        pdb_paths = []
+        for root, _dirs, files in os.walk(dataset_path):
+            for file in files:
+                pdb_paths.append(Path(root) / file)
+        if local_test:
+            pdb_paths = pdb_paths[:200]
+        self.pdb_paths = pdb_paths
+        self.num_workers = num_workers or os.cpu_count() or 1
+
+    def process(self) -> int:
+        """Featurize every file; returns the number of records written. A
+        pool of `num_workers` spawned processes, unless one worker is asked
+        for or there are fewer than 4 files."""
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        worker = _Worker(str(self.out_dir), self.min_res_num,
+                         self.max_res_num, self.ss_constraints, self.ann_dict)
+        if self.num_workers <= 1 or len(self.pdb_paths) < 4:
+            return sum(worker(p) for p in self.pdb_paths)
+        with ProcessPoolExecutor(
+                max_workers=self.num_workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            return sum(ex.map(worker, self.pdb_paths, chunksize=10))
 
 
 class ProteinProcessedDataset:

@@ -11,8 +11,10 @@ before normalization; NaNs are zeroed afterwards.
 
 The host (numpy) featurizer, and the on-device batched one on torch
 tensors (`get_coords6d_torch`, `featurize_batch`: JAX `get_coords6d_jax`,
-`featurize_batch_jax`), for the C=5 channel layout; the C=8 SS channels
-wait for a later change.
+`featurize_batch_jax`). Channel layouts:
+  C=5: [dist, omega, theta, phi, padding-mask]
+  C=8: [dist, omega, theta, phi, helix-pair, beta-pair, block-adj,
+        padding-mask], the SS block channels from P-SEA (`data/ss.py`).
 """
 
 from __future__ import annotations
@@ -92,23 +94,34 @@ def get_coords6d(xyz, dmax=DMAX_DEFAULT, normalize=True):
 
 def featurize_structure(bb_coords, mask, ss_constraints: bool,
                         dmax: float = DMAX_DEFAULT, ca_coords=None):
-    """6D maps + padding channel, masked, channel-first: the C=5 layout
-    [dist, omega, theta, phi, padding-mask].
+    """6D maps, the SS block channels when `ss_constraints` (C=8), and the
+    padding channel, masked, channel-first.
 
-    Returns (coords_6d (5, L, L) float32, mask_pair (L, L) bool,
-    ss_indices "")."""
-    if ss_constraints:
-        raise NotImplementedError(
-            "the C=8 layout (SS block channels) is not ported yet")
+    The SS annotation runs over `ca_coords` (default: the backbone's CAs).
+    Returns (coords_6d (C, L, L) float32, mask_pair (L, L) bool,
+    ss_indices "s:e,..." or ""), or (None, None, None) when the annotation
+    fails (it covers another number of residues than the map)."""
+    from .ss import get_coarse_constraints
+
     nres = bb_coords.shape[0]
     coords_6d = np.nan_to_num(get_coords6d(bb_coords, dmax=dmax,
                                            normalize=True))
-    coords_6d = np.concatenate([coords_6d, np.ones((nres, nres, 1))],
-                               axis=-1)
+    padding = np.ones((nres, nres, 1))
+    helix_beta_str = ""
+    if ss_constraints:
+        ca = ca_coords if ca_coords is not None else bb_coords[:, 1]
+        block_adj, helix_beta_str = get_coarse_constraints(
+            ca, coords_6d[:, :, 0], dist_threshold=5, dmax=dmax)
+        if block_adj is None:
+            return None, None, None
+        coords_6d = np.concatenate([coords_6d, block_adj, padding], axis=-1)
+    else:
+        coords_6d = np.concatenate([coords_6d, padding], axis=-1)
     mask = np.asarray(mask)
     mask_pair = (mask.reshape(1, -1) * mask.reshape(-1, 1)).astype(bool)
     coords_6d = coords_6d * mask_pair.reshape(nres, nres, 1)
-    return coords_6d.transpose(2, 0, 1).astype(np.float32), mask_pair, ""
+    return (coords_6d.transpose(2, 0, 1).astype(np.float32), mask_pair,
+            helix_beta_str)
 
 
 # ------------------------------------------------------------- on device
@@ -171,21 +184,28 @@ def get_coords6d_torch(xyz, dmax=DMAX_DEFAULT, normalize=True):
     return torch.stack([dist6d, omega6d, theta6d, phi6d], dim=-1)
 
 
-def featurize_batch(bb, mask_res, num_channels=5, dmax=DMAX_DEFAULT):
+def featurize_batch(bb, mask_res, num_channels=5, ss_block=None,
+                    dmax=DMAX_DEFAULT):
     """Train-time featurization on the device (JAX `featurize_batch_jax`):
     padded backbones -> NHWC maps.
 
     bb (B, N, 3, 3) N/CA/C coords, zero-padded past each length; mask_res
-    (B, N) bool. Returns (coords_6d (B, N, N, 5) float32 [dist, omega,
-    theta, phi, pair mask], mask_pair (B, N, N) bool), the host
-    `featurize_structure` output in NHWC. `nan_to_num` then a `where` (not
-    a multiply) on the pair mask, so the NaNs of padded residues cannot
-    leak. The C=8 layout (SS block channels) is not ported."""
-    if int(num_channels) != 5:
-        raise NotImplementedError(
-            "the C=8 layout (SS block channels) is not ported yet")
+    (B, N) bool; ss_block (B, N, N, 3) SS block channels (any int or float
+    dtype, uint8 on the wire), needed for C=8. Returns (coords_6d (B, N, N,
+    C) float32, mask_pair (B, N, N) bool), the host `featurize_structure`
+    output in NHWC. `nan_to_num` then a `where` (not a multiply) on the
+    pair mask, so the NaNs of padded residues cannot leak."""
+    num_channels = int(num_channels)
+    if num_channels not in (5, 8):
+        raise ValueError(f"num_channels must be 5 or 8, got {num_channels}")
     geo = get_coords6d_torch(bb.to(torch.float32), dmax=dmax)
     mask_pair = mask_res[:, :, None] & mask_res[:, None, :]
     mp = mask_pair[..., None]
-    geo = torch.where(mp, torch.nan_to_num(geo), 0.0)
-    return torch.cat([geo, mp.to(torch.float32)], dim=-1), mask_pair
+    chans = [torch.where(mp, torch.nan_to_num(geo), 0.0)]
+    if num_channels == 8:
+        if ss_block is None:
+            raise ValueError("the C=8 layout needs the SS block channels "
+                             "(ss_block)")
+        chans.append(torch.where(mp, ss_block.to(torch.float32), 0.0))
+    chans.append(mp.to(torch.float32))
+    return torch.cat(chans, dim=-1), mask_pair

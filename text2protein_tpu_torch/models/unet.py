@@ -20,9 +20,15 @@ follow their input's dtype. `remat_resblocks` rematerializes each residual
 block in the backward, as every SpatialTransformer does its transformer
 blocks (the JAX model's `remat_attention`, which its build_model never turns
 off); neither changes the state dict or the function.
+
+`init_params` draws fresh weights from the JAX model's own initializers
+(the trainer starts from them); `init_random_weights` fills every tensor
+with non-zero draws for the parity checks, which need every block live.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -54,10 +60,13 @@ class ScoreUNet(nn.Module):
                  context_dim=4096, skip_rescale=True, resblock_type="biggan",
                  nonlinearity="swish", scale_by_sigma=True, sigma_min=0.01,
                  sigma_max=100.0, num_scales=2000, remat_resblocks=False,
-                 dtype=torch.float32, norm_dtype=torch.float32):
-        # The JAX model's init_scale only shapes its initializers; weights
-        # here come from a state dict or `init_random_weights`.
+                 dtype=torch.float32, norm_dtype=torch.float32,
+                 init_scale=0.0):
+        # init_scale only shapes the initializers (`init_params`): the last
+        # conv of each residual block, the AttnBlock's output projection
+        # and the head
         super().__init__()
+        self.init_scale = init_scale
         self.num_channels = num_channels
         self.nf = nf
         self.scale_by_sigma = scale_by_sigma
@@ -204,6 +213,121 @@ def init_random_weights(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
+def _fans(w: torch.Tensor, layout: str):
+    """(fan_in, fan_out) as flax computes them for the kernel this tensor
+    holds: a conv's receptive field counts in both. `layout` "oihw" (a
+    conv, HWIO in flax), "oi" (a torch Linear, (in, out) in flax) or "io"
+    (a NIN, the flax layout)."""
+    if layout == "oihw":
+        rf = w[0, 0].numel()
+        return w.shape[1] * rf, w.shape[0] * rf
+    if layout == "oi":
+        return w.shape[1], w.shape[0]
+    return w.shape[0], w.shape[1]
+
+
+def init_rules(model: "ScoreUNet") -> dict:
+    """{parameter name: (kind, bound)}: the distribution the JAX module
+    declares for each parameter (text2protein_tpu/models/{layers,attention,
+    unet}.py), with kind
+
+    - "uniform" on [-bound, bound]: `default_init(scale)`, fan_avg uniform
+      variance scaling (a scale of 0 becomes 1e-10), bound
+      sqrt(3 scale / fan_avg): the time-embedding Denses, the stem, every
+      conv and temb Dense of a residual block (its last conv at the
+      model's `init_scale`), the AttnBlock's q/k/v NINs (0.1) and output
+      NIN (`init_scale`), a DDPM block's NIN shortcut (0.1), the head conv
+      (`init_scale`);
+    - "truncated_normal", a normal truncated at two standard deviations,
+      the bound: flax Dense's default lecun_normal (variance 1 / fan_in):
+      proj_in and every projection of the transformer blocks;
+    - "zeros" (every bias, proj_out's kernel, the norms' shifts) and
+      "ones" (the norms' scales), bound None.
+    The fans are flax's: a conv kernel counts its receptive field in both."""
+    from .attention import (CrossAttention, FeedForward, GEGLU, LayerNorm,
+                            SpatialTransformer)
+
+    init_scale = model.init_scale
+    rules = {}  # id(parameter) -> (kind, bound)
+
+    def fan_avg(p, scale=1.0, layout="oihw"):
+        scale = 1e-10 if scale == 0 else scale
+        fan_in, fan_out = _fans(p, layout)
+        rules[id(p)] = ("uniform",
+                        math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2)))
+
+    def lecun(p, layout):
+        # flax: stddev sqrt(1 / fan_in) / 0.8796..., the std of a standard
+        # normal truncated to [-2, 2]
+        std = math.sqrt(1.0 / _fans(p, layout)[0]) / .87962566103423978
+        rules[id(p)] = ("truncated_normal", 2.0 * std)
+
+    for m in model.modules():
+        if isinstance(m, (layers.GroupNormF32Stats, LayerNorm)):
+            rules[id(m.weight)] = ("ones", None)
+        elif isinstance(m, ScoreUNet):
+            for lin in m.pre_blocks:
+                fan_avg(lin.weight, layout="oi")
+            fan_avg(m.pre_conv.weight)
+            fan_avg(m.out[2].weight, init_scale)
+        elif isinstance(m, (layers.ResnetBlockBigGAN, layers.ResnetBlockDDPM)):
+            fan_avg(m.Conv_0.weight)
+            if m.Dense_0 is not None:
+                fan_avg(m.Dense_0.weight, layout="oi")
+            fan_avg(m.Conv_1.weight, init_scale)
+            if m.Conv_2 is not None:
+                fan_avg(m.Conv_2.weight)
+            if getattr(m, "NIN_0", None) is not None:
+                fan_avg(m.NIN_0.W, 0.1, "io")
+        elif isinstance(m, layers.AttnBlock):
+            for nin in (m.NIN_0, m.NIN_1, m.NIN_2):
+                fan_avg(nin.W, 0.1, "io")
+            fan_avg(m.NIN_3.W, init_scale, "io")
+        elif isinstance(m, SpatialTransformer):
+            lecun(m.proj_in.weight, "oihw")
+            rules[id(m.proj_out.weight)] = ("zeros", None)
+        elif isinstance(m, CrossAttention):
+            for lin in (m.to_q, m.to_k, m.to_v, m.to_out[0]):
+                lecun(lin.weight, "oi")
+        elif isinstance(m, GEGLU):
+            lecun(m.proj.weight, "oi")
+        elif isinstance(m, FeedForward):
+            lecun(m.net[2].weight, "oi")
+            if not isinstance(m.net[0], GEGLU):
+                lecun(m.net[0][0].weight, "oi")
+    out = {}
+    for name, p in model.named_parameters():
+        if id(p) in rules:
+            out[name] = rules[id(p)]
+        elif p.ndim == 1:  # a bias or a norm's shift
+            out[name] = ("zeros", None)
+        else:
+            raise AssertionError(f"no initializer for {name}")
+    return out
+
+
+@torch.no_grad()
+def init_params(model: "ScoreUNet", generator: torch.Generator) -> "ScoreUNet":
+    """Draw every parameter from the distribution the JAX module declares
+    (`init_rules`), from `generator`, a CPU generator: the same numbers on
+    any device. The trainer starts from these."""
+    rules = init_rules(model)
+    for name, p in model.named_parameters():
+        kind, bound = rules[name]
+        if kind in ("zeros", "ones"):
+            p.fill_(0.0 if kind == "zeros" else 1.0)
+            continue
+        if kind == "uniform":
+            draw = (torch.rand(p.shape, generator=generator,
+                               dtype=torch.float64) * 2 - 1) * bound
+        else:
+            draw = torch.nn.init.trunc_normal_(
+                torch.empty(p.shape, dtype=torch.float64), std=1.0,
+                a=-2.0, b=2.0, generator=generator) * (bound / 2)
+        p.copy_(draw.to(p.dtype))
+    return model
+
+
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -237,5 +361,6 @@ def build_model(config, device=None) -> ScoreUNet:
         remat_resblocks=bool(m.get("remat_resblocks", False)),
         dtype=_DTYPES[str(m.get("dtype", "float32"))],
         norm_dtype=_DTYPES[str(m.get("norm_dtype", "float32"))],
+        init_scale=float(m.get("init_scale", 0.0)),
     )
     return model.to(device).eval()

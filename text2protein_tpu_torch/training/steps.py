@@ -2,8 +2,11 @@
 
 A train step is loss and backward -> clip -> Adam -> EMA on one device; an
 eval step computes the loss with the EMA params. Every random draw of a
-step comes from one generator seeded from (seed, step), which takes the
-place of the JAX package's `jax.random.fold_in(rng, state.step)`. The JAX
+step's loss comes from one generator seeded from (seed, step), which takes
+the place of the JAX package's `jax.random.fold_in(rng, state.step)`; the
+step's random inpainting mask (the inpainting condition) comes from a
+stream of its own, seeded from (seed, step, MASK_STREAM), as the JAX
+trainer splits a mask key apart from the step's key. The JAX
 package's fused multi-step launch (`make_multi_train_step`) exists to hide
 a TPU's dispatch latency; here it is a plain loop over `train_step`.
 """
@@ -13,28 +16,49 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..conditioning import random_mask_batch
 from ..data.featurize import featurize_batch
 from ..diffusion.ema import ema_update
 from ..diffusion.losses import get_sde_loss_fn
 from .state import TrainState
 
+MASK_STREAM = 1  # the inpainting masks' stream of step_generator
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator on `device` seeded from (seed, step)."""
-    state = np.random.SeedSequence([int(seed) % 2**32, int(step)])
-    value = int(state.generate_state(1, np.uint64)[0]) % 2**63
+
+def step_generator(seed: int, step: int, device,
+                   stream: int = 0) -> torch.Generator:
+    """A generator on `device` seeded from (seed, step), or from (seed,
+    step, stream) for a stream other than 0."""
+    entropy = [int(seed) % 2**32, int(step)] + ([stream] if stream else [])
+    value = int(np.random.SeedSequence(entropy).generate_state(
+        1, np.uint64)[0]) % 2**63
     return torch.Generator(device=device).manual_seed(value)
 
 
 def featurize(config, batch):
     """The batch the loss takes: a batch that carries backbones (`bb`, from
     `data.featurize_on_device`) gets coords_6d and mask_pair built on its
-    device (JAX `_featurizer`); any other batch is returned as it is."""
+    device, with the SS block channels `ss_block` for C=8 (JAX
+    `_featurizer`); any other batch is returned as it is."""
     if "bb" not in batch or "coords_6d" in batch:
         return batch
     coords_6d, mask_pair = featurize_batch(batch["bb"], batch["mask_res"],
-                                           config.data.num_channels)
+                                           config.data.num_channels,
+                                           ss_block=batch.get("ss_block"))
     return dict(batch, coords_6d=coords_6d, mask_pair=mask_pair)
+
+
+def with_inpainting_mask(config, batch, seed, step):
+    """The batch with a random inpainting mask drawn on its device from
+    step_generator(seed, step, MASK_STREAM), where the config conditions on
+    inpainting and the batch has none yet."""
+    if ("inpainting" not in config.model.condition
+            or "mask_inpaint" in batch):
+        return batch
+    lengths = batch["length"]
+    gen = step_generator(seed, step, lengths.device, MASK_STREAM)
+    return dict(batch, mask_inpaint=random_mask_batch(
+        lengths, config.data.max_res_num, config, generator=gen))
 
 
 def make_train_step(config, sde, model):
@@ -45,7 +69,8 @@ def make_train_step(config, sde, model):
     )
 
     def train_step(state: TrainState, batch, seed):
-        batch = featurize(config, batch)
+        batch = with_inpainting_mask(config, featurize(config, batch), seed,
+                                     state.step)
         gen = step_generator(seed, state.step, batch["coords_6d"].device)
         state.optimizer.zero_grad()
         loss = loss_fn(None, batch, gen)
@@ -60,12 +85,15 @@ def make_train_step(config, sde, model):
 
 def make_eval_step(config, sde, model):
     """Returns eval_step(state, batch, seed) -> loss, computed with the EMA
-    params."""
+    params; its draws are fixed by `seed` alone (the inpainting masks from
+    step_generator(seed, 0, MASK_STREAM)), so two passes at the same params
+    give the same loss."""
     loss_fn = get_sde_loss_fn(sde, model, train=False,
                               condition=tuple(config.model.condition))
 
     def eval_step(state: TrainState, batch, seed):
-        batch = featurize(config, batch)
+        batch = with_inpainting_mask(config, featurize(config, batch), seed,
+                                     0)
         gen = torch.Generator(device=batch["coords_6d"].device)
         gen.manual_seed(int(seed))
         with torch.no_grad():
