@@ -108,6 +108,26 @@ Phases, each printing a flushed line with the seconds since start:
      block), timed as in 8; then `cli/train.main --config
      configs/quality_ss_vp.yml` for 2 + 2 steps: finite losses, exactly 30
      bf16 forward and 12 bf16 backward launches per step, no f32 launch.
+ 21. text (configs/quality_text_cfgft.yml: the flagship widths in bf16,
+     C=5 on the device, a 16-token hashed caption at D=512, context
+     dropout 0.1, steps_per_launch 10): the bf16 kernels at its sampler's
+     batch-4 shapes and its train step's backward shapes against their
+     plain versions; `cli/text_preprocess` on a captions json written from
+     data/processed_synth_text's 384 records (33 unique captions), the
+     cache held against the hash encoder (exact); `cli/train.main` for 23
+     steps at batch 16 with log_freq cut to 10: the resident bf16 context
+     table (its size printed), 20 steps from it and 3 tail steps on the
+     f32 encode, an epoch boundary crossed, exactly 30 bf16 forward and 12
+     bf16 backward launches per step and 18 for the eval batch, the JAX
+     trainer's tags in workdir/tb/metrics.jsonl; ms per step, peak memory
+     and the host time of the f32 encode a table step saves;
+     `cli/sampling_6d` on the held-out captions (10 PC steps, batch 4, 36
+     bf16 forward launches per step); the samples scored by
+     `eval.coords_compare` (every MSE finite) and `eval.helix_count`, and
+     `eval.tm_sweeps.gt_gen_tm_compare` on two records' backbones written
+     as PDBs: a record against itself scores 1 within 1e-6 by the native
+     `run_tmalign` (which must run where it exists) and by the Python
+     scorer.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -307,6 +327,35 @@ SS_SAMPLING_STEPS = 10
 SS_SAMPLING_BATCH = 4
 SS_SAMPLING_ITERS = 2  # the CLI's --n_iter: the second call is warm
 SS_MASK_INFO = "1:5,10:15"
+
+# the caption path and evaluation (configs/quality_text_cfgft.yml: the
+# flagship widths in bf16, C=5 featurized on the device, the caption padded
+# to 16 hashed tokens at D=512, context dropout 0.1, steps_per_launch 10,
+# batch 16) on the tracked records of data/processed_synth_text (384
+# records, 33 unique captions; the 95/5 split leaves 365 train records,
+# 22 steps an epoch). 23 steps: 2 full groups of 10 take their context
+# from the resident bf16 table, 3 tail steps the f32 encode, and the run
+# crosses an epoch boundary. The yml's log_freq 50 is cut to 10, so that
+# the run writes training_loss (at steps 10 and 20).
+TEXT_CONFIG = ROOT / "configs" / "quality_text_cfgft.yml"
+TEXT_RECORDS = ROOT / "data" / "processed_synth_text"
+TEXT_STEPS = 23
+TEXT_TABLE_STEPS = 20
+TEXT_LOG_FREQ = 10
+TEXT_WARMUP = 2  # train steps left out of the step times
+TEXT_SAMPLING_STEPS = 10
+TEXT_SAMPLING_BATCH = 4
+# (name, H, Tq, Tk, D, masked, launches per PC step) of its sampler at
+# batch 4: the flagship's attention with the caption's 16 keys
+TEXT_PC_SHAPES = [
+    ("attnblock_16x16", 1, 256, 256, 256, False, 10),
+    ("self_16x16", 8, 256, 256, 32, False, 10),
+    ("cross_16x16_tk16", 8, 256, 16, 32, True, 10),
+    ("attnblock_mid_4x4", 1, 16, 16, 256, False, 2),
+    ("self_mid_4x4", 8, 16, 16, 32, False, 2),
+    ("cross_mid_4x4_tk16", 8, 16, 16, 32, True, 2),
+]
+TEXT_FWD_PER_PC_STEP = sum(s[6] for s in TEXT_PC_SHAPES)  # 36
 
 
 def log(msg):
@@ -1994,6 +2043,273 @@ def phase_bf16_l128(torch, ptxas, records):
                 bwd_launches=bwd, losses=losses, step_seconds=secs)
 
 
+def phase_text(torch, ptxas, smi):
+    """The caption path and evaluation on quality_text_cfgft.yml: the bf16
+    kernels at its sampler's and train step's shapes; the caption cache
+    (`cli/text_preprocess`, hash at D=512, 16 tokens) from a captions json
+    written from the records, held against the hash encoder; `cli/train`
+    for TEXT_STEPS steps with the resident bf16 context table; the sampling
+    CLI on the held-out captions; then the samples scored
+    (`eval.coords_compare`, `eval.helix_count`) and `eval.tm_sweeps` run on
+    ground-truth backbones written as PDBs, by the native TM-align and by
+    the Python one."""
+    import pickle
+    import re
+
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import sampling_6d, text_preprocess, train
+    from text2protein_tpu_torch.config import load_config, save_config
+    from text2protein_tpu_torch.data.dataset import (
+        ProteinProcessedDataset,
+        load_record,
+    )
+    from text2protein_tpu_torch.data.pdbio import write_backbone_pdb
+    from text2protein_tpu_torch.eval import (
+        coords_compare,
+        helix_count,
+        tm_sweeps,
+        tmscore,
+    )
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.text.encoder import (
+        CachedTextEncoder,
+        build_text_encoder,
+    )
+
+    config = load_config(TEXT_CONFIG)
+    want = ("bfloat16", SS_BATCH, True, 10, "hash", 16, 512)
+    got = (str(config.model.dtype), config.training.batch_size,
+           bool(config.data.featurize_on_device),
+           int(config.training.steps_per_launch), config.text.encoder,
+           config.text.max_tokens, config.model.context_dim)
+    if got != want:
+        raise AssertionError(f"quality_text_cfgft.yml: {got}, not {want}")
+    work = WORK / "text"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+
+    def zero():
+        for c in counters:
+            c.launches = c.launches_bf16 = 0
+
+    def read():
+        return (flash.flash_attention_fwd.launches_bf16,
+                flash.flash_attention_bwd.launches_bf16,
+                sum(c.launches for c in counters))
+
+    fwd_rows, bwd_rows = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", TEXT_PC_SHAPES, TEXT_SAMPLING_BATCH),
+                            ("bwd", SS_BWD_SHAPES, SS_BATCH)), seed=7)
+
+    # the caption cache, from a captions json of the records
+    ds = ProteinProcessedDataset(TEXT_RECORDS)
+    captions = {name.split(".")[0]: ds.caption(i)
+                for i, name in enumerate(ds.data_paths)}
+    (work / "captions.json").write_text(json.dumps(captions))
+    config.data.caption_path = str(work / "captions.json")
+    config.training.log_freq = TEXT_LOG_FREQ
+    cfg_path = work / TEXT_CONFIG.name
+    save_config(config, cfg_path)
+    t = time.perf_counter()
+    cache = text_preprocess.main([str(cfg_path), "--out",
+                                  str(work / "id2emb.npz")])
+    cache_s = time.perf_counter() - t
+    cached = CachedTextEncoder(cache, pad_to_bucket=config.text.pad_to_bucket,
+                               max_tokens=config.text.max_tokens)
+    encoder = build_text_encoder(config)
+    ids = list(captions)
+    for i in range(0, len(ids), 64):
+        chunk = ids[i:i + 64]
+        for a, b in zip(cached.encode_ids(chunk),
+                        encoder.encode([captions[c] for c in chunk])):
+            if not np.array_equal(a, b):
+                raise AssertionError("the cached embeddings are not the "
+                                     "hash encoder's rows")
+    unique = len(set(captions.values()))
+    log(f"text cache: cli/text_preprocess wrote {len(ids)} caption "
+        f"embeddings ({unique} unique captions, D={cached.dim}) in "
+        f"{cache_s:.2f}s; CachedTextEncoder.encode_ids = the hash "
+        f"encoder's rows for every record (exact)")
+    # the host time of the f32 encode a table step does not pay
+    batch_caps = [captions[c] for c in ids[:SS_BATCH]]
+    enc_ms = []
+    for _ in range(20):
+        t = time.perf_counter()
+        encoder.encode(batch_caps)
+        enc_ms.append((time.perf_counter() - t) * 1e3)
+    enc_ms = float(np.median(enc_ms))
+
+    # training with the resident table
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(["--config", str(cfg_path), "--data",
+                      str(TEXT_RECORDS), "--max_steps", str(TEXT_STEPS),
+                      "--workdir_root", str(work / "training")])
+    fwd, bwd, f32 = read()
+    peak = torch.cuda.max_memory_allocated()
+    losses, secs = res["losses"], res["step_seconds"]
+    if len(losses) != TEXT_STEPS or not (np.isfinite(losses).all()
+                                         and np.isfinite(res["eval_loss"])):
+        raise AssertionError(f"text train losses {losses}, eval "
+                             f"{res['eval_loss']}")
+    want_fwd = SS_FWD_PER_TRAIN_STEP * TEXT_STEPS + SS_FWD_PER_EVAL
+    want_bwd = SS_BWD_PER_TRAIN_STEP * TEXT_STEPS
+    if (fwd, bwd, f32) != (want_fwd, want_bwd, 0):
+        raise AssertionError(f"text train launches: fwd_bf16 {fwd} "
+                             f"(expected {want_fwd}), bwd_bf16 {bwd} "
+                             f"(expected {want_bwd}), f32 {f32}")
+    table = res["context_table"]
+    if (res["table_steps"] != TEXT_TABLE_STEPS or table is None
+            or table["unique"] != unique):
+        raise AssertionError(f"table steps {res['table_steps']}, table "
+                             f"{table}, {unique} unique captions")
+    workdir = Path(res["workdir"])
+    n_train = len((workdir / "train_ids.txt").read_text().split("\n"))
+    per_epoch = n_train // SS_BATCH
+    if not per_epoch < TEXT_STEPS:
+        raise AssertionError(f"{TEXT_STEPS} steps stay in one epoch of "
+                             f"{per_epoch}")
+    metrics = [json.loads(x) for x in
+               (workdir / "tb" / "metrics.jsonl").read_text().splitlines()]
+    tags = sorted((m["tag"], m["step"]) for m in metrics)
+    want_tags = sorted([("training_loss", s) for s in range(
+        TEXT_LOG_FREQ, TEXT_STEPS + 1, TEXT_LOG_FREQ)]
+        + [("avg_training_loss", TEXT_STEPS), ("avg_eval_loss", TEXT_STEPS)])
+    if tags != want_tags:
+        raise AssertionError(f"metrics.jsonl holds {tags}, not {want_tags}")
+    table_ms = np.asarray(secs[TEXT_WARMUP:TEXT_TABLE_STEPS]) * 1e3
+    tail_ms = np.asarray(secs[TEXT_TABLE_STEPS:]) * 1e3
+    ms = float(np.median(table_ms))
+    log(f"text training: quality_text_cfgft.yml (bf16, featurized on the "
+        f"device, context dropout {config.model.context_dropout}) at batch "
+        f"{SS_BATCH}, {TEXT_STEPS} steps on {res['records']} records "
+        f"({per_epoch} steps an epoch: the run crosses an epoch boundary): "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f} (all finite), eval "
+        f"{res['eval_loss']:.4f}; resident context table {table['unique']} "
+        f"unique captions, {table['bytes'] / 2**20:.4f} MiB bf16; "
+        f"{res['table_steps']} steps took the table, "
+        f"{TEXT_STEPS - res['table_steps']} the f32 encode; "
+        f"flash_fwd_bf16 {fwd} (= {SS_FWD_PER_TRAIN_STEP} x {TEXT_STEPS} + "
+        f"{SS_FWD_PER_EVAL} eval), flash_bwd_bf16 {bwd} (= "
+        f"{SS_BWD_PER_TRAIN_STEP} x {TEXT_STEPS}), f32 0; metrics.jsonl "
+        f"tags {sorted({m['tag'] for m in metrics})}")
+    log(f"text training ({smi}): {ms:.2f} ms per table step (median of "
+        f"steps {TEXT_WARMUP + 1}-{TEXT_TABLE_STEPS}, range "
+        f"{table_ms.min():.2f}-{table_ms.max():.2f}), tail steps (f32 "
+        f"encode) {', '.join(f'{x:.2f}' for x in tail_ms)} ms; first "
+        f"{TEXT_WARMUP}: {', '.join(f'{x * 1e3:.1f}' for x in secs[:2])} "
+        f"ms; {SS_BATCH / ms * 1e3:.1f} samples/s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; the f32 encode a table step saves: "
+        f"{enc_ms:.3f} ms of host time per batch of {SS_BATCH}")
+    del res
+    torch.cuda.empty_cache()
+
+    # sampling the held-out captions
+    zero()
+    t = time.perf_counter()
+    samp = sampling_6d.main([
+        str(cfg_path), str(workdir / "checkpoints" / "best_eval.pt"),
+        "--sampler", "pc", "--num_steps", str(TEXT_SAMPLING_STEPS),
+        "--batch_size", str(TEXT_SAMPLING_BATCH), "--processed_dir",
+        str(TEXT_RECORDS), "--workdir_root", str(work / "sampling")])
+    cli_s = time.perf_counter() - t
+    fwd_s, bwd_s, f32_s = read()
+    out, times = samp["workdir"], samp["sample_seconds"]
+    test_ids = (workdir / "test_ids.txt").read_text().split("\n")
+    calls = len(test_ids) // TEXT_SAMPLING_BATCH
+    want_fwd_s = calls * TEXT_SAMPLING_STEPS * TEXT_FWD_PER_PC_STEP
+    if (fwd_s, bwd_s, f32_s) != (want_fwd_s, 0, 0) or len(times) != calls:
+        raise AssertionError(f"text sampling: {len(times)} calls, launches "
+                             f"fwd_bf16 {fwd_s} (expected {want_fwd_s}), "
+                             f"bwd_bf16 {bwd_s}, f32 {f32_s}")
+    pickles = sorted(out.glob("sampled_*.pkl"))
+    if len(pickles) != calls * TEXT_SAMPLING_BATCH:
+        raise AssertionError(f"{len(pickles)} pickles for {calls} calls")
+    samples = {}
+    for p in pickles:
+        with open(p, "rb") as f:
+            a = pickle.load(f)
+        if a.shape != (1, 5, 128, 128) or not np.isfinite(a).all():
+            raise AssertionError(f"{p.name}: {a.shape}")
+        samples[p.stem[len("sampled_"):]] = a[0]
+    pc_ms = min(times) / TEXT_SAMPLING_STEPS * 1e3
+    log(f"text sampling ({smi}): cli/sampling_6d on {len(test_ids)} "
+        f"held-out captions: {len(pickles)} pickles (1, 5, 128, 128), "
+        f"finite, in {calls} calls of {TEXT_SAMPLING_STEPS} PC steps at "
+        f"batch {TEXT_SAMPLING_BATCH}; flash_fwd_bf16 {fwd_s} (= {calls} x "
+        f"{TEXT_SAMPLING_STEPS} x {TEXT_FWD_PER_PC_STEP}); {pc_ms:.2f} ms "
+        f"per PC step (the best call; calls "
+        f"{', '.join(f'{x:.3f}' for x in times)} s), {cli_s:.2f}s with the "
+        f"restore")
+
+    # scoring
+    stats = coords_compare.coord_compare(out, TEXT_RECORDS,
+                                         work / "coords_6d_losses.yaml")
+    mses = list(stats["per_pdb"].values())
+    if stats["count"] != len(pickles) or not np.isfinite(mses).all():
+        raise AssertionError(f"coord_compare: {stats}")
+    helices = {}
+    for pid, a in samples.items():
+        gt = load_record(TEXT_RECORDS / f"{pid}.npz")
+        L = gt["coords_6d"].shape[1]
+        said = re.search(r"(\d+) helices", gt["caption"])
+        helices[pid] = dict(
+            length=L, caption=int(said.group(1)) if said else None,
+            gt=helix_count.count_helices(gt["coords_6d"], L),
+            sample=helix_count.count_helices(a, L))
+    pdbs = work / "pdbs"
+    pdbs.mkdir()
+    picked = [ids[0], ids[-1]]
+    for pid in picked:
+        rec = load_record(TEXT_RECORDS / f"{pid}.npz")
+        write_backbone_pdb(pdbs / f"{pid}.pdb", rec["coords"],
+                           seq=rec["aa_str"])
+    a_pdb, b_pdb = (pdbs / f"{pid}.pdb" for pid in picked)
+    pairs = [(picked[0], a_pdb, a_pdb), (picked[1], b_pdb, b_pdb),
+             ("cross", a_pdb, b_pdb)]
+    binary = tmscore._NATIVE_BINARY
+    if binary.exists():
+        ran = subprocess.run([str(binary), str(a_pdb), str(a_pdb)],
+                             capture_output=True, text=True, timeout=120)
+        if ran.returncode != 0 or "TM-score" not in ran.stdout:
+            raise AssertionError(f"{binary} exists but does not run: rc "
+                                 f"{ran.returncode} {ran.stderr[-500:]}")
+        route = f"native ({binary.relative_to(ROOT)})"
+    else:
+        route = "Python (no native binary)"
+    tm = {}
+    for native in (True, False):
+        res_tm = tm_sweeps.gt_gen_tm_compare(
+            pairs, out_path=work / f"tm-scores-{int(native)}.json",
+            use_native=native)
+        tm["run_tmalign" if native else "python"] = res_tm["samples"]
+        for pid in picked:
+            if abs(res_tm["samples"][pid] - 1.0) > 1e-6:
+                raise AssertionError(f"TM-score of {pid} against itself: "
+                                     f"{res_tm['samples'][pid]}")
+    counts = ", ".join(f"{h['caption']}/{h['gt']}/{h['sample']}"
+                       for h in helices.values())
+    log(f"text scoring: coord_compare of {stats['count']} samples: 6D MSE "
+        f"avg {stats['avg']:.5f} min {stats['min']:.5f} max "
+        f"{stats['max']:.5f} (all finite); helices (caption / ground truth "
+        f"/ sample) {counts}; run_tmalign ran {route}; TM-scores (self, "
+        f"self, cross) by run_tmalign {list(tm['run_tmalign'].values())}, "
+        f"by the Python scorer {list(tm['python'].values())}")
+    return dict(fwd_rows=fwd_rows, bwd_rows=bwd_rows, fwd_launches=fwd
+                + fwd_s, bwd_launches=bwd, cache_seconds=cache_s,
+                unique_captions=unique, table=table,
+                table_steps=TEXT_TABLE_STEPS, losses=losses,
+                step_seconds=secs, ms_per_table_step=ms,
+                ms_per_table_step_range=[float(table_ms.min()),
+                                         float(table_ms.max())],
+                tail_step_ms=tail_ms.tolist(), peak_bytes=peak,
+                f32_encode_ms=enc_ms, ms_per_pc_step=pc_ms,
+                sample_seconds=times, mse=stats, helices=helices,
+                tmalign_route=route, tm_scores=tm)
+
+
 def main():
     import torch
 
@@ -2036,6 +2352,7 @@ def main():
     sampling_ss = phase_sampling_ss(torch, Path(training_ss["workdir"]),
                                     records_ss)
     bf16_l128 = phase_bf16_l128(torch, ptxas, records_ss)
+    text = phase_text(torch, ptxas, smi)
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -2103,19 +2420,26 @@ def main():
         "flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
         "text2protein_tpu/ops/flash.py:50",
         launches16 + training16["fwd_launches"] + hybrid16["launches"]
-        + bf16_l128["fwd_launches"], fwd16_rows,
+        + bf16_l128["fwd_launches"] + text["fwd_launches"], fwd16_rows,
         f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S)
     fwd_bf16["l128"] = per_row_step(
         bf16_l128["fwd_rows"],
         f"quality_ss_vp train step at batch {SS_BATCH} (forward calls)")
+    fwd_bf16["text"] = per_row_step(
+        text["fwd_rows"], f"quality_text_cfgft PC step at batch "
+        f"{TEXT_SAMPLING_BATCH}")
     bwd_bf16 = kernel(
         "flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
-        training16["bwd_launches"] + bf16_l128["bwd_launches"], bwd16_rows,
+        training16["bwd_launches"] + bf16_l128["bwd_launches"]
+        + text["bwd_launches"], bwd16_rows,
         f"N=256 train step at batch {N256_TRAIN_BATCH}", PEAK_BF16_S)
     bwd_bf16["l128"] = per_row_step(
         bf16_l128["bwd_rows"],
         f"quality_ss_vp train step at batch {SS_BATCH}")
+    bwd_bf16["text"] = per_row_step(
+        text["bwd_rows"], f"quality_text_cfgft train step at batch "
+        f"{SS_BATCH}")
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
         # deployment batches, the sampling CLI, SS training and sampling
@@ -2125,7 +2449,8 @@ def main():
                training["bwd_launches"] + training_ss["bwd_launches"],
                bwd_rows, f"train step at batch {TRAIN_BATCH}"),
         # bf16: N=256 serving, training (+ its eval) and hybrid; the
-        # quality_ss_vp train steps (+ eval)
+        # quality_ss_vp train steps (+ eval); the quality_text_cfgft train
+        # steps (+ eval) and its sampling CLI
         fwd_bf16,
         bwd_bf16,
     ]
@@ -2143,7 +2468,7 @@ def main():
         "sampling_cli": sampling, "hybrid_reference": hybrid_ref,
         "hybrid_n256": hybrid16, "training_ss": training_ss,
         "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
-        "bf16_l128": bf16_l128,
+        "bf16_l128": bf16_l128, "text": text,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

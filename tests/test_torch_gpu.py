@@ -739,3 +739,60 @@ def test_c8_inpainting_batch_on_gpu_matches_cpu(cuda):
     assert torch.equal(pair.cpu(), want_pair)
     assert (got.cpu() - want).abs().max().item() <= 1e-5
     assert torch.equal(got[..., 4:].cpu(), want[..., 4:])
+
+
+def _resident_config(steps_per_launch=3):
+    return load_config(dict(
+        tiny_config_dict(),
+        training={"sde": "vesde", "batch_size": 2, "log_freq": 1,
+                  "eval_freq": 100, "steps_per_launch": steps_per_launch,
+                  "snapshot_freq_for_preemption": 100},
+        data={"max_res_num": N, "num_channels": C,
+              "featurize_on_device": True}))
+
+
+@pytest.mark.gpu
+def test_resident_context_table_on_gpu_gathers_the_cpu_rows(cuda, tmp_path):
+    """The trainer's resident context table on the card: its bf16 rows,
+    gathered by record index and cast to f32, equal the CPU table's."""
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.data.helix_records import write_records
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+
+    write_records(tmp_path, 12, lengths=(9, N))
+    cfg = _resident_config()
+    ds = ProteinProcessedDataset(tmp_path)
+    encoder = build_text_encoder(cfg)
+    resident = train.resident_table(cfg, ds, encoder, cuda)
+    table, mask, inv = train.build_context_table(ds, encoder)
+    assert resident["table"].is_cuda and resident["table"].dtype == (
+        torch.bfloat16)
+    idx = torch.tensor([3, 0, 7, 11, 3])
+    rows = resident["inv"][idx.to(cuda)]
+    assert torch.equal(resident["table"][rows].float().cpu(),
+                       table[inv[idx].long()].float())
+    assert torch.equal(resident["mask"][rows].cpu(), mask[inv[idx].long()])
+
+
+@pytest.mark.gpu
+def test_trainer_on_gpu_takes_the_table_on_full_groups(cuda, tmp_path):
+    """`cli/train` on the card with the resident table, K=3 and 4 steps:
+    one full group takes the table, the tail step the f32 encode; finite
+    losses, and the JAX trainer's metric tags in workdir/tb."""
+    import json
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.config import save_config
+    from text2protein_tpu_torch.data.helix_records import write_records
+
+    write_records(tmp_path / "rec", 12, lengths=(9, N))
+    save_config(_resident_config(), tmp_path / "cfg.yml")
+    res = train.main(["--config", str(tmp_path / "cfg.yml"), "--data",
+                      str(tmp_path / "rec"), "--max_steps", "4",
+                      "--workdir_root", str(tmp_path / "runs")])
+    assert res["table_steps"] == 3 and res["context_table"]["unique"] == 5
+    assert np.isfinite(res["losses"]).all() and len(res["losses"]) == 4
+    tags = {json.loads(x)["tag"] for x in (
+        res["workdir"] / "tb" / "metrics.jsonl").read_text().splitlines()}
+    assert tags == {"training_loss", "avg_training_loss", "avg_eval_loss"}

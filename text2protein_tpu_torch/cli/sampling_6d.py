@@ -70,8 +70,9 @@ def build_argparser():
 
 def load_test_captions(checkpoint, processed_dir):
     """[(id, caption)] of the training run's held-out ids that have an .npz
-    record in `processed_dir` (default: the working directory), in the
-    order of `test_ids.txt`."""
+    or, failing that, a reference .pt record in `processed_dir` (default:
+    the working directory), in the order of `test_ids.txt`
+    (text2protein_tpu/cli/sampling_6d.py:43-60)."""
     ids_file = Path(checkpoint).parent.parent / "test_ids.txt"
     if not ids_file.exists():
         return []
@@ -79,9 +80,11 @@ def load_test_captions(checkpoint, processed_dir):
                 if ln.strip()]
     out = []
     for tid in test_ids:
-        p = Path(processed_dir or ".") / f"{tid}.npz"
-        if p.exists():
-            out.append((tid, load_record(p)["caption"]))
+        for ext in (".npz", ".pt"):
+            p = Path(processed_dir or ".") / f"{tid}{ext}"
+            if p.exists():
+                out.append((tid, load_record(p)["caption"]))
+                break
     return out
 
 

@@ -3,7 +3,14 @@
 config -> processed records -> 95/5 split -> a loop of train steps (loss
 and backward -> clip -> Adam -> EMA) on batches the loader reads ahead,
 each caption encoded by the text encoder, with an eval pass of the EMA
-params every `training.eval_freq` steps and at the end.
+params every `training.eval_freq` steps and at the end. `training_loss`
+(every `training.log_freq` steps), `avg_training_loss` and `avg_eval_loss`
+(at the eval boundaries) go to `workdir/tb` (`utils/logging.MetricsWriter`),
+as the JAX trainer writes them.
+
+The data order is the JAX trainer's: epoch e is shuffled with the (e + 2)-th
+draw of RandomState(config.seed), the first draw standing for the batch
+the JAX trainer initializes its state from.
 
 Every run has a workdir, `{--workdir_root}/{config stem}/{timestamp}` or
 the `--resume` directory, holding `config.yml`, `train_ids.txt`,
@@ -12,11 +19,12 @@ meta checkpoint every `training.snapshot_freq_for_preemption` steps and at
 the end, `best_train` / `best_eval` at the eval boundaries where the
 average improved, and `snapshot_<step>` at `training.snapshot_steps`. A
 workdir that holds a checkpoint is resumed from its newest state and goes
-on bit for bit: the step's generator and the data order are functions of
-the step. `--out` also writes the EMA params as a state dict that
-`text2protein_tpu_torch.cli.serve --weights` loads. A new run starts from
-the JAX model's initializers (`models.unet.init_params`), drawn from
-`config.seed`.
+on bit for bit (with the resident context table, where the resumed run's
+launch groups fall as the first run's): the step's generator and the data
+order are functions of the step. `--out` also writes the EMA params as a
+state dict that `text2protein_tpu_torch.cli.serve --weights` loads. A new
+run starts from the JAX model's initializers (`models.unet.init_params`),
+drawn from `config.seed`.
 
 With the inpainting condition each train step draws its random inpainting
 masks on the device (`training.steps`); the eval pass draws them from its
@@ -36,9 +44,22 @@ the config's `model.dtype` under `use_full_f32()` (TF32 off for matmuls and
 cuDNN, f32 accumulation of bf16 products) with cuDNN's per-shape algorithm
 search on. With `data.featurize_on_device` the batches carry backbones (and
 the SS block channels for C=8) and the step builds the 6D maps on the
-device. Not ported: the resident-context table and fused multi-step paths
-(`training.steps_per_launch`, which hide a TPU's dispatch latency; here
-every step is its own call), and multi-device meshes.
+device.
+
+The resident context table (text2protein_tpu/cli/train.py:250-346): with
+`data.featurize_on_device` and `training.steps_per_launch` K > 1, the
+corpus's captions are deduplicated and encoded once into a bf16 table on
+the device (one row per unique caption, gathered through each record's
+index), if it fits in `data.max_context_table_bytes` (1 GiB by default).
+The JAX trainer fuses K steps into one launch and feeds those launches
+from the table; its tail steps (fewer than K left in the budget, groups
+counted from the run's start step) and its eval pass encode each batch in
+f32. The port runs every step as its own call (the fused launch hides a
+TPU's dispatch latency), and takes each step's context from where the JAX
+trainer would: the table's bf16 rows, cast to f32, on the steps of full
+groups of K, the f32 encode elsewhere. Its eval and log boundaries fall at
+steps, where the JAX trainer's fall at the ends of launches. Not ported:
+multi-device meshes.
 
 Usage:
   python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
@@ -78,6 +99,7 @@ from ..training.steps import (
     make_train_step,
     step_generator,
 )
+from ..utils.logging import MetricsWriter
 
 SNAPSHOT_STREAM = 2  # step_generator stream of the snapshot samples
 
@@ -122,11 +144,13 @@ def batches(dataset, indices, batch_size, max_len, rng, shuffle=True,
 
 def train_batches_from(dataset, indices, batch_size, max_len, seed, step):
     """The training stream from step `step` on: epoch e shuffles with the
-    (e + 1)-th draw of RandomState(seed), as the JAX trainer's stream does
-    from step 0, and a resumed run starts inside its epoch."""
+    (e + 2)-th draw of RandomState(seed), as the JAX trainer's stream does
+    from step 0 (its first draw shuffles the batch it initializes the state
+    from, text2protein_tpu/cli/train.py:205,348,451-454); a resumed run
+    starts inside its epoch."""
     host_rng = np.random.RandomState(seed)
     epoch, skip = divmod(step, max(1, len(indices) // batch_size))
-    for _ in range(epoch):
+    for _ in range(1 + epoch):
         host_rng.randint(2**31)
     while True:
         yield from PrefetchLoader(dataset, indices, batch_size, max_len,
@@ -160,6 +184,62 @@ def make_eval_pass(config, dataset, eval_idx, bs, max_len, prepare,
         return (float(np.mean(losses)) if losses else float("inf")), last
 
     return eval_pass
+
+
+def build_context_table(dataset, encoder):
+    """The corpus's captions, deduplicated in record order and encoded once
+    (text2protein_tpu/cli/train.py:269-283): (table (U, T, D) bf16, mask
+    table (U, T) bool, inv (n,) int32) as CPU tensors, where record i's
+    context is table[inv[i]]. The unique captions are encoded 64 at a time
+    and every chunk is padded to the widest chunk's T."""
+    uniq = {}
+    inv = np.empty(len(dataset), np.int32)
+    for i in range(len(dataset)):
+        inv[i] = uniq.setdefault(dataset.caption(i), len(uniq))
+    ucaps = list(uniq)
+    embs, masks = [], []
+    for i in range(0, len(ucaps), 64):
+        e, m = encoder.encode(ucaps[i:i + 64])
+        embs.append(np.asarray(e))
+        masks.append(np.asarray(m))
+    t_max = max(e.shape[1] for e in embs)
+    embs = [np.pad(e, ((0, 0), (0, t_max - e.shape[1]), (0, 0)))
+            for e in embs]
+    masks = [np.pad(m, ((0, 0), (0, t_max - m.shape[1]))) for m in masks]
+    return (torch.from_numpy(np.concatenate(embs)).to(torch.bfloat16),
+            torch.from_numpy(np.concatenate(masks).astype(bool)),
+            torch.from_numpy(inv))
+
+
+def resident_table(config, dataset, encoder, device):
+    """The resident context table on `device`, or None: only with
+    `data.featurize_on_device` and `training.steps_per_launch` > 1, and
+    only when it fits in `data.max_context_table_bytes`; prints the JAX
+    trainer's line either way (text2protein_tpu/cli/train.py:286-299)."""
+    if not (config.data.get("featurize_on_device", False)
+            and int(config.training.get("steps_per_launch", 1)) > 1):
+        return None
+    max_table = int(config.data.get("max_context_table_bytes", 1 << 30))
+    table, mask, inv = build_context_table(dataset, encoder)
+    nbytes = table.numel() * table.element_size()
+    if nbytes > max_table:
+        print(f"context table is {nbytes / 2**30:.1f} GiB for "
+              f"{table.shape[0]} unique captions "
+              f"(> {max_table / 2**30:.1f} cap); using per-launch "
+              f"context shipping", flush=True)
+        return None
+    print(f"resident context table: {table.shape[0]} unique captions, "
+          f"{nbytes / 2**20:.1f} MiB", flush=True)
+    return {"table": table.to(device), "mask": mask.to(device),
+            "inv": inv.to(device).long(), "bytes": nbytes}
+
+
+def table_steps_end(start, budget, steps_per_launch):
+    """The step before which every step of the run belongs to a full group
+    of `steps_per_launch`, counted from the run's start step: the steps the
+    JAX trainer fuses (text2protein_tpu/cli/train.py:469-481)."""
+    k = max(1, int(steps_per_launch))
+    return start + k * (max(0, budget - start) // k)
 
 
 class BestGate:
@@ -209,8 +289,11 @@ def _once(fn):
 
 def main(argv=None):
     """Train; returns {"losses", "step_seconds", "lrs", "eval_loss",
-    "evals", "state", "steps", "records", "workdir", "out"}; `evals` holds
-    (step, avg_train, avg_eval) per eval boundary."""
+    "evals", "state", "steps", "records", "workdir", "out", "table_steps",
+    "context_table"}; `evals` holds (step, avg_train, avg_eval) per eval
+    boundary, `table_steps` counts the steps whose context came from the
+    resident table, and `context_table` is {"unique", "bytes"} of that
+    table (None without one)."""
     args = build_argparser().parse_args(argv)
     config = load_config(args.config) if args.config else bench_l128_config()
     device = resolve_device(args.device)
@@ -259,8 +342,18 @@ def main(argv=None):
     bs = config.training.batch_size
     max_len = config.data.max_res_num
 
-    def prepare(batch):
+    resident = resident_table(config, dataset, encoder, device)
+
+    def prepare(batch, from_table=False):
+        """The step's tensors; the context from the resident table's rows
+        of the batch's records, or encoded in f32."""
         arrays = batch_to_device_arrays(batch, config, device=device)
+        if from_table:
+            rows = resident["inv"][torch.from_numpy(batch["index"]).to(
+                device).long()]
+            arrays["context"] = resident["table"][rows].float()
+            arrays["context_mask"] = resident["mask"][rows]
+            return arrays
         emb, emb_mask = encoder.encode(batch["caption"])
         arrays["context"] = torch.from_numpy(emb).to(device)
         arrays["context_mask"] = torch.from_numpy(emb_mask).to(device)
@@ -282,6 +375,9 @@ def main(argv=None):
                   and not ckpt.snapshot_path(int(s)).exists()]
     stream = train_batches_from(dataset, train_idx, bs, max_len,
                                 config.seed, state.step)
+    table_end = (table_steps_end(state.step, budget,
+                                 config.training.get("steps_per_launch", 1))
+                 if resident is not None else state.step)
     eval_pass = make_eval_pass(config, dataset, eval_idx, bs, max_len,
                                prepare, eval_step)
 
@@ -323,53 +419,65 @@ def main(argv=None):
     losses, step_seconds, lrs, evals, window = [], [], [], [], []
     log_freq = max(1, int(config.training.log_freq))
     last_meta = last_eval = state.step
-    while state.step < budget:
-        t0 = time.perf_counter()
-        lrs.append(state.optimizer.learning_rate(state.optimizer.count))
-        loss = float(train_step(state, prepare(next(stream)),
-                                config.seed + 1))
-        step_seconds.append(time.perf_counter() - t0)
-        losses.append(loss)
-        window.append(loss)
-        step, done = state.step, state.step >= budget
-        if step % log_freq == 0 or done:
-            print(f"step {step} loss {loss:.5f} "
-                  f"({bs / step_seconds[-1]:.1f} samples/s)", flush=True)
+    table_steps = 0
+    writer = MetricsWriter(workdir / "tb")
+    try:
+        while state.step < budget:
+            t0 = time.perf_counter()
+            lrs.append(state.optimizer.learning_rate(state.optimizer.count))
+            from_table = state.step < table_end
+            table_steps += from_table
+            batch = prepare(next(stream), from_table)
+            loss = float(train_step(state, batch, config.seed + 1))
+            step_seconds.append(time.perf_counter() - t0)
+            losses.append(loss)
+            window.append(loss)
+            step, done = state.step, state.step >= budget
+            if step % log_freq == 0:
+                writer.scalar("training_loss", loss, step)
+            if step % log_freq == 0 or done:
+                print(f"step {step} loss {loss:.5f} "
+                      f"({bs / step_seconds[-1]:.1f} samples/s)",
+                      flush=True)
 
-        if step - last_eval >= eval_freq or done:
-            last_eval = step
-            avg_train = float(np.mean(window)) if window else math.inf
-            window = []
-            avg_eval, last_eval_batch = eval_pass(state)
-            evals.append((step, avg_train, avg_eval))
-            print(f"step {step}: avg_train {avg_train:.5f} avg_eval "
-                  f"{avg_eval:.5f}", flush=True)
-            if (config.training.snapshot_sampling
-                    and last_eval_batch is not None):
-                snapshot_sample(last_eval_batch, step // steps_per_epoch)
-            boundary_slot = _once(slot)  # one host copy for both kinds
-            gate.offer("train", avg_train, boundary_slot)
-            gate.offer("eval", avg_eval, boundary_slot)
-            due = gate.due(step, done)
-            # kinds that share one boundary's state share one file
-            by_slot = {}
-            for kind, (average, s) in due.items():
-                by_slot.setdefault(id(s), (s, []))[1].append(kind)
-            for s, kinds in by_slot.values():
-                s["trainer"]["best"] = {k: due[k][0] for k in kinds}
-                ckpt.save_best(s, *kinds)
-                print(f"saved best_{'/best_'.join(kinds)} of step "
-                      f"{s['step']}", flush=True)
-            for s in [s for s in snap_steps if s <= step]:
-                ckpt.save_snapshot(slot(), s)
-                snap_steps.remove(s)
+            if step - last_eval >= eval_freq or done:
+                last_eval = step
+                avg_train = float(np.mean(window)) if window else math.inf
+                window = []
+                writer.scalar("avg_training_loss", avg_train, step)
+                avg_eval, last_eval_batch = eval_pass(state)
+                if math.isfinite(avg_eval):
+                    writer.scalar("avg_eval_loss", avg_eval, step)
+                evals.append((step, avg_train, avg_eval))
+                print(f"step {step}: avg_train {avg_train:.5f} avg_eval "
+                      f"{avg_eval:.5f}", flush=True)
+                if (config.training.snapshot_sampling
+                        and last_eval_batch is not None):
+                    snapshot_sample(last_eval_batch, step // steps_per_epoch)
+                boundary_slot = _once(slot)  # one host copy for both kinds
+                gate.offer("train", avg_train, boundary_slot)
+                gate.offer("eval", avg_eval, boundary_slot)
+                due = gate.due(step, done)
+                # kinds that share one boundary's state share one file
+                by_slot = {}
+                for kind, (average, s) in due.items():
+                    by_slot.setdefault(id(s), (s, []))[1].append(kind)
+                for s, kinds in by_slot.values():
+                    s["trainer"]["best"] = {k: due[k][0] for k in kinds}
+                    ckpt.save_best(s, *kinds)
+                    print(f"saved best_{'/best_'.join(kinds)} of step "
+                          f"{s['step']}", flush=True)
+                for s in [s for s in snap_steps if s <= step]:
+                    ckpt.save_snapshot(slot(), s)
+                    snap_steps.remove(s)
 
-        # after the boundary's best saves, so that the meta slot's
-        # saved_best describes the best files on disk
-        if step - last_meta >= meta_freq or done:
-            ckpt.save_meta(slot())
-            last_meta = step
-
+            # after the boundary's best saves, so that the meta slot's
+            # saved_best describes the best files on disk
+            if step - last_meta >= meta_freq or done:
+                ckpt.save_meta(slot())
+                last_meta = step
+    finally:
+        writer.close()
     eval_loss = evals[-1][2] if evals else eval_pass(state)[0]
     print(f"done at step {state.step}: avg_train "
           f"{np.mean(losses) if losses else float('nan'):.5f} eval (EMA) "
@@ -381,7 +489,10 @@ def main(argv=None):
     return {"losses": losses, "step_seconds": step_seconds, "lrs": lrs,
             "eval_loss": eval_loss, "evals": evals, "state": state,
             "steps": state.step, "records": n_total, "workdir": workdir,
-            "out": args.out}
+            "out": args.out, "table_steps": table_steps,
+            "context_table": None if resident is None else {
+                "unique": int(resident["table"].shape[0]),
+                "bytes": resident["bytes"]}}
 
 
 if __name__ == "__main__":

@@ -127,7 +127,9 @@ _DEFAULTS = {
         "grad_clip": 1.0,
     },
     "text": {
-        "encoder": "hash",
+        "encoder": "hash",  # hash | cache | hf
+        "model_name": "lmsys/vicuna-7b-v1.3",
+        "cache_path": "",
         "max_tokens": 512,
         "pad_to_bucket": 64,
     },
@@ -206,16 +208,19 @@ def parse_yaml(text: str) -> dict:
             key, sep, rest = lines[i][1].partition(":")
             if not sep:
                 raise ValueError(f"not a mapping entry: {lines[i][1]!r}")
+            key = key.strip()
+            if len(key) >= 2 and key[0] in "'\"" and key[-1] == key[0]:
+                key = key[1:-1]
             i += 1
             if rest.strip():
-                out[key.strip()] = _scalar(rest)
+                out[key] = _scalar(rest)
             elif i < len(lines) and (
                     lines[i][0] > indent
                     or (lines[i][0] == indent
                         and lines[i][1].startswith("-"))):
-                out[key.strip()], i = block(i, lines[i][0])
+                out[key], i = block(i, lines[i][0])
             else:
-                out[key.strip()] = None
+                out[key] = None
         return out, i
 
     if not lines:
@@ -241,9 +246,10 @@ def load_config(path_or_dict) -> ConfigDict:
 _PLAIN = re.compile(r"[A-Za-z_./][A-Za-z0-9_./-]*")
 
 
-def _yaml_scalar(v) -> str:
+def _yaml_scalar(v, nonfinite=False) -> str:
     """`v` as a YAML 1.1 scalar that `_scalar` (and PyYAML) read back as
-    the same value."""
+    the same value; with `nonfinite`, nan and inf as PyYAML writes them
+    (`.nan`, `.inf`, `-.inf`), which only PyYAML reads back."""
     if v is None:
         return "null"
     if isinstance(v, bool):
@@ -252,7 +258,9 @@ def _yaml_scalar(v) -> str:
         return str(v)
     if isinstance(v, float):
         if not math.isfinite(v):
-            raise ValueError(f"cannot write the float {v} as YAML")
+            if not nonfinite:
+                raise ValueError(f"cannot write the float {v} as YAML")
+            return ".nan" if v != v else ("-.inf" if v < 0 else ".inf")
         text = repr(v)
         if "." not in text:  # YAML 1.1 reads a float only with a dot
             mant, _, exp = text.partition("e")
@@ -271,24 +279,32 @@ def _yaml_scalar(v) -> str:
     raise TypeError(f"cannot write {type(v).__name__} {v!r} as YAML")
 
 
-def _yaml_lines(d: dict, indent: int) -> list:
+def _yaml_lines(d: dict, indent: int, nonfinite: bool) -> list:
     lines, pad = [], " " * indent
     for k, v in d.items():
+        k = _yaml_scalar(str(k))  # a key that would read as a number quoted
         if isinstance(v, dict):
             if v:
                 lines.append(f"{pad}{k}:")
-                lines += _yaml_lines(v, indent + 2)
+                lines += _yaml_lines(v, indent + 2, nonfinite)
             else:
                 lines.append(f"{pad}{k}: {{}}")
         elif isinstance(v, (list, tuple)):
             if v:
                 lines.append(f"{pad}{k}:")
-                lines += [f"{pad}- {_yaml_scalar(i)}" for i in v]
+                lines += [f"{pad}- {_yaml_scalar(i, nonfinite)}" for i in v]
             else:
                 lines.append(f"{pad}{k}: []")
         else:
-            lines.append(f"{pad}{k}: {_yaml_scalar(v)}")
+            lines.append(f"{pad}{k}: {_yaml_scalar(v, nonfinite)}")
     return lines
+
+
+def dump_yaml(data: dict, nonfinite: bool = False) -> str:
+    """`data` (nested mappings with string keys, block lists of scalars)
+    as YAML that PyYAML reads back equal, and `parse_yaml` too unless a
+    non-finite float was written (`nonfinite`)."""
+    return "\n".join(_yaml_lines(data, 0, nonfinite)) + "\n"
 
 
 def save_config(cfg, path) -> None:
@@ -296,7 +312,7 @@ def save_config(cfg, path) -> None:
     nested mappings, block lists of scalars, scalars quoted where they
     would read as something else."""
     data = cfg.to_dict() if isinstance(cfg, ConfigDict) else dict(cfg)
-    Path(path).write_text("\n".join(_yaml_lines(data, 0)) + "\n")
+    Path(path).write_text(dump_yaml(data))
 
 
 def validate_config(cfg: ConfigDict) -> None:

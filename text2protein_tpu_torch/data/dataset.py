@@ -6,6 +6,8 @@ text2protein_tpu/data/dataset.py: `featurize_pdb_file`, `ProteinDataset`,
 Record schema, one .npz per protein:
   {id, coords (L,3,3), coords_6d (C,L,L), aa (L,), aa_str, mask_pair (L,L),
    ss_indices, caption}
+The reference's .pt records (a torch-saved dict of the same keys) are read
+too.
 """
 
 from __future__ import annotations
@@ -109,7 +111,25 @@ def save_record(record: dict, path) -> None:
 
 
 def load_record(path) -> dict:
-    with np.load(str(path), allow_pickle=False) as z:
+    """A record from its .npz, or from a reference .pt (text2protein_tpu/
+    data/dataset.py:56-70: `torch.load(weights_only=False)`, so only a .pt
+    file of a trusted source)."""
+    path = str(path)
+    if path.endswith(".pt"):
+        import torch
+
+        d = torch.load(path, map_location="cpu", weights_only=False)
+        return {
+            "id": str(d["id"]),
+            "coords": d["coords"].numpy().astype(np.float32),
+            "coords_6d": d["coords_6d"].numpy().astype(np.float32),
+            "aa": d["aa"].numpy().astype(np.int64),
+            "aa_str": str(d["aa_str"]),
+            "mask_pair": d["mask_pair"].numpy().astype(bool),
+            "ss_indices": str(d["ss_indices"]),
+            "caption": str(d["caption"]),
+        }
+    with np.load(path, allow_pickle=False) as z:
         return {
             "id": str(z["id"]),
             "coords": z["coords"],
@@ -205,18 +225,28 @@ class ProteinDataset:
 
 
 class ProteinProcessedDataset:
-    """Loads saved .npz records from a directory, in sorted name order."""
+    """Loads saved records (.npz, or reference .pt) from a directory, in
+    sorted name order (text2protein_tpu/data/dataset.py:253-280)."""
 
     def __init__(self, root_path):
         self.root_path = Path(root_path)
         self.data_paths = sorted(
-            p for p in os.listdir(root_path) if p.endswith(".npz"))
+            p for p in os.listdir(root_path) if p.endswith((".npz", ".pt")))
 
     def __len__(self):
         return len(self.data_paths)
 
     def __getitem__(self, idx):
         return load_record(self.root_path / self.data_paths[idx])
+
+    def caption(self, idx) -> str:
+        """Record idx's caption alone: an .npz decompresses only that member
+        (the trainer reads every caption at its start)."""
+        path = self.root_path / self.data_paths[idx]
+        if path.suffix == ".pt":
+            return load_record(path)["caption"]
+        with np.load(path, allow_pickle=False) as z:
+            return str(z["caption"])
 
 
 class PaddingCollate:

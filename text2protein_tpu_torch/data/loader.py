@@ -1,5 +1,6 @@
 """Shuffled epoch batching with one background prefetch thread
-(counterpart of text2protein_tpu/data/loader.py)."""
+(counterpart of text2protein_tpu/data/loader.py). Each batch carries its
+records' dataset indices, `index` (B,) int32 (`loader.py:55-59`)."""
 
 from __future__ import annotations
 
@@ -47,7 +48,11 @@ class PrefetchLoader:
                 if len(chunk) < self.batch_size and self.drop_last:
                     break
                 recs = [self.dataset[int(j)] for j in chunk]
-                q.put(make_batch(recs, self.max_len))
+                batch = make_batch(recs, self.max_len)
+                # the records' indices in the dataset: the trainer gathers
+                # their rows of the resident context table by them
+                batch["index"] = np.asarray(chunk, dtype=np.int32)
+                q.put(batch)
         except Exception as e:  # surface worker errors to the consumer
             q.put(e)
         finally:
