@@ -128,6 +128,24 @@ Phases, each printing a flushed line with the seconds since start:
      as PDBs: a record against itself scores 1 within 1e-6 by the native
      `run_tmalign` (which must run where it exists) and by the Python
      scorer.
+ 22. realize: four helix bundles of L=128 (`data/synthetic`, compacted by
+     the port's L-BFGS on the card), their GT maps saved to
+     chiprun_out/realize_maps.npz; every energy term and its gradient on
+     the card against the CPU (energies 1e-5 relative, gradients 1e-4 of
+     their scale) and the first 5 fold-stage L-BFGS iterations (the same
+     linesearch steps, iterates within 1e-3 A); `run_minimization` at the
+     JAX test's bar (L=64 bundle, 3 restarts, max_iter 150, seed 1: TM >
+     0.8 to the truth by `eval.tmscore`, N-CA and C-N within 0.1 A of
+     ideal); `realize_batch` of the 4 designs at its defaults (5 restarts,
+     max_iter 300): TM-scores, selection energies, evaluations per solve,
+     seconds per batch; 10 fold-stage iterations of that batch under the
+     profiler (device busy share, launches per evaluation); the flagship
+     Server at batch 4 with realize on at lengths 128, 96, 64 and 40: PDBs
+     of those lengths, finite energies, seconds per realized design, no
+     flash launch outside sampling; `cli/sampling_rosetta --fastdesign
+     --designer learned --n_restarts 2 --max_iter 10` on phase 14's
+     pickles (the depth cut to keep the script inside its limit), its
+     score.txt files read back by `eval.tm_sweeps.reu_stats`.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -982,7 +1000,8 @@ def phase_sampling_cli(torch, workdir, records):
         f"(first full batch of {DEPLOY_BATCH}), (1, 5, 128, 128) finite, "
         f"last channel = the length-{length} mask; flash_fwd launches "
         f"{launches}; {secs:.2f}s with the restore")
-    return dict(pickles=got, launches=launches, seconds=secs)
+    return dict(pickles=got, launches=launches, seconds=secs,
+                out_dir=str(out))
 
 
 def phase_hybrid_reference(torch, e2e):
@@ -2310,6 +2329,342 @@ def phase_text(torch, ptxas, smi):
                 tmalign_route=route, tm_scores=tm)
 
 
+# realization (phase 22): L=128 designs of the port's synthetic helix
+# bundles, compacted on the card; the quality check of the JAX package's
+# own test (tests/test_realize.py: L=64, 3 restarts, max_iter 150, seed 1,
+# TM > 0.8, N-CA and C-N within 0.1 A of ideal); realize_batch at its
+# defaults (5 restarts, max_iter 300); the flagship Server at batch 4 with
+# realize; cli/sampling_rosetta on phase 14's pickles
+REALIZE_L = 128
+REALIZE_SEEDS = (0, 1, 2, 3)
+REALIZE_QUALITY = dict(L=64, seed=5, n_restarts=3, max_iter=150, run_seed=1)
+REALIZE_LENGTHS = (128, 96, 64, 40)
+# card against CPU: energies within 1e-5 relative (floored at 1, one
+# squared standard deviation), gradients within 1e-4 of the term's largest
+# |gradient|, on the ground truth of design 0 perturbed by 0.5 A
+REALIZE_E_RTOL = 1e-5
+REALIZE_G_RTOL = 1e-4
+# the first fold-stage L-BFGS iterations on the card against the CPU, from
+# 5 starts 0.5 A off the ground truth: the same linesearch steps, iterates
+# within 1e-2 A (coordinates up to ~40 A; f32 sums over L^2 pairs in the
+# card's order, which part further at each iteration, as the port and JAX
+# do on the CPU). Not from the protocol's MDS starts: there the terminal
+# residues' N, CA and C lie on a line, the theta dihedral is singular and
+# the f32 gradient is rounding (scripts/realize_start_singularity.py), so
+# no two machines take the same first step.
+REALIZE_ITERS = 5
+REALIZE_X_ATOL = 1e-2
+# cli/sampling_rosetta's depth, cut from its defaults (5 restarts, max_iter
+# 150) so the phase stays inside the script's time limit: ~20 ms per
+# batched evaluation on the card's host, and up to 20 evaluations an
+# iteration on maps from an 8-step model
+ROSETTA_FLAGS = ["--n_restarts", "2", "--max_iter", "10"]
+REALIZE_PROFILE_ITERS = 10
+
+
+def _realize_terms(rst, ca_ref):
+    from text2protein_tpu_torch.realize import minimize as tm
+    from text2protein_tpu_torch.realize import restraints as tr
+
+    return {
+        "restraint": lambda b: tr.restraint_energy(
+            b, rst, 1e9, {"dist": 3.0, "orient": 1.0}),
+        "long_dist": lambda b: tr.long_dist_energy(b, rst),
+        "ca_coordinate": lambda b: tr.ca_coordinate_energy(b, ca_ref),
+        "bonded": tr.bonded_energy,
+        "rama_cartesian": tr.rama_energy_cartesian,
+        "hbond": tr.hbond_energy,
+        "clash": tr.clash_energy,
+        "e_fold": lambda b: tm.e_fold(b, rst),
+        "e_ideal": lambda b: tm.e_ideal(b, rst),
+    }
+
+
+def _value_and_grad(torch, fn, x):
+    x = x.detach().clone().requires_grad_(True)
+    e = fn(x)
+    (g,) = torch.autograd.grad(e.sum(), x)
+    return e.detach().cpu().double(), g.cpu().double()
+
+
+def realize_card_vs_cpu(torch, npz, bb_true):
+    """Every energy term and its gradient, and the first fold-stage L-BFGS
+    iterations, on the card against the CPU."""
+    import numpy as np
+
+    from text2protein_tpu_torch.realize import minimize as tm
+    from text2protein_tpu_torch.realize import restraints as tr
+    from text2protein_tpu_torch.realize.lbfgs import LBFGS
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((bb_true + rng.standard_normal(bb_true.shape)
+                          * 0.5).astype(np.float32))
+    ref = torch.from_numpy(bb_true[:, 1].copy())
+    rst = {d: tr.restraints_from_maps(npz, device=d) for d in ("cpu",
+                                                               "cuda")}
+    terms = {d: _realize_terms(rst[d], ref.to(d)) for d in rst}
+    rows = {}
+    for name in terms["cpu"]:
+        e_c, g_c = _value_and_grad(torch, terms["cpu"][name], x)
+        e_g, g_g = _value_and_grad(torch, terms["cuda"][name], x.cuda())
+        e_err = abs(float(e_g - e_c)) / max(abs(float(e_c)), 1.0)
+        scale = float(g_c.abs().max())
+        g_err = float((g_g - g_c).abs().max()) / max(scale, 1e-30)
+        if not (e_err <= REALIZE_E_RTOL and g_err <= REALIZE_G_RTOL
+                and torch.isfinite(g_g).all()):
+            raise AssertionError(f"realize: {name} on the card against the "
+                                 f"CPU: energy {e_err:.2e}, gradient "
+                                 f"{g_err:.2e} of its scale")
+        rows[name] = {"energy": float(e_c), "energy_rel_err": e_err,
+                      "grad_scale": scale, "grad_rel_err": g_err}
+    starts = torch.from_numpy((bb_true[None] + rng.standard_normal(
+        (5,) + bb_true.shape) * 0.5).astype(np.float32))
+    solvers = {d: LBFGS(lambda b, r=rst[d]: tm.e_fold(b, r), starts.to(d))
+               for d in rst}
+    worst = 0.0
+    for i in range(REALIZE_ITERS):
+        for s in solvers.values():
+            s.step()
+        c, g = solvers["cpu"], solvers["cuda"]
+        if not np.array_equal(c.linesearch_steps[i], g.linesearch_steps[i]):
+            raise AssertionError(f"realize: iteration {i}: linesearch "
+                                 f"steps {g.linesearch_steps[i]} on the "
+                                 f"card, {c.linesearch_steps[i]} on the CPU")
+        worst = max(worst, float((g.x.cpu() - c.x).abs().max()))
+    if not worst <= REALIZE_X_ATOL:
+        raise AssertionError(f"realize: fold-stage iterates on the card "
+                             f"{worst:.2e} A from the CPU's")
+    worst_e = max(r["energy_rel_err"] for r in rows.values())
+    log(f"realize: card = CPU at L={len(bb_true)}: {len(rows)} energy "
+        f"terms, worst energy {worst_e:.2e} "
+        f"(tol {REALIZE_E_RTOL:.0e}), worst gradient "
+        f"{max(r['grad_rel_err'] for r in rows.values()):.2e} of its scale "
+        f"(tol {REALIZE_G_RTOL:.0e}); {REALIZE_ITERS} fold-stage L-BFGS "
+        f"iterations x 5 starts: the same linesearch steps, iterates within "
+        f"{worst:.2e} A (tol {REALIZE_X_ATOL:.0e})")
+    return {"terms": rows, "fold_iters": REALIZE_ITERS,
+            "fold_iterate_max_diff": worst}
+
+
+def _bond_dev(bb):
+    import numpy as np
+
+    from text2protein_tpu_torch.realize.geometry import B_C_N, B_N_CA
+
+    n_ca = np.linalg.norm(bb[:, 1] - bb[:, 0], axis=-1)
+    c_n = np.linalg.norm(bb[1:, 0] - bb[:-1, 2], axis=-1)
+    return float(np.abs(n_ca - B_N_CA).max()), float(np.abs(c_n - B_C_N).max())
+
+
+def _solver_stats(log_):
+    return [{"iterations": len(s.linesearch_steps),
+             "evaluations": s.evaluations, "batch": int(s.x.shape[0])}
+            for s in log_]
+
+
+def phase_realize(torch, smi, sampled_dir):
+    """Realization on the card: card = CPU, the L=64 quality bar,
+    realize_batch at L=128, the Server's realize branch and
+    cli/sampling_rosetta."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import sampling_rosetta
+    from text2protein_tpu_torch.cli.profile_serving import device_kernels
+    from text2protein_tpu_torch.cli.serve import Server
+    from text2protein_tpu_torch.config import flagship_config
+    from text2protein_tpu_torch.data import pdbio, synthetic
+    from text2protein_tpu_torch.data.featurize import featurize_structure
+    from text2protein_tpu_torch.eval.tm_sweeps import reu_stats
+    from text2protein_tpu_torch.eval.tmscore import tm_score
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.realize import minimize as tm
+    from text2protein_tpu_torch.realize.restraints import inverse_scale
+
+    out = {"nvidia_smi": smi}
+    L = REALIZE_L
+    flash.flash_attention_fwd.launches = 0
+    flash.flash_attention_bwd.launches = 0
+    t = time.perf_counter()
+    bbs = synthetic.helix_bundle_backbones(L, REALIZE_SEEDS, device="cuda")
+    torch.cuda.synchronize()
+    out["bundle_seconds"] = time.perf_counter() - t
+    maps = np.stack([featurize_structure(b, np.ones(L),
+                                         ss_constraints=False)[0]
+                     for b in bbs])
+    if not np.isfinite(bbs).all() or maps.shape != (4, 5, L, L):
+        raise AssertionError("realize: bad synthetic designs")
+    OUT.mkdir(exist_ok=True)
+    np.savez_compressed(OUT / "realize_maps.npz", maps=maps, backbones=bbs)
+    log(f"realize ({smi}): {len(bbs)} helix bundles of L={L} built and "
+        f"compacted on the card in {out['bundle_seconds']:.2f}s (maps and "
+        f"backbones in chiprun_out/realize_maps.npz)")
+
+    out["card_vs_cpu"] = realize_card_vs_cpu(
+        torch, inverse_scale(maps[0], L), bbs[0])
+
+    # the JAX package's quality bar, on the port's own L=64 bundle
+    q = REALIZE_QUALITY
+    bb_q = synthetic.helix_bundle_backbone(q["L"], seed=q["seed"],
+                                           device="cuda")
+    c6d, _, _ = featurize_structure(bb_q, np.ones(q["L"]),
+                                    ss_constraints=False)
+    solver_log = []
+    t = time.perf_counter()
+    bb_min, e_best, energies = tm.run_minimization(
+        inverse_scale(c6d, q["L"]), "A" * q["L"], n_restarts=q["n_restarts"],
+        max_iter=q["max_iter"], seed=q["run_seed"], device="cuda",
+        solver_log=solver_log)
+    secs = time.perf_counter() - t
+    tm_q = tm_score(bb_min[:, 1], bb_q[:, 1])
+    dev = _bond_dev(bb_min)
+    if not (np.isfinite(bb_min).all() and tm_q > 0.8 and max(dev) < 0.1):
+        raise AssertionError(f"realize: L={q['L']} quality TM {tm_q:.3f}, "
+                             f"bond deviations {dev} (energies {energies})")
+    out["quality"] = dict(tm=tm_q, bond_dev=dev, energy=e_best,
+                          restart_energies=energies.tolist(), seconds=secs,
+                          solves=_solver_stats(solver_log))
+    log(f"realize ({smi}): run_minimization L={q['L']}, "
+        f"{q['n_restarts']} restarts, max_iter {q['max_iter']}, seed "
+        f"{q['run_seed']}: TM {tm_q:.4f} to the truth (bar 0.8), N-CA/C-N "
+        f"within {dev[0]:.4f}/{dev[1]:.4f} A of ideal, energy {e_best:.2f}, "
+        f"{secs:.2f}s, evaluations per solve "
+        f"{[s.evaluations for s in solver_log]}")
+
+    # realize_batch at its defaults on the 4 L=128 designs
+    solver_log = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got, es = tm.realize_batch(maps, device="cuda", solver_log=solver_log)
+    secs = time.perf_counter() - t
+    tms = [tm_score(got[k, :, 1], bbs[k, :, 1]) for k in range(len(bbs))]
+    if not (np.isfinite(got).all() and np.isfinite(es).all()):
+        raise AssertionError("realize: realize_batch gave non-finite output")
+    if (flash.flash_attention_fwd.launches
+            or flash.flash_attention_bwd.launches):
+        raise AssertionError("realization launched a flash kernel")
+    out["batch"] = dict(tm=tms, energies=es.tolist(), seconds=secs,
+                        solves=_solver_stats(solver_log),
+                        bond_dev=[_bond_dev(b) for b in got])
+    log(f"realize ({smi}): realize_batch D=4 x 5 restarts at L={L}, "
+        f"max_iter 300: {secs:.2f}s per batch; TM to the truth "
+        f"{[round(x, 4) for x in tms]}; selection energies "
+        f"{[round(float(x), 2) for x in es]}; evaluations per solve "
+        f"{[s.evaluations for s in solver_log]} over "
+        f"{[len(s.linesearch_steps) for s in solver_log]} iterations")
+
+    # one window of the fold stage under the profiler: the device's busy
+    # share of a batched solve
+    from text2protein_tpu_torch.realize import restraints as tr
+    from text2protein_tpu_torch.realize.lbfgs import LBFGS
+    from torch.profiler import ProfilerActivity, profile
+
+    rst = tr.Restraints.stack([tr.restraints_from_maps(
+        inverse_scale(m, L), device="cuda") for m in maps]).map(
+            lambda x: x[:, None])
+    starts = torch.from_numpy(np.stack([tm._restart_starts(
+        inverse_scale(m, L)["dist_abs"], L, 5, 31 * k)
+        for k, m in enumerate(maps)])).cuda().reshape(20, L, 3, 3)
+    solver = LBFGS(lambda b: tm.e_fold(b.view(4, 5, L, 3, 3), rst)
+                   .reshape(-1), starts)
+    for _ in range(3):
+        solver.step()
+    torch.cuda.synchronize()
+    evals0 = solver.evaluations
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(REALIZE_PROFILE_ITERS):
+            solver.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    rows = device_kernels(prof)
+    busy = sum(r["device_ms"] for r in rows) / 1e3
+    evals = solver.evaluations - evals0
+    launches = sum(r["calls"] for r in rows)
+    out["profile"] = dict(iterations=REALIZE_PROFILE_ITERS, wall_s=wall,
+                          busy_s=busy, busy_share=busy / wall,
+                          evaluations=evals, kernel_launches=launches,
+                          top=rows[:10])
+    log(f"realize profile ({smi}): {REALIZE_PROFILE_ITERS} fold-stage "
+        f"iterations of the D=4 x 5 batch at L={L}: {wall:.3f}s wall, "
+        f"device busy {busy:.3f}s ({busy / wall:.1%}), {evals} evaluations "
+        f"({wall / max(evals, 1) * 1e3:.2f} ms each), "
+        f"{launches / max(evals, 1):.0f} kernel launches per evaluation")
+
+    # the flagship Server at batch 4 with realize
+    server = Server(flagship_config(), batch_size=BATCH, num_steps=STEPS,
+                    device="cuda", weight_seed=0, realize=True)
+    reqs = [{"caption": f"design {L_}", "length": L_, "realize": True}
+            for L_ in REALIZE_LENGTHS]
+    server.run_batch([dict(r, realize=False) for r in reqs])  # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    server.run_batch([dict(r, realize=False) for r in reqs])
+    sample_s = time.perf_counter() - t
+    flash.flash_attention_fwd.launches = 0
+    t = time.perf_counter()
+    results = server.run_batch(reqs)
+    total_s = time.perf_counter() - t
+    fwd = flash.flash_attention_fwd.launches
+    if fwd != LAUNCHES_PER_STEP * STEPS:
+        raise AssertionError(f"realize serving launched flash_fwd {fwd} "
+                             f"times")
+    check_maps(results, reqs, 128)
+    for req, res in zip(reqs, results):
+        path = WORK / f"served_{req['length']}.pdb"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(res["pdb"])
+        n = len(pdbio.read_pdb(path).amino_residues())
+        if n != req["length"] or not np.isfinite(res["energy"]):
+            raise AssertionError(f"realize serving: {n} residues, energy "
+                                 f"{res['energy']} for {req}")
+    per_design = (total_s - sample_s) / len(reqs)
+    out["serving"] = dict(lengths=list(REALIZE_LENGTHS),
+                          energies=[r["energy"] for r in results],
+                          batch_seconds=total_s, sample_seconds=sample_s,
+                          seconds_per_design=per_design, launches=fwd)
+    log(f"realize serving ({smi}): flagship Server batch {BATCH}, "
+        f"{STEPS} PC steps, realize on at lengths {list(REALIZE_LENGTHS)}: "
+        f"PDBs of those lengths, energies "
+        f"{[round(r['energy'], 2) for r in results]}; {total_s:.2f}s for "
+        f"the batch, {sample_s:.2f}s of it sampling: {per_design:.2f}s per "
+        f"realized design; flash_fwd launches {fwd}")
+    del server
+
+    # cli/sampling_rosetta on phase 14's pickles
+    root = WORK / "rosetta"
+    shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    sampling_rosetta.main([str(DEPLOY_CONFIG), "--coords_path",
+                           str(sampled_dir), "--n_iter", "1",
+                           "--fastdesign", "--designer", "learned",
+                           "--out_root", str(root), "--device", "cuda"]
+                          + ROSETTA_FLAGS)
+    secs = time.perf_counter() - t
+    ids = sorted(p.stem[len("sampled_"):]
+                 for p in Path(sampled_dir).glob("sampled_*.pkl"))
+    base = root / Path(sampled_dir).parent.parent.stem
+    for i in ids:
+        for rel in ("round_1/structure_before_design.pdb",
+                    "round_1/final_structure.pdb",
+                    "round_1/structure_after_design.pdb",
+                    "round_1/score.txt", "best_run", f"rosetta_{i}.pdb"):
+            if not (base / i / rel).exists():
+                raise AssertionError(f"sampling_rosetta: no {i}/{rel}")
+    stats = reu_stats(sorted(root.rglob("score.txt")))
+    if stats["count"] != len(ids):
+        raise AssertionError(f"reu_stats read {stats} for {len(ids)} ids")
+    out["sampling_rosetta"] = dict(ids=ids, seconds=secs, reu=stats)
+    log(f"realize ({smi}): cli/sampling_rosetta --fastdesign --designer "
+        f"learned {' '.join(ROSETTA_FLAGS)} on {len(ids)} sampled pickles "
+        f"in {secs:.2f}s "
+        f"({secs / max(len(ids), 1):.2f}s per design); eval.tm_sweeps."
+        f"reu_stats read {stats['count']} score.txt files, avg "
+        f"{stats['avg']:.3f} per residue")
+    out["launches"] = fwd
+    return out
+
+
 def main():
     import torch
 
@@ -2353,6 +2708,7 @@ def main():
                                     records_ss)
     bf16_l128 = phase_bf16_l128(torch, ptxas, records_ss)
     text = phase_text(torch, ptxas, smi)
+    realize = phase_realize(torch, smi, sampling["out_dir"])
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -2401,7 +2757,8 @@ def main():
         "text2protein_tpu/ops/flash.py:50",
         launches + training["fwd_launches"] + deploy["launches"]
         + sampling["launches"] + training_ss["fwd_launches"]
-        + sampling_ss["launches"], rows, f"PC step at batch {BATCH}")
+        + sampling_ss["launches"] + realize["launches"], rows,
+        f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
         **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
@@ -2442,7 +2799,8 @@ def main():
         f"{SS_BATCH}")
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
-        # deployment batches, the sampling CLI, SS training and sampling
+        # deployment batches, the sampling CLI, SS training and sampling,
+        # the realize phase's serving batch
         fwd_f32,
         kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
                "text2protein_tpu/ops/flash.py:168",
@@ -2468,7 +2826,7 @@ def main():
         "sampling_cli": sampling, "hybrid_reference": hybrid_ref,
         "hybrid_n256": hybrid16, "training_ss": training_ss,
         "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
-        "bf16_l128": bf16_l128, "text": text,
+        "bf16_l128": bf16_l128, "text": text, "realize": realize,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

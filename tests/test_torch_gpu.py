@@ -796,3 +796,83 @@ def test_trainer_on_gpu_takes_the_table_on_full_groups(cuda, tmp_path):
     tags = {json.loads(x)["tag"] for x in (
         res["workdir"] / "tb" / "metrics.jsonl").read_text().splitlines()}
     assert tags == {"training_loss", "avg_training_loss", "avg_eval_loss"}
+
+
+def _realize_problem(L=24, seed=3):
+    """A helix bundle's GT maps and 5 starts 0.5 A off its backbone."""
+    from text2protein_tpu_torch.data.featurize import featurize_structure
+    from text2protein_tpu_torch.data.synthetic import helix_bundle_backbone
+    from text2protein_tpu_torch.realize.restraints import inverse_scale
+
+    bb = helix_bundle_backbone(L, seed=seed, device="cpu")
+    c6d, _, _ = featurize_structure(bb, np.ones(L), ss_constraints=False)
+    rng = np.random.default_rng(0)
+    starts = (bb[None] + rng.standard_normal((5,) + bb.shape)
+              * 0.5).astype(np.float32)
+    return bb, inverse_scale(c6d, L), torch.from_numpy(starts)
+
+
+@pytest.mark.gpu
+def test_realize_energies_on_gpu_match_cpu(cuda):
+    """Every energy term and its gradient on the card against the CPU:
+    energies within 1e-5 relative (floored at 1), gradients within 1e-4 of
+    their largest entry."""
+    from text2protein_tpu_torch.realize import minimize as tm
+    from text2protein_tpu_torch.realize import restraints as tr
+
+    bb, npz, starts = _realize_problem()
+    ref = torch.from_numpy(bb[:, 1].copy())
+
+    def terms(dev):
+        rst = tr.restraints_from_maps(npz, device=dev)
+        return {
+            "restraint": lambda b: tr.restraint_energy(
+                b, rst, 24.0, {"dist": 3.0, "orient": 1.0}),
+            "long_dist": lambda b: tr.long_dist_energy(b, rst),
+            "ca_coordinate": lambda b: tr.ca_coordinate_energy(
+                b, ref.to(dev)),
+            "bonded": tr.bonded_energy,
+            "rama_cartesian": tr.rama_energy_cartesian,
+            "hbond": tr.hbond_energy,
+            "clash": tr.clash_energy,
+            "e_fold": lambda b: tm.e_fold(b, rst),
+            "e_ideal": lambda b: tm.e_ideal(b, rst),
+        }
+
+    def value_and_grad(fn, x):
+        x = x.clone().requires_grad_(True)
+        e = fn(x)
+        (g,) = torch.autograd.grad(e.sum(), x)
+        return e.detach().cpu().double(), g.cpu().double()
+
+    cpu, gpu = terms("cpu"), terms(cuda)
+    for name in cpu:
+        e_c, g_c = value_and_grad(cpu[name], starts)
+        e_g, g_g = value_and_grad(gpu[name], starts.to(cuda))
+        assert ((e_g - e_c).abs() <= 1e-5 * e_c.abs().clamp(min=1.0)).all()
+        assert (g_g - g_c).abs().max() <= 1e-4 * g_c.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_realize_lbfgs_on_gpu_matches_cpu(cuda):
+    """The first 5 fold-stage L-BFGS iterations of 5 starts on the card
+    and on the CPU: the same linesearch steps, iterates within 1e-3 A (f32
+    sums in the card's order part the iterates further at each
+    iteration)."""
+    from text2protein_tpu_torch.realize import minimize as tm
+    from text2protein_tpu_torch.realize import restraints as tr
+    from text2protein_tpu_torch.realize.lbfgs import LBFGS
+
+    _, npz, starts = _realize_problem()
+    solvers = {}
+    for dev in ("cpu", cuda):
+        rst = tr.restraints_from_maps(npz, device=dev)
+        solvers[str(dev)] = LBFGS(lambda b, r=rst: tm.e_fold(b, r),
+                                  starts.to(dev))
+    c, g = solvers["cpu"], solvers[str(cuda)]
+    for i in range(5):
+        c.step()
+        g.step()
+        np.testing.assert_array_equal(g.linesearch_steps[i],
+                                      c.linesearch_steps[i])
+        torch.testing.assert_close(g.x.cpu(), c.x, rtol=0, atol=1e-3)

@@ -6,7 +6,11 @@ of `run_batch(requests)` encodes the captions, builds the length masks, runs
 one trajectory for the batch (padded with copies of the last request) and
 returns one response per request, with the same fields as the JAX server:
 {"length", "nfe", "seed", "coords_6d_b64"} where `coords_6d_b64` is a base64
-npz holding "coords_6d", the (C, N, N) float32 map.
+npz holding "coords_6d", the (C, N, N) float32 map. A request with
+"realize": true also gets "pdb" (the realized backbone) and "energy" (its
+selection energy) when the server runs with `realize=True` (`--realize`),
+else a warning; each design is realized on its own, on the server's device
+(`realize/minimize.realize_6d_sample`).
 
 The weights come from the EMA of a training workdir's checkpoint
 (`--checkpoint`: a slot file such as `{workdir}/checkpoints/best_eval.pt`,
@@ -19,7 +23,8 @@ GET /healthz.
 Usage:
   python -m text2protein_tpu_torch.cli.serve [--config cfg.yml]
       [--checkpoint PATH | --weights state.pt] [--sampler pc|ode|hybrid]
-      [--batch_size 8] [--num_steps 100] [--port 8080] [--device cpu]
+      [--batch_size 8] [--num_steps 100] [--realize] [--port 8080]
+      [--device cpu]
   e.g. --config configs/deploy_l128.yml --checkpoint WORKDIR: the
   deployment sampler (hybrid ODE head + PC tail, CFG 2.0, NFE 920)
 """
@@ -54,7 +59,8 @@ class Server:
     """The model, the sampler and the request batching of one server."""
 
     def __init__(self, config, batch_size=8, num_steps=None, weights=None,
-                 weight_seed=0, device=None, sampler=None, checkpoint=None):
+                 weight_seed=0, device=None, sampler=None, checkpoint=None,
+                 realize=False):
         if weights is not None and checkpoint is not None:
             raise ValueError("pass weights or checkpoint, not both")
         if sampler is not None:
@@ -67,6 +73,7 @@ class Server:
         self.n = config.data.max_res_num
         self.c = config.data.num_channels
         self.b = batch_size
+        self.realize = realize
         sde, eps = get_sde(config)
         model = build_model(config, device=self.device)
         self.step = None  # the training step of a checkpoint's weights
@@ -130,10 +137,25 @@ class Server:
                 "seed": seed,
                 "coords_6d_b64": base64.b64encode(buf.getvalue()).decode(),
             }
-            if r.get("realize"):
-                item["warning"] = "3D realization is not ported yet"
+            if r.get("realize") and self.realize:
+                item.update(self._realize(cnn, item["length"]))
+            elif r.get("realize"):
+                item["warning"] = "server started without --realize"
             out.append(item)
         return out
+
+    def _realize(self, cnn, L):
+        """The "pdb" and "energy" of one sampled (C, N, N) map, its padding
+        channel rebuilt from the requested length first."""
+        from ..data.pdbio import format_backbone_pdb
+        from ..realize.minimize import realize_6d_sample
+
+        msk = np.zeros((self.n, self.n), np.float32)
+        msk[:L, :L] = 1.0
+        cnn = cnn.copy()
+        cnn[-1] = msk
+        bb, energy, _ = realize_6d_sample(cnn, device=self.device)
+        return {"pdb": format_backbone_pdb(bb), "energy": float(energy)}
 
 
 def decode_coords(item) -> np.ndarray:
@@ -240,6 +262,9 @@ def build_parser():
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--num_steps", type=int, default=None)
     p.add_argument("--device", type=str, default=None)
+    p.add_argument("--realize", action="store_true",
+                   help="allow per-request 3D realization (adds the "
+                        "restraint-minimization stage)")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
     return p
@@ -257,7 +282,8 @@ def server_from_args(args) -> Server:
     return Server(config, batch_size=args.batch_size,
                   num_steps=args.num_steps, weights=args.weights,
                   weight_seed=args.seed, device=args.device,
-                  sampler=args.sampler, checkpoint=args.checkpoint)
+                  sampler=args.sampler, checkpoint=args.checkpoint,
+                  realize=args.realize)
 
 
 def main(argv=None):
