@@ -146,6 +146,20 @@ Phases, each printing a flushed line with the seconds since start:
      --designer learned --n_restarts 2 --max_iter 10` on phase 14's
      pickles (the depth cut to keep the script inside its limit), its
      score.txt files read back by `eval.tm_sweeps.reu_stats`.
+ 23. distributed: min(cards, 4) ranks (2 of 3), one per card, NCCL, by
+     `parallel.launch.spawn`: 4 train steps of bench_l128_config() at
+     batch 16 on phase 6's first batches under FSDP2 (mesh.model 1),
+     held to the plain one-device steps on rank 0's card (phase 6's bars:
+     loss 1e-4, the last step's gradients and the parameters 5e-3 of their
+     scale), every rank's losses equal, exactly 30 f32 forward and 18 f32
+     backward launches per sharded step on every rank; the checkpoint
+     gathered from the shards, written, restored into a one-device state
+     and saved again, bit for bit; ms per plain and per sharded step, and
+     one more step of each timed in parts (forward + backward, clip +
+     Adam, EMA, the card synchronized around each); with
+     2 cards or more also data 2, with 4 also data 2 x model 2; then
+     `graft_entry.entry()`'s flagship forward on the card (18 forward
+     launches) and `graft_entry.dryrun_multichip(n)` on the same ranks.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -2665,6 +2679,284 @@ def phase_realize(torch, smi, sampled_dir):
     return out
 
 
+# phase 23: bench_l128 at batch 16 on a mesh of ranks, one per card (NCCL),
+# against the plain one-device steps on rank 0's card; each layout is one
+# `parallel.launch.spawn` of its ranks
+DIST_STEPS = 4       # train steps of each run (the first warms cuDNN up)
+DIST_GROUP_S = 600   # every collective's time limit (rank 0 runs the plain
+#                      steps while the others wait in their first one)
+DIST_LOSS_TOL = TRAIN_LOSS_TOL   # phase 6's card bars: loss 1e-4,
+DIST_GRAD_TOL = TRAIN_GRAD_TOL   # gradients and parameters 5e-3 of scale
+
+
+def step_parts(torch, state, step, batch, seed):
+    """One more train step, timed in parts with the card synchronized
+    around each (so the parts add up to a little more than a step):
+    {"step", "optimizer" (clip + Adam), "ema", "forward_backward" (the
+    rest: the draws, the loss, its backward and FSDP2's collectives)}."""
+    from text2protein_tpu_torch.training import steps as steps_mod
+
+    ms = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[name] = (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    opt_step, ema = state.optimizer.step, steps_mod.ema_update
+    state.optimizer.step = timed("optimizer", opt_step)
+    steps_mod.ema_update = timed("ema", ema)
+    try:
+        timed("step", step)(state, batch, seed)
+    finally:
+        state.optimizer.step, steps_mod.ema_update = opt_step, ema
+    ms["forward_backward"] = ms["step"] - ms["optimizer"] - ms["ema"]
+    return ms
+
+
+def dist_rank(records, data, model, ckpt):
+    """One rank of phase 23: DIST_STEPS steps of bench_l128_config() at
+    batch 16 on the first batches of phase 6's records, sharded over the
+    data x model mesh (FSDP2), with each step's flash launches; on rank 0
+    also the plain one-device steps on the same batches (first) and the
+    comparison, and the gathered checkpoint written, restored into a
+    one-device state and saved again, bit for bit."""
+    import numpy as np
+    import torch
+
+    from text2protein_tpu_torch import use_full_f32
+    from text2protein_tpu_torch.cli.train import (
+        split_dataset,
+        train_batches_from,
+    )
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.config import bench_l128_config
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import build_model, init_params
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.parallel.mesh import (
+        full_tensor,
+        init_distributed,
+        make_mesh,
+        shard_batch,
+        shard_train_state,
+    )
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+    from text2protein_tpu_torch.training.checkpoint import (
+        load_slot,
+        read_slot,
+        state_slot,
+    )
+    from text2protein_tpu_torch.training.state import create_train_state
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    info = init_distributed("cuda")
+    dev = info.device
+    use_full_f32()
+    config = bench_l128_config()
+    ds = ProteinProcessedDataset(records)
+    train_idx, _ = split_dataset(len(ds), config.seed)
+    stream = train_batches_from(ds, train_idx, TRAIN_BATCH,
+                                config.data.max_res_num, config.seed, 0)
+    host = [next(stream) for _ in range(DIST_STEPS)]
+    encoder = build_text_encoder(config)
+    ctx = [dict(zip(("context", "context_mask"), encoder.encode(b["caption"])))
+           for b in host]
+    sde, _ = get_sde(config)
+
+    def prepare(b, c, mesh):
+        arrays = batch_to_device_arrays(shard_batch(mesh, b), config,
+                                        device=dev)
+        for k, v in shard_batch(mesh, c).items():
+            arrays[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        return arrays
+
+    def run(mesh):
+        model = init_params(build_model(config, device=dev),
+                            torch.Generator().manual_seed(int(config.seed)))
+        state = create_train_state(config, model)
+        if mesh is not None:
+            shard_train_state(state, mesh)
+        step = make_train_step(config, sde, model, mesh)
+        out = {"losses": [], "ms": [], "fwd": [], "bwd": []}
+        for b, c in zip(host, ctx):
+            batch = prepare(b, c, mesh)
+            torch.cuda.synchronize()
+            flash.flash_attention_fwd.launches = 0
+            flash.flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            out["losses"].append(float(step(state, batch, config.seed + 1)))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["fwd"].append(flash.flash_attention_fwd.launches)
+            out["bwd"].append(flash.flash_attention_bwd.launches)
+        out["parts_ms"] = step_parts(torch, state, step,
+                                     prepare(host[0], ctx[0], mesh),
+                                     config.seed + 1)
+        # the last step's (clipped) gradients and the parameters, whole
+        grads = {k: full_tensor(p.grad) for k, p in
+                 state.model.named_parameters()}
+        params = {k: full_tensor(p.detach()) for k, p in
+                  state.model.named_parameters()}
+        return state, out, grads, params
+
+    res = {"rank": info.rank}
+    if info.rank == 0:
+        _, plain, p_grads, p_params = run(None)
+        res["plain"] = plain
+    mesh = make_mesh(data, model, device=dev)
+    state, sharded, s_grads, s_params = run(mesh)
+    res["sharded"] = sharded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slot = state_slot(state, config)
+    res["gather_s"] = time.perf_counter() - t0
+    if info.rank != 0:
+        return res
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(sharded["losses"], plain["losses"]))
+    grad_worst, grad_key = worst_grad_diff(s_grads, p_grads)
+    param_worst, param_key = worst_grad_diff(s_params, p_params)
+    t0 = time.perf_counter()
+    torch.save(slot, ckpt)
+    res["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = create_train_state(config, build_model(config, device=dev))
+    load_slot(one, read_slot(ckpt))
+    again = state_slot(one, config)
+    res["restore_s"] = time.perf_counter() - t0
+
+    def tensors(obj, prefix=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from tensors(v, f"{prefix}/{k}")
+        elif isinstance(obj, torch.Tensor):
+            yield prefix, obj
+
+    a, b = dict(tensors(slot)), dict(tensors(again))
+    res["ckpt_tensors"] = len(a)
+    res["ckpt_bitwise"] = a.keys() == b.keys() and all(
+        torch.equal(v, b[k]) for k, v in a.items())
+    res["ckpt_bytes"] = Path(ckpt).stat().st_size
+    Path(ckpt).unlink()
+    res.update(loss_rel=loss_rel, grad_worst=grad_worst, grad_key=grad_key,
+               param_worst=param_worst, param_key=param_key)
+    return res
+
+
+def phase_distributed(torch, smi, records):
+    """Phase 23: the sharded bench_l128 train step on min(cards, 4) ranks
+    (FSDP2, mesh.model 1) held to the plain steps, its flash launches, the
+    gathered checkpoint bit for bit; on 2 cards or more also data 2, on 4
+    also data 2 x model 2; then graft_entry.entry() on the card and
+    dryrun_multichip on the same ranks."""
+    import numpy as np
+
+    from text2protein_tpu_torch import graft_entry
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.parallel.launch import spawn
+
+    n = min(torch.cuda.device_count(), 4)
+    # batch 16 splits over 1, 2 or 4 data ranks (3 cards run 2)
+    data = 2 if n == 3 else n
+    layouts = [(data, 1)] + [(2, 1)] * (data > 2) + [(2, 2)] * (data == 4)
+    torch.cuda.empty_cache()
+    WORK.mkdir(parents=True, exist_ok=True)
+    runs, fwd, bwd = [], 0, 0
+    per_step = FWD_PER_TRAIN_STEP + REMAT_FWD_PER_TRAIN_STEP  # 30
+    for data, model in layouts:
+        t0 = time.perf_counter()
+        res = spawn(dist_rank, data * model,
+                    args=(str(records), data, model,
+                          str(WORK / "dist_checkpoint.pt")),
+                    device="cuda", timeout=900, group_timeout=DIST_GROUP_S)
+        seconds = time.perf_counter() - t0
+        r0 = res[0]
+        for r in res:
+            sh = r["sharded"]
+            if sh["losses"] != r0["sharded"]["losses"]:
+                raise AssertionError(f"rank {r['rank']} losses "
+                                     f"{sh['losses']} differ from rank 0's")
+            if (sh["fwd"] != [per_step] * DIST_STEPS
+                    or sh["bwd"] != [BWD_PER_TRAIN_STEP] * DIST_STEPS):
+                raise AssertionError(
+                    f"rank {r['rank']}: flash launches per sharded step "
+                    f"fwd {sh['fwd']} bwd {sh['bwd']}, expected {per_step} "
+                    f"and {BWD_PER_TRAIN_STEP}")
+            fwd += sum(sh["fwd"])
+            bwd += sum(sh["bwd"])
+        plain, sharded = r0["plain"], r0["sharded"]
+        ms_plain = float(np.median(plain["ms"][1:]))
+        ms_sharded = float(np.median(sharded["ms"][1:]))
+        log(f"distributed: data={data} x model={model} on {data * model} "
+            f"card(s) ({smi}): bench_l128 at batch {TRAIN_BATCH}, "
+            f"{DIST_STEPS} steps: losses {sharded['losses']} vs plain "
+            f"{plain['losses']} (worst rel {r0['loss_rel']:.2e}, tol "
+            f"{DIST_LOSS_TOL:.0e}); last step's gradients worst "
+            f"{r0['grad_key']} {r0['grad_worst']:.2e}, parameters worst "
+            f"{r0['param_key']} {r0['param_worst']:.2e} (tol "
+            f"{DIST_GRAD_TOL:.0e}); flash launches per sharded step "
+            f"{sharded['fwd'][0]} fwd + {sharded['bwd'][0]} bwd on every "
+            f"rank")
+        parts = {k: (f"{plain['parts_ms'][k]:.1f} / "
+                     f"{sharded['parts_ms'][k]:.1f}")
+                 for k in ("forward_backward", "optimizer", "ema", "step")}
+        log(f"distributed: {ms_plain:.2f} ms per plain step, {ms_sharded:.2f}"
+            f" ms per sharded step (median of steps 2-{DIST_STEPS}; all: "
+            f"plain {', '.join(f'{x:.1f}' for x in plain['ms'])}; sharded "
+            f"{', '.join(f'{x:.1f}' for x in sharded['ms'])}); checkpoint "
+            f"gathered in {r0['gather_s']:.2f} s, written "
+            f"({r0['ckpt_bytes'] / 2**20:.1f} MiB) in {r0['save_s']:.2f} s, "
+            f"restored into one device and saved again in "
+            f"{r0['restore_s']:.2f} s: {r0['ckpt_tensors']} tensors bit for "
+            f"bit {r0['ckpt_bitwise']}; {seconds:.1f} s with the ranks' "
+            f"start; one more step in parts, plain / sharded ms: {parts}")
+        if not (r0["loss_rel"] < DIST_LOSS_TOL
+                and r0["grad_worst"] < DIST_GRAD_TOL
+                and r0["param_worst"] < DIST_GRAD_TOL
+                and r0["ckpt_bitwise"]):
+            raise AssertionError("the sharded step disagrees with the plain "
+                                 "one, or the checkpoint (line above)")
+        runs.append(dict(data=data, model=model, seconds=seconds,
+                         ms_per_plain_step=ms_plain,
+                         ms_per_sharded_step=ms_sharded,
+                         **{k: v for k, v in r0.items() if k != "rank"}))
+
+    fn, args = graft_entry.entry()
+    flash.flash_attention_fwd.launches = 0
+    with torch.no_grad():
+        out = fn(*args)
+    torch.cuda.synchronize()
+    entry_launches = flash.flash_attention_fwd.launches
+    if (tuple(out.shape) != (2, 128, 128, 5)
+            or not bool(out.isfinite().all())
+            or entry_launches != FWD_PER_TRAIN_STEP):
+        raise AssertionError(f"entry(): shape {tuple(out.shape)}, launches "
+                             f"{entry_launches}")
+    fwd += entry_launches
+    del fn, args, out
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(n)
+    dry_s = time.perf_counter() - t0
+    fwd += dry["fwd_launches"]
+    bwd += dry["bwd_launches"]
+    log(f"distributed: entry() forward on the card (2, 128, 128, 5), finite,"
+        f" {entry_launches} flash_fwd launches; dryrun_multichip({n}): mesh "
+        f"{dry['mesh']}, loss {dry['loss']:.4f}, sampler "
+        f"{dry['samples'].shape} finite, nfe {dry['nfe']}, flash launches "
+        f"fwd {dry['fwd_launches']} bwd {dry['bwd_launches']}, "
+        f"{dry_s:.1f} s")
+    return dict(ranks=n, runs=runs, fwd_launches=fwd, bwd_launches=bwd,
+                entry_launches=entry_launches,
+                dryrun={k: v for k, v in dry.items() if k != "samples"},
+                dryrun_seconds=dry_s)
+
+
 def main():
     import torch
 
@@ -2709,6 +3001,7 @@ def main():
     bf16_l128 = phase_bf16_l128(torch, ptxas, records_ss)
     text = phase_text(torch, ptxas, smi)
     realize = phase_realize(torch, smi, sampling["out_dir"])
+    distributed = phase_distributed(torch, smi, records)
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -2757,7 +3050,8 @@ def main():
         "text2protein_tpu/ops/flash.py:50",
         launches + training["fwd_launches"] + deploy["launches"]
         + sampling["launches"] + training_ss["fwd_launches"]
-        + sampling_ss["launches"] + realize["launches"], rows,
+        + sampling_ss["launches"] + realize["launches"]
+        + distributed["fwd_launches"], rows,
         f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
@@ -2800,11 +3094,13 @@ def main():
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
         # deployment batches, the sampling CLI, SS training and sampling,
-        # the realize phase's serving batch
+        # the realize phase's serving batch, the sharded train steps, the
+        # entry() forward and the dryrun (phase 23)
         fwd_f32,
         kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
                "text2protein_tpu/ops/flash.py:168",
-               training["bwd_launches"] + training_ss["bwd_launches"],
+               training["bwd_launches"] + training_ss["bwd_launches"]
+               + distributed["bwd_launches"],
                bwd_rows, f"train step at batch {TRAIN_BATCH}"),
         # bf16: N=256 serving, training (+ its eval) and hybrid; the
         # quality_ss_vp train steps (+ eval); the quality_text_cfgft train
@@ -2827,6 +3123,7 @@ def main():
         "hybrid_n256": hybrid16, "training_ss": training_ss,
         "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
         "bf16_l128": bf16_l128, "text": text, "realize": realize,
+        "distributed": distributed,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

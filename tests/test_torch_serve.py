@@ -179,6 +179,11 @@ def test_port_imports_no_jax():
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "text2protein_tpu_torch").rglob("*.py"))
+    assert {"text2protein_tpu_torch.parallel.mesh",
+            "text2protein_tpu_torch.parallel.launch",
+            "text2protein_tpu_torch.graft_entry",
+            "text2protein_tpu_torch.models.normalization",
+            "text2protein_tpu_torch.utils.plotting"} <= set(mods)
     code = "\n".join(f"import {m}" for m in mods + ["chip_smoke"])
     loaded = _imports_in_clean_process(code)
     bad = [m for m in loaded

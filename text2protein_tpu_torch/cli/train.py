@@ -1,4 +1,5 @@
-"""Training CLI (counterpart of text2protein_tpu/cli/train.py), one device.
+"""Training CLI (counterpart of text2protein_tpu/cli/train.py), on one device
+or on a ('data', 'model') mesh of ranks.
 
 config -> processed records -> 95/5 split -> a loop of train steps (loss
 and backward -> clip -> Adam -> EMA) on batches the loader reads ahead,
@@ -58,13 +59,34 @@ f32. The port runs every step as its own call (the fused launch hides a
 TPU's dispatch latency), and takes each step's context from where the JAX
 trainer would: the table's bf16 rows, cast to f32, on the steps of full
 groups of K, the f32 encode elsewhere. Its eval and log boundaries fall at
-steps, where the JAX trainer's fall at the ends of launches. Not ported:
-multi-device meshes.
+steps, where the JAX trainer's fall at the ends of launches.
+
+Under `torch.distributed.run` (WORLD_SIZE > 1, or `--multihost`) each
+process is a rank on its own card (`cuda:LOCAL_RANK`, NCCL; gloo with
+`--device cpu`) and the run trains on the `mesh:` section's mesh
+(`parallel/mesh.py`): model = mesh.model, data = gcd(batch_size,
+mesh.data or WORLD_SIZE // model), which must fill the world (the JAX
+trainer leaves surplus devices idle; this one raises). Each node (a JAX
+host) loads batch_size rows a step from its shard of the index space, so
+the global batch is batch_size x nodes and an epoch has len(train) //
+(batch_size x nodes) steps; each rank takes its rows of its node's batch
+(and of the context table) and the state is sharded by FSDP2 over `model`.
+The losses logged and the averages the best gate compares are the global
+batch's means, the same on every rank; rank 0 alone writes the workdir
+(config, ids, metrics, checkpoints, samples), every rank taking part in
+gathering a checkpoint's state. On one node the run computes what the
+one-device run computes at the same batch, up to the rounding of the
+reductions, and its checkpoints resume on any mesh. A mesh that does not
+fit the world raises before the first step, also in one process.
 
 Usage:
   python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
       [--data DIR] [--max_steps N] [--workdir_root DIR | --resume DIR]
-      [--out ema.pt] [--device cpu]
+      [--out ema.pt] [--device cpu] [--multihost]
+  python -m torch.distributed.run --nproc_per_node=K -m
+      text2protein_tpu_torch.cli.train --config configs/bench_l128.yml
+      --data DIR  (K ranks on one node; several nodes: --nnodes,
+      --node_rank, --rdzv_endpoint as torchrun takes them)
   e.g. --config configs/quality_n256.yml --data DIR: the N=256 model in
   bf16 with remat and featurization on the device, batch 8;
   --config configs/quality_ss.yml --data DIR: the SS + inpainting model
@@ -75,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import pickle
 import time
 from datetime import datetime
@@ -82,6 +105,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device, use_full_f32
 from ..conditioning import batch_to_device_arrays, get_condition_from_batch
@@ -91,6 +115,17 @@ from ..data.loader import PrefetchLoader
 from ..diffusion.sampling import get_sampling_fn
 from ..diffusion.sde import get_sde
 from ..models.unet import build_model, init_params
+from ..parallel.mesh import (
+    Mesh,
+    full_tensor,
+    gather_rows,
+    init_distributed,
+    make_mesh,
+    mesh_axes,
+    row_generator,
+    shard_batch,
+    shard_train_state,
+)
 from ..text.encoder import build_text_encoder
 from ..training.checkpoint import CheckpointManager, state_slot
 from ..training.state import create_train_state, param_count
@@ -122,6 +157,9 @@ def build_argparser():
     p.add_argument("--out", type=str, default=None,
                    help="also write the EMA params here (torch state dict)")
     p.add_argument("--device", type=str, default=None)
+    p.add_argument("--multihost", action="store_true",
+                   help="join the ranks of a torch.distributed launch even "
+                        "at WORLD_SIZE 1")
     return p
 
 
@@ -142,20 +180,24 @@ def batches(dataset, indices, batch_size, max_len, rng, shuffle=True,
     yield from loader
 
 
-def train_batches_from(dataset, indices, batch_size, max_len, seed, step):
-    """The training stream from step `step` on: epoch e shuffles with the
-    (e + 2)-th draw of RandomState(seed), as the JAX trainer's stream does
-    from step 0 (its first draw shuffles the batch it initializes the state
-    from, text2protein_tpu/cli/train.py:205,348,451-454); a resumed run
-    starts inside its epoch."""
+def train_batches_from(dataset, indices, batch_size, max_len, seed, step,
+                       host_id=0, host_count=1):
+    """The training stream of node `host_id` from step `step` on: epoch e
+    of its shard of the index space shuffles with the (e + 2)-th draw of
+    RandomState(seed), as the JAX trainer's stream does from step 0 (its
+    first draw shuffles the batch it initializes the state from,
+    text2protein_tpu/cli/train.py:205,348,451-454); a resumed run starts
+    inside its epoch."""
     host_rng = np.random.RandomState(seed)
-    epoch, skip = divmod(step, max(1, len(indices) // batch_size))
+    shard = len(np.asarray(indices)[host_id::host_count])
+    epoch, skip = divmod(step, max(1, shard // batch_size))
     for _ in range(1 + epoch):
         host_rng.randint(2**31)
     while True:
         yield from PrefetchLoader(dataset, indices, batch_size, max_len,
                                   seed=int(host_rng.randint(2**31)),
-                                  start=skip)
+                                  start=skip, host_id=host_id,
+                                  host_count=host_count)
         skip = 0
 
 
@@ -287,16 +329,59 @@ def _once(fn):
     return call
 
 
+class _NoWriter:
+    """The metrics writer of the ranks other than 0."""
+
+    def scalar(self, tag, value, step):
+        pass
+
+    def close(self):
+        pass
+
+
+def setup_mesh(args, config, device):
+    """(rank info or None, mesh or None, device): the mesh of a distributed
+    launch (WORLD_SIZE > 1 or --multihost), or None in one process. The
+    config's mesh must fit the world either way."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    distributed = world > 1 or args.multihost or dist.is_initialized()
+    if not distributed:
+        mesh_axes(config.training.batch_size, 1, config.mesh.data,
+                  config.mesh.model)
+        return None, None, device
+    info = init_distributed(device)
+    data, model = mesh_axes(config.training.batch_size, info.world,
+                            config.mesh.data, config.mesh.model)
+    mesh = make_mesh(data, model, device=info.device,
+                     host_count=info.host_count)
+    return info, mesh, info.device
+
+
 def main(argv=None):
     """Train; returns {"losses", "step_seconds", "lrs", "eval_loss",
     "evals", "state", "steps", "records", "workdir", "out", "table_steps",
-    "context_table"}; `evals` holds (step, avg_train, avg_eval) per eval
-    boundary, `table_steps` counts the steps whose context came from the
-    resident table, and `context_table` is {"unique", "bytes"} of that
-    table (None without one)."""
+    "context_table", "mesh"}; `evals` holds (step, avg_train, avg_eval) per
+    eval boundary, `table_steps` counts the steps whose context came from
+    the resident table, `context_table` is {"unique", "bytes"} of that
+    table (None without one), and `mesh` is {"data", "model", "world",
+    "nodes"} (None in one process)."""
     args = build_argparser().parse_args(argv)
     config = load_config(args.config) if args.config else bench_l128_config()
     device = resolve_device(args.device)
+    owns_group = not dist.is_initialized()
+    info, mesh, device = setup_mesh(args, config, device)
+    try:
+        return _train(args, config, device, info, mesh)
+    finally:
+        if info is not None and owns_group:
+            dist.destroy_process_group()
+
+
+def _train(args, config, device, info, mesh: Mesh | None):
+    rank = info.rank if info else 0
+    host_id, host_count = (info.host_id, info.host_count) if info else (0, 1)
+    writes = rank == 0
+    say = print if writes else (lambda *a, **k: None)
     if device.type == "cuda":
         use_full_f32()
 
@@ -306,8 +391,13 @@ def main(argv=None):
         cfg_name = Path(args.config).stem if args.config else "bench_l128"
         stamp = datetime.now().strftime("%Y%m%d_%H%M%S")
         workdir = Path(args.workdir_root) / cfg_name / stamp
-    workdir.mkdir(parents=True, exist_ok=True)
-    save_config(config, workdir / "config.yml")
+    if mesh is not None:  # rank 0's clock names the workdir
+        box = [str(workdir)]
+        dist.broadcast_object_list(box, src=0)
+        workdir = Path(box[0])
+    if writes:
+        workdir.mkdir(parents=True, exist_ok=True)
+        save_config(config, workdir / "config.yml")
 
     dataset = ProteinProcessedDataset(args.data
                                       or config.data.processed_dataset_path)
@@ -318,52 +408,65 @@ def main(argv=None):
     train_idx, eval_idx = split_dataset(n_total, config.seed)
     for name, idx in (("train_ids.txt", train_idx),
                       ("test_ids.txt", eval_idx)):
-        (workdir / name).write_text("\n".join(
-            dataset.data_paths[i].split(".")[0] for i in idx))
+        if writes:
+            (workdir / name).write_text("\n".join(
+                dataset.data_paths[i].split(".")[0] for i in idx))
 
     sde, sampling_eps = get_sde(config)
     model = init_params(build_model(config, device=device),
                         torch.Generator().manual_seed(int(config.seed)))
     encoder = build_text_encoder(config)
     state = create_train_state(config, model)
-    ckpt = CheckpointManager(workdir)
+    if mesh is not None:
+        shard_train_state(state, mesh)
+    ckpt = CheckpointManager(workdir, writer=writes)
     trainer = {}
     if ckpt.has_meta() or args.resume:
         try:
             slot = (ckpt.restore_meta(state) if ckpt.has_meta()
                     else ckpt.restore_newest(state))
             trainer = slot["trainer"]
-            print(f"resumed {workdir} at step {state.step}", flush=True)
+            say(f"resumed {workdir} at step {state.step}", flush=True)
         except FileNotFoundError:
-            print(f"no checkpoint in {workdir}; starting from step 0",
-                  flush=True)
-    train_step = make_train_step(config, sde, model)
-    eval_step = make_eval_step(config, sde, model)
+            say(f"no checkpoint in {workdir}; starting from step 0",
+                flush=True)
+    train_step = make_train_step(config, sde, model, mesh)
+    eval_step = make_eval_step(config, sde, model, mesh)
     bs = config.training.batch_size
     max_len = config.data.max_res_num
 
     resident = resident_table(config, dataset, encoder, device)
 
     def prepare(batch, from_table=False):
-        """The step's tensors; the context from the resident table's rows
-        of the batch's records, or encoded in f32."""
-        arrays = batch_to_device_arrays(batch, config, device=device)
+        """This rank's rows of the step's tensors (every row of a one-
+        device run); the context from the resident table's rows of the
+        batch's records, or the node's batch encoded in f32 and this rank's
+        rows kept."""
+        rows = shard_batch(mesh, batch)
+        arrays = batch_to_device_arrays(rows, config, device=device)
         if from_table:
-            rows = resident["inv"][torch.from_numpy(batch["index"]).to(
+            idx = resident["inv"][torch.from_numpy(rows["index"]).to(
                 device).long()]
-            arrays["context"] = resident["table"][rows].float()
-            arrays["context_mask"] = resident["mask"][rows]
+            arrays["context"] = resident["table"][idx].float()
+            arrays["context_mask"] = resident["mask"][idx]
             return arrays
         emb, emb_mask = encoder.encode(batch["caption"])
-        arrays["context"] = torch.from_numpy(emb).to(device)
-        arrays["context_mask"] = torch.from_numpy(emb_mask).to(device)
+        ctx = shard_batch(mesh, {"context": emb, "context_mask": emb_mask})
+        for k, v in ctx.items():
+            arrays[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
         return arrays
 
-    print(f"model params: {param_count(model) / 1e6:.2f}M  device: "
-          f"{device}  records: {n_total} (train {len(train_idx)}, eval "
-          f"{len(eval_idx)})  batch: {bs}  workdir: {workdir}", flush=True)
+    say(f"model params: {param_count(model) / 1e6:.2f}M  device: "
+        f"{device}  records: {n_total} (train {len(train_idx)}, eval "
+        f"{len(eval_idx)})  batch: {bs}"
+        + ("" if mesh is None else
+           f" x {host_count} nodes  mesh: data={mesh.data} "
+           f"model={mesh.model}")
+        + f"  workdir: {workdir}", flush=True)
 
-    steps_per_epoch = max(1, len(train_idx) // bs)
+    # each node loads its shard of the index space: an epoch of the whole
+    # split takes len // (bs x nodes) steps
+    steps_per_epoch = max(1, len(train_idx) // (bs * host_count))
     budget = min(args.max_steps or config.training.n_iters,
                  int(config.training.epochs) * steps_per_epoch)
     meta_freq = max(1, int(config.training.snapshot_freq_for_preemption))
@@ -374,7 +477,7 @@ def main(argv=None):
                   if int(s) >= state.step
                   and not ckpt.snapshot_path(int(s)).exists()]
     stream = train_batches_from(dataset, train_idx, bs, max_len,
-                                config.seed, state.step)
+                                config.seed, state.step, host_id, host_count)
     table_end = (table_steps_end(state.step, budget,
                                  config.training.get("steps_per_launch", 1))
                  if resident is not None else state.step)
@@ -386,25 +489,36 @@ def main(argv=None):
     def snapshot_sample(batch, epoch):
         """Sample one batch with the EMA params, conditioned on `batch`
         (its random inpainting masks drawn too), and pickle it. The model
-        and the sampler are built at the first call and reused."""
+        and the sampler are built at the first call and reused. On a mesh
+        each rank samples its rows of the batch with a whole copy of the
+        EMA, and rank 0 gathers and pickles them."""
+        rows = shard_batch(mesh, batch, per_node=False)
+        b = len(rows["caption"])
         if not sampler_cache:
             ema_model = build_model(config, device=device)
             ema_model.requires_grad_(False)
-            shape = (bs, max_len, max_len, config.data.num_channels)
+            shape = (b, max_len, max_len, config.data.num_channels)
             sampler_cache["model"] = ema_model
             sampler_cache["fn"] = get_sampling_fn(config, sde, ema_model,
-                                                  shape, sampling_eps)
-        sampler_cache["model"].load_state_dict(state.ema.params,
-                                               strict=True)
-        gen = step_generator(config.seed, state.step, device,
-                             SNAPSHOT_STREAM)
-        condition = get_condition_from_batch(config, batch, device=device,
+                                                  shape, sampling_eps,
+                                                  mesh=mesh)
+        sampler_cache["model"].load_state_dict(
+            {k: full_tensor(v) for k, v in state.ema.params.items()},
+            strict=True)
+        gen = row_generator(step_generator(config.seed, state.step, device,
+                                           SNAPSHOT_STREAM), mesh, b)
+        condition = get_condition_from_batch(config, rows, device=device,
                                              generator=gen)
         emb, emb_mask = encoder.encode(batch["caption"])
+        ctx = shard_batch(mesh, {"context": emb, "context_mask": emb_mask},
+                          per_node=False)
         sample, _ = sampler_cache["fn"](
             gen, condition=condition,
-            context=torch.from_numpy(emb).to(device),
-            context_mask=torch.from_numpy(emb_mask).to(device))
+            context=torch.from_numpy(ctx["context"]).to(device),
+            context_mask=torch.from_numpy(ctx["context_mask"]).to(device))
+        sample = gather_rows(mesh, sample)
+        if not writes:
+            return
         sdir = workdir / "samples" / f"epoch_{epoch}"
         sdir.mkdir(parents=True, exist_ok=True)
         with open(sdir / "sample.pkl", "wb") as f:
@@ -420,7 +534,7 @@ def main(argv=None):
     log_freq = max(1, int(config.training.log_freq))
     last_meta = last_eval = state.step
     table_steps = 0
-    writer = MetricsWriter(workdir / "tb")
+    writer = MetricsWriter(workdir / "tb") if writes else _NoWriter()
     try:
         while state.step < budget:
             t0 = time.perf_counter()
@@ -436,9 +550,9 @@ def main(argv=None):
             if step % log_freq == 0:
                 writer.scalar("training_loss", loss, step)
             if step % log_freq == 0 or done:
-                print(f"step {step} loss {loss:.5f} "
-                      f"({bs / step_seconds[-1]:.1f} samples/s)",
-                      flush=True)
+                say(f"step {step} loss {loss:.5f} "
+                    f"({bs * host_count / step_seconds[-1]:.1f} "
+                    f"samples/s)", flush=True)
 
             if step - last_eval >= eval_freq or done:
                 last_eval = step
@@ -449,12 +563,15 @@ def main(argv=None):
                 if math.isfinite(avg_eval):
                     writer.scalar("avg_eval_loss", avg_eval, step)
                 evals.append((step, avg_train, avg_eval))
-                print(f"step {step}: avg_train {avg_train:.5f} avg_eval "
-                      f"{avg_eval:.5f}", flush=True)
+                say(f"step {step}: avg_train {avg_train:.5f} avg_eval "
+                    f"{avg_eval:.5f}", flush=True)
                 if (config.training.snapshot_sampling
                         and last_eval_batch is not None):
                     snapshot_sample(last_eval_batch, step // steps_per_epoch)
-                boundary_slot = _once(slot)  # one host copy for both kinds
+                # one host copy for both kinds; every rank takes part in
+                # gathering it, and the averages, and so the gate's
+                # decisions, are the same on every rank
+                boundary_slot = _once(slot)
                 gate.offer("train", avg_train, boundary_slot)
                 gate.offer("eval", avg_eval, boundary_slot)
                 due = gate.due(step, done)
@@ -465,8 +582,8 @@ def main(argv=None):
                 for s, kinds in by_slot.values():
                     s["trainer"]["best"] = {k: due[k][0] for k in kinds}
                     ckpt.save_best(s, *kinds)
-                    print(f"saved best_{'/best_'.join(kinds)} of step "
-                          f"{s['step']}", flush=True)
+                    say(f"saved best_{'/best_'.join(kinds)} of step "
+                        f"{s['step']}", flush=True)
                 for s in [s for s in snap_steps if s <= step]:
                     ckpt.save_snapshot(slot(), s)
                     snap_steps.remove(s)
@@ -479,20 +596,25 @@ def main(argv=None):
     finally:
         writer.close()
     eval_loss = evals[-1][2] if evals else eval_pass(state)[0]
-    print(f"done at step {state.step}: avg_train "
-          f"{np.mean(losses) if losses else float('nan'):.5f} eval (EMA) "
-          f"{eval_loss:.5f}; workdir {workdir}", flush=True)
+    say(f"done at step {state.step}: avg_train "
+        f"{np.mean(losses) if losses else float('nan'):.5f} eval (EMA) "
+        f"{eval_loss:.5f}; workdir {workdir}", flush=True)
     if args.out:
-        torch.save({k: v.detach().cpu()
-                    for k, v in state.ema.params.items()}, args.out)
-        print(f"EMA params written to {args.out}", flush=True)
+        ema = {k: full_tensor(v.detach()).cpu()
+               for k, v in state.ema.params.items()}
+        if writes:
+            torch.save(ema, args.out)
+            print(f"EMA params written to {args.out}", flush=True)
     return {"losses": losses, "step_seconds": step_seconds, "lrs": lrs,
             "eval_loss": eval_loss, "evals": evals, "state": state,
             "steps": state.step, "records": n_total, "workdir": workdir,
             "out": args.out, "table_steps": table_steps,
             "context_table": None if resident is None else {
                 "unique": int(resident["table"].shape[0]),
-                "bytes": resident["bytes"]}}
+                "bytes": resident["bytes"]},
+            "mesh": None if mesh is None else {
+                "data": mesh.data, "model": mesh.model,
+                "world": mesh.world, "nodes": host_count}}
 
 
 if __name__ == "__main__":

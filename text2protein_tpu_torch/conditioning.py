@@ -12,6 +12,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .parallel.mesh import rand
+
 
 def length_mask(lengths, n):
     """(B,) lengths -> (B, N, N) bool, True on the leading [l, l] square."""
@@ -43,7 +45,9 @@ def random_mask_batch(lengths, n, config, generator=None, draws=None):
     The draws come from `generator` (on lengths' device), in this order: the
     choice (a 0-d uniform), the span uniforms (B,), the scores (B, N) and
     the start uniforms (B,); or they are injected as `draws`, a dict with
-    those four tensors under "prob", "span", "scores" and "start"."""
+    those four tensors under "prob", "span", "scores" and "start". A
+    RowGenerator draws each for the global batch and keeps this rank's rows;
+    the choice is then the same on every rank."""
     if "inpainting" not in config.model.condition:
         return None
     inp = config.model.inpainting
@@ -56,8 +60,7 @@ def random_mask_batch(lengths, n, config, generator=None, draws=None):
                              "injected draws")
 
         def uniform(shape):
-            return torch.rand(shape, generator=generator, device=dev,
-                              dtype=f32)
+            return rand(shape, generator, dev)
 
         draws = {"prob": uniform(()), "span": uniform((b,)),
                  "scores": uniform((b, n)), "start": uniform((b,))}

@@ -126,6 +126,12 @@ _DEFAULTS = {
         "warmup": 5000,
         "grad_clip": 1.0,
     },
+    # the ('data', 'model') mesh of ranks (parallel/mesh.py): data -1 means
+    # every rank that model leaves
+    "mesh": {
+        "data": -1,
+        "model": 1,
+    },
     "text": {
         "encoder": "hash",  # hash | cache | hf
         "model_name": "lmsys/vicuna-7b-v1.3",

@@ -1,6 +1,8 @@
 """Shuffled epoch batching with one background prefetch thread
 (counterpart of text2protein_tpu/data/loader.py). Each batch carries its
-records' dataset indices, `index` (B,) int32 (`loader.py:55-59`)."""
+records' dataset indices, `index` (B,) int32 (`loader.py:55-59`). Across
+nodes each loads its shard of the index space, `indices[host_id::
+host_count]`, as each JAX host does (`loader.py:35`)."""
 
 from __future__ import annotations
 
@@ -22,12 +24,14 @@ class PrefetchLoader:
       seed: the shuffle's seed (an explicit numpy RandomState).
       start: the number of the epoch's first batches to leave out (a
         resumed run continues inside its epoch).
+      host_id/host_count: this node's shard of the index space.
     """
 
     def __init__(self, dataset, indices, batch_size, max_len, seed=0,
-                 prefetch=2, shuffle=True, drop_last=True, start=0):
+                 prefetch=2, shuffle=True, drop_last=True, start=0,
+                 host_id=0, host_count=1):
         self.dataset = dataset
-        self.indices = np.asarray(indices)
+        self.indices = np.asarray(indices)[host_id::host_count]
         self.batch_size = batch_size
         self.max_len = max_len
         self.prefetch = prefetch

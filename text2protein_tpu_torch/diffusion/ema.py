@@ -5,7 +5,8 @@ Effective decay = min(decay, (1 + n) / (10 + n)) with n counted after the
 increment, and ema <- ema - (1 - decay) * (ema - p), computed in float32 as
 the JAX package computes it. The JAX package returns a new state; here the
 EMA tensors are updated in place, which saves a copy of the parameters per
-step.
+step. Sharded EMA tensors and parameters (DTensors placed alike) are
+updated shard by shard.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import local
 
 
 @dataclass
@@ -36,6 +39,7 @@ def ema_update(state: EMAState, new_params: dict) -> EMAState:
                 (np.float32(1.0) + n) / (np.float32(10.0) + n))
     one_minus = float(np.float32(1.0) - decay)
     for k, s in state.params.items():
-        s.sub_((s - new_params[k].detach()) * one_minus)
+        s, p = local(s), local(new_params[k].detach())
+        s.sub_((s - p) * one_minus)
     state.num_updates += 1
     return state

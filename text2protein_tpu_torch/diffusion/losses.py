@@ -12,7 +12,8 @@ Batch layout, as in the JAX package:
 Every random draw is injectable: the diffusion time `t`, the noise `z`, the
 context-dropout keep mask and the SS block-dropout mask. What is not
 injected is drawn from the explicit `generator`, which also feeds the
-model's dropout masks in train mode.
+model's dropout masks in train mode; a `parallel.mesh.RowGenerator` makes
+each draw for the global batch and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..models.utils import get_score_fn
+from ..parallel.mesh import rand, randn
 from .sde import bcast
 
 
@@ -31,8 +33,7 @@ def block_dropout(coords_6d, ss_spans, p: float = 0.2, generator=None,
     b, n = coords_6d.shape[0], coords_6d.shape[1]
     dev = coords_6d.device
     if drop is None:
-        drop = torch.rand(ss_spans.shape[:2], generator=generator,
-                          device=dev) < p
+        drop = rand(ss_spans.shape[:2], generator, dev) < p
     drop = drop & (ss_spans[..., 0] >= 0)
     pos = torch.arange(n, device=dev)
     in_span = ((pos[None, None, :] >= ss_spans[..., 0:1])
@@ -86,8 +87,7 @@ def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
         context = batch.get("context")
         if train and context_dropout > 0.0 and context is not None:
             if context_keep is None:
-                context_keep = torch.rand((b,), generator=generator,
-                                          device=dev) >= context_dropout
+                context_keep = rand((b,), generator, dev) >= context_dropout
             context = context * context_keep.to(context.dtype)[:, None, None]
 
         if "ss" in condition:
@@ -99,10 +99,9 @@ def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
                                 generator=generator)
 
         if t is None:
-            t = (torch.rand((b,), generator=generator, device=dev)
-                 * (sde.T - eps) + eps)
+            t = rand((b,), generator, dev) * (sde.T - eps) + eps
         if z is None:
-            z = torch.randn(coords_6d.shape, generator=generator, device=dev)
+            z = randn(coords_6d.shape, generator, dev)
         mean, std = sde.marginal_prob(coords_6d, t)
         perturbed = mean + bcast(std, coords_6d.ndim) * z
 

@@ -132,7 +132,7 @@ def hybrid_grids(sde, ode_steps, pc_steps, sigma_cross, eps=1e-5):
 
 def get_hybrid_sampler(sde, model, shape, ode_steps=60, pc_steps=170,
                        sigma_cross=2.0, snr=0.17, n_steps=1, denoise=True,
-                       eps=1e-5, cfg_scale=1.0):
+                       eps=1e-5, cfg_scale=1.0, mesh=None):
     """ODE head + PC tail: the deployment sampler.
 
     Heun steps of the probability-flow ODE over [T, t_handoff] with the
@@ -146,6 +146,8 @@ def get_hybrid_sampler(sde, model, shape, ode_steps=60, pc_steps=170,
     Defined for the VE SDE only (sigma_min, sigma_max); any other raises.
     Returns sampler(generator=None, condition=None, context=None,
     context_mask=None, noise_fn=None) -> (samples (B, N, N, C), nfe).
+    `mesh` as in `get_pc_sampler` (the tail's corrector takes the global
+    batch's means).
     """
     if not isinstance(sde, sde_lib.VESDE):
         raise ValueError(f"the hybrid sampler is defined for the VE SDE "
@@ -171,7 +173,7 @@ def get_hybrid_sampler(sde, model, shape, ode_steps=60, pc_steps=170,
             return f - 0.5 * bcast(g, x.ndim) ** 2 * score_fn(x, vec_t)
 
         pred = ReverseDiffusionPredictor(sde_tail, score_fn, False)
-        corr = LangevinCorrector(sde_tail, score_fn, snr, n_steps)
+        corr = LangevinCorrector(sde_tail, score_fn, snr, n_steps, mesh)
         with torch.inference_mode():
             x = sde.prior_sampling(noise_fn(shape)).to(device)
             x, cmask = apply_condition(x, condition)

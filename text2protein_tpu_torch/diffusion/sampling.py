@@ -18,6 +18,7 @@ import torch
 from . import sde as sde_lib
 from .sde import bcast
 from ..models.utils import get_score_fn
+from ..parallel.mesh import mean_over_rows, randn
 
 _PREDICTORS = {}
 _CORRECTORS = {}
@@ -66,11 +67,18 @@ class Predictor:
 
 
 class Corrector:
-    def __init__(self, sde, score_fn, snr, n_steps):
+    """`mesh` (parallel.mesh) makes a batch mean the global batch's mean
+    when each rank samples its rows of it."""
+
+    def __init__(self, sde, score_fn, snr, n_steps, mesh=None):
         self.sde = sde
         self.score_fn = score_fn
         self.snr = snr
         self.n_steps = n_steps
+        self.mesh = mesh
+
+    def batch_mean(self, v):
+        return mean_over_rows(self.mesh, v.mean())
 
     def update_fn(self, noise_fn, x, t):
         raise NotImplementedError
@@ -107,7 +115,7 @@ class NonePredictor(Predictor):
 @register_corrector(name="langevin")
 class LangevinCorrector(Corrector):
     """n_steps of step = 2*alpha*(snr*||z||/||grad||)^2; the norms are batch
-    means."""
+    means (of the global batch on a mesh)."""
 
     def update_fn(self, noise_fn, x, t):
         sde = self.sde
@@ -121,8 +129,10 @@ class LangevinCorrector(Corrector):
         for _ in range(self.n_steps):
             grad = self.score_fn(x, t)
             noise = noise_fn(x.shape)
-            grad_norm = torch.linalg.norm(grad.reshape(b, -1), dim=-1).mean()
-            noise_norm = torch.linalg.norm(noise.reshape(b, -1), dim=-1).mean()
+            grad_norm = self.batch_mean(
+                torch.linalg.norm(grad.reshape(b, -1), dim=-1))
+            noise_norm = self.batch_mean(
+                torch.linalg.norm(noise.reshape(b, -1), dim=-1))
             step_size = (self.snr * noise_norm / grad_norm) ** 2 * 2 * alpha
             x_mean = x + bcast(step_size, x.ndim) * grad
             x = x_mean + bcast(torch.sqrt(step_size * 2), x.ndim) * noise
@@ -163,12 +173,13 @@ def apply_condition(x, condition):
 
 def default_noise_fn(noise_fn, generator, device):
     """`noise_fn` when given, else standard-normal draws from `generator`
-    on `device`."""
+    on `device` (a RowGenerator samples this rank's rows of the global
+    batch: each draw is made for the global batch and its rows kept)."""
     if noise_fn is not None:
         return noise_fn
 
     def draw(shape):
-        return torch.randn(shape, generator=generator, device=device)
+        return randn(shape, generator, device)
 
     return draw
 
@@ -203,6 +214,7 @@ def get_pc_sampler(
     eps=1e-5,
     num_steps=None,
     cfg_scale=1.0,
+    mesh=None,
 ):
     """Build a PC sampler.
 
@@ -212,7 +224,9 @@ def get_pc_sampler(
     else from `torch.randn` with `generator`. `num_steps` overrides sde.N
     (NFE = num_steps * (n_steps + 1)). `cfg_scale` != 1 applies
     classifier-free guidance with the zeroed caption as the null condition,
-    which doubles the NFE.
+    which doubles the NFE. With a `mesh` (parallel.mesh) `shape` is this
+    rank's rows of the global batch: pass a RowGenerator, and the
+    corrector's batch means are the global batch's.
     """
     predictor_cls = get_predictor(predictor.lower())
     corrector_cls = get_corrector(corrector.lower())
@@ -231,7 +245,7 @@ def get_pc_sampler(
         score_fn = guided_score_fn(base_score_fn, context, context_mask,
                                    cfg_scale)
         pred = predictor_cls(sde_sampler, score_fn, probability_flow)
-        corr = corrector_cls(sde_sampler, score_fn, snr, n_steps)
+        corr = corrector_cls(sde_sampler, score_fn, snr, n_steps, mesh)
 
         with torch.inference_mode():
             x = sde_sampler.prior_sampling(noise_fn(shape)).to(device)
@@ -251,13 +265,15 @@ def get_pc_sampler(
     return sampler
 
 
-def get_sampling_fn(config, sde, model, shape, eps, num_steps=None):
+def get_sampling_fn(config, sde, model, shape, eps, num_steps=None,
+                    mesh=None):
     """Config-driven sampler factory (JAX `get_sampling_fn`):
     `sampling.method` pc (the reference's), ode (Heun probability flow,
     `num_steps` or 100 steps, `sampling.ode_final_langevin` Langevin steps,
     default 10; no guidance) or hybrid (ODE head + PC tail, phase lengths
     from `sampling.hybrid_{ode_steps,pc_steps,sigma_cross}`). Every sampler
-    has the signature of `get_pc_sampler`'s."""
+    has the signature of `get_pc_sampler`'s; `mesh` as there (the ODE's
+    steps are per row)."""
     method = str(config.sampling.get("method", "pc")).lower()
     cfg_scale = float(config.sampling.get("cfg_scale", 1.0))
     if method == "hybrid":
@@ -279,6 +295,7 @@ def get_sampling_fn(config, sde, model, shape, eps, num_steps=None):
             denoise=config.sampling.noise_removal,
             eps=eps,
             cfg_scale=cfg_scale,
+            mesh=mesh,
         )
     if method == "ode":
         if cfg_scale != 1.0:
@@ -309,4 +326,5 @@ def get_sampling_fn(config, sde, model, shape, eps, num_steps=None):
         eps=eps,
         num_steps=num_steps,
         cfg_scale=cfg_scale,
+        mesh=mesh,
     )

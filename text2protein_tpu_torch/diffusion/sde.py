@@ -46,6 +46,17 @@ def get_sigmas(sigma_min: float, sigma_max: float, num_scales: int) -> np.ndarra
     ).astype(np.float32)
 
 
+def _normal_logp(z, sigma: float):
+    """log N(z; 0, sigma^2 I) per sample, summed over all but the leading
+    axis, in the JAX package's order of operations."""
+    n = int(np.prod(z.shape[1:]))
+    axes = tuple(range(1, z.ndim))
+    if sigma == 1.0:
+        return -n / 2.0 * math.log(2 * math.pi) - torch.sum(z**2, axes) / 2.0
+    return (-n / 2.0 * math.log(2 * math.pi * sigma**2)
+            - torch.sum(z**2, axes) / (2 * sigma**2))
+
+
 @dataclass(frozen=True)
 class SDE:
     """Base SDE. `N` is the number of discretization steps."""
@@ -64,6 +75,10 @@ class SDE:
 
     def prior_sampling(self, z):
         """A prior sample from a standard-normal draw `z`."""
+        raise NotImplementedError
+
+    def prior_logp(self, z):
+        """log p_T(z) of the prior, per sample (the leading axis)."""
         raise NotImplementedError
 
     def discretize(self, x, t):
@@ -130,6 +145,9 @@ class VPSDE(SDE):
     def prior_sampling(self, z):
         return z
 
+    def prior_logp(self, z):
+        return _normal_logp(z, 1.0)
+
     def discretize(self, x, t):
         """DDPM discretization."""
         timestep = (t * (self.N - 1) / self.T).to(torch.int64)
@@ -161,6 +179,9 @@ class subVPSDE(SDE):
     def prior_sampling(self, z):
         return z
 
+    def prior_logp(self, z):
+        return _normal_logp(z, 1.0)
+
 
 @dataclass(frozen=True)
 class VESDE(SDE):
@@ -185,6 +206,9 @@ class VESDE(SDE):
 
     def prior_sampling(self, z):
         return z * self.sigma_max
+
+    def prior_logp(self, z):
+        return _normal_logp(z, self.sigma_max)
 
     def discretize(self, x, t):
         """SMLD (NCSN) discretization: G = sqrt(sigma_t^2 - sigma_{t-1}^2),

@@ -27,6 +27,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import dot_product_attention
+from ..parallel.mesh import rand
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,7 +95,9 @@ class Dropout(nn.Module):
     """flax `nn.Dropout`: in train mode keep each element with probability
     1 - p and scale it by 1 / (1 - p); in eval mode the identity. The keep
     mask is drawn from the `generator` the caller passes, so every draw of
-    a training step comes from one explicit, seeded generator."""
+    a training step comes from one explicit, seeded generator (a
+    RowGenerator on a mesh: drawn for the global batch, this rank's rows
+    kept)."""
 
     def __init__(self, p):
         super().__init__()
@@ -106,8 +109,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in train mode needs a torch.Generator")
         keep_prob = 1.0 - self.p
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) < keep_prob
+        keep = rand(x.shape, generator, x.device) < keep_prob
         return torch.where(keep, x / const(keep_prob, x.dtype),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 

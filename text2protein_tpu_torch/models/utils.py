@@ -11,7 +11,14 @@ import torch
 from torch.func import functional_call
 
 from ..diffusion import sde as sde_lib
-from ..diffusion.sde import bcast
+from ..diffusion.sde import bcast, get_sigmas
+
+
+def get_sigmas_for_config(config):
+    """The model's DESCENDING sigma ladder (num_scales values from
+    sigma_max to sigma_min), numpy float32."""
+    return get_sigmas(config.model.sigma_min, config.model.sigma_max,
+                      config.model.num_scales)
 
 
 def get_model_fn(model, params=None, train=False, generator=None):

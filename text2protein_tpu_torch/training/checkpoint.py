@@ -16,6 +16,12 @@ the state (`trainer`). The per-step generator needs only the step and the
 seed (`training.steps.step_generator`), and the data order is a function of
 the step (`cli.train`), so a resumed run continues bit for bit.
 
+A sharded state (`parallel.mesh.shard_train_state`) is saved whole, in the
+same format: every rank takes part in gathering it (`state_slot`), and only
+the manager built with `writer=True` (rank 0) writes. A slot loads into a
+sharded state of any mesh, each rank keeping its shards, so a checkpoint
+written on 4 ranks resumes on 1, and the reverse.
+
 Saves are synchronous: the JAX package's async writer hides a slow
 device-to-host link of a TPU. Every file is written to a temporary name and
 renamed, so a crash leaves no partial file under a slot's name; the meta
@@ -31,15 +37,18 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.mesh import distribute_like, full_tensor, is_sharded, local
+from ..parallel.mesh import local_rows
 from .state import TrainState
 
 META_NAMES = ("checkpoint.next.pt", "checkpoint.pt", "checkpoint.old.pt")
 
 
 def _to_cpu(obj):
-    """A copy of `obj` with every tensor copied to the CPU."""
+    """A copy of `obj` with every tensor copied to the CPU, a sharded one
+    gathered whole (a collective)."""
     if isinstance(obj, torch.Tensor):
-        return obj.detach().to("cpu", copy=True)
+        return full_tensor(obj.detach()).to("cpu", copy=True)
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -49,7 +58,8 @@ def _to_cpu(obj):
 
 def state_slot(state: TrainState, config, trainer=None) -> dict:
     """A host copy of `state` to save (later changes to the state do not
-    reach it)."""
+    reach it). A sharded state is gathered: every rank calls this at the
+    same point."""
     return {
         "step": int(state.step),
         "params": _to_cpu(dict(state.model.named_parameters())),
@@ -63,21 +73,36 @@ def state_slot(state: TrainState, config, trainer=None) -> dict:
     }
 
 
+def _load(dst: torch.Tensor, full: torch.Tensor):
+    """Copy a whole tensor into `dst`, or into this rank's shard of it."""
+    if is_sharded(dst):
+        local(dst).copy_(local_rows(full, dst))
+    else:
+        dst.copy_(full)
+
+
 @torch.no_grad()
 def load_slot(state: TrainState, slot: dict) -> TrainState:
     """Load a slot into `state` in place (parameters, EMA, optimizer and
-    step) and return it."""
+    step) and return it; a sharded state keeps its shards of each
+    tensor."""
     params = dict(state.model.named_parameters())
     if set(params) != set(slot["params"]):
         missing = sorted(set(params) ^ set(slot["params"]))
         raise KeyError(f"checkpoint and model differ in {missing[:5]}")
     for k, p in params.items():
-        p.copy_(slot["params"][k])
+        _load(p, slot["params"][k])
     for k, e in state.ema.params.items():
-        e.copy_(slot["ema"]["params"][k])
+        _load(e, slot["ema"]["params"][k])
     state.ema.decay = slot["ema"]["decay"]
     state.ema.num_updates = slot["ema"]["num_updates"]
-    state.optimizer.adam.load_state_dict(slot["optimizer"]["adam"])
+    adam = state.optimizer.adam
+    adam.load_state_dict(slot["optimizer"]["adam"])
+    for p, s in adam.state.items():
+        if is_sharded(p):  # the moments were loaded whole: place them
+            for k, v in s.items():
+                if not is_sharded(v) and v.shape == p.shape:
+                    s[k] = distribute_like(v, p)
     state.optimizer.count = slot["optimizer"]["count"]
     state.step = slot["step"]
     return state
@@ -95,10 +120,16 @@ def _write(path: Path, slot: dict):
 
 
 class CheckpointManager:
-    def __init__(self, workdir):
+    """The triad under `workdir`. With `writer=False` (the ranks other than
+    0) it only reads: every save is a no-op."""
+
+    def __init__(self, workdir, writer=True):
         self.workdir = Path(workdir).absolute()
         self.meta_dir = self.workdir / "checkpoints-meta"
         self.best_dir = self.workdir / "checkpoints"
+        self.writer = writer
+        if not writer:
+            return
         self.meta_dir.mkdir(parents=True, exist_ok=True)
         self.best_dir.mkdir(parents=True, exist_ok=True)
         # a save killed mid-write leaves only its temporary file
@@ -111,6 +142,8 @@ class CheckpointManager:
         """Crash-safe: the new slot is written complete as
         `checkpoint.next.pt`, then swapped in; a crash anywhere leaves a
         complete slot that `_meta_path` finds."""
+        if not self.writer:
+            return
         staging, target, old = (self.meta_dir / n for n in META_NAMES)
         _write(staging, slot)
         if old.exists():
@@ -144,6 +177,8 @@ class CheckpointManager:
         """Write `slot` as best_<kind> for each kind ("train", "eval"); a
         second kind gets a hard link to the first file where the file
         system allows, else a copy."""
+        if not self.writer:
+            return
         first = None
         for kind in kinds:
             if kind not in ("train", "eval"):
@@ -163,7 +198,8 @@ class CheckpointManager:
     def save_snapshot(self, slot: dict, tag):
         """A named milestone (`checkpoints/snapshot_<tag>.pt`) that best
         and meta saves never overwrite."""
-        _write(self.snapshot_path(tag), slot)
+        if self.writer:
+            _write(self.snapshot_path(tag), slot)
 
     def snapshot_path(self, tag) -> Path:
         return self.best_dir / f"snapshot_{tag}.pt"

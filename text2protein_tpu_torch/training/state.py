@@ -11,28 +11,39 @@ the count of updates made so far, so the first update runs at lr 0.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..diffusion.ema import EMAState, ema_init
+from ..parallel.mesh import local
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax `global_norm`)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in grads))
+def global_norm(grads, group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient (optax `global_norm`).
+    Over sharded gradients (DTensors) each rank sums the squares of its
+    shards and the sums are added over `group`, the `model` ranks: the
+    `data` replicas hold the same averaged gradients, so a sum over them
+    would count the norm `data` times."""
+    total = sum(torch.sum(g * g) for g in map(local, grads))
+    if group is not None:
+        dist.all_reduce(total, group=group)
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads, max_norm: float, group=None) -> torch.Tensor:
     """optax `clip_by_global_norm`, in place: where the global norm is at
     least `max_norm`, each gradient becomes (g / norm) * max_norm; below it
     nothing changes. No epsilon (torch's `clip_grad_norm_` divides by
     norm + 1e-6 and so differs). Decided on the device, without a host
-    sync. Returns the norm before clipping."""
-    norm = global_norm(grads)
+    sync; a sharded gradient is clipped shard by shard. Returns the norm
+    before clipping."""
+    norm = global_norm(grads, group)
     trigger = norm < max_norm
-    for g in grads:
+    for g in map(local, grads):
         g.copy_(torch.where(trigger, g, g / norm * max_norm))
     return norm
 
@@ -56,6 +67,9 @@ class Optimizer:
         else:
             self.adam = torch.optim.Adam(self.params, **kwargs)
         self.count = 0  # updates made so far
+        # the `model` ranks' group over which a sharded global norm is
+        # summed (`parallel.mesh.shard_train_state`)
+        self.norm_group = None
 
     def learning_rate(self, count: int) -> float:
         """optax linear_schedule(0, lr, warmup) at `count`."""
@@ -71,9 +85,10 @@ class Optimizer:
         gradient norm before clipping (a tensor on the device)."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.grad_clip is not None and self.grad_clip >= 0:
-            norm = clip_by_global_norm(grads, float(self.grad_clip))
+            norm = clip_by_global_norm(grads, float(self.grad_clip),
+                                       self.norm_group)
         else:
-            norm = global_norm(grads)
+            norm = global_norm(grads, self.norm_group)
         for group in self.adam.param_groups:
             group["lr"] = self.learning_rate(self.count)
         self.adam.step()
@@ -87,6 +102,7 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     ema: EMAState
+    mesh: Any = None  # a parallel.mesh.Mesh once sharded
 
     @property
     def params(self) -> dict:

@@ -9,9 +9,19 @@ stream of its own, seeded from (seed, step, MASK_STREAM), as the JAX
 trainer splits a mask key apart from the step's key. The JAX
 package's fused multi-step launch (`make_multi_train_step`) exists to hide
 a TPU's dispatch latency; here it is a plain loop over `train_step`.
+
+With a `mesh` (`parallel.mesh`, the state sharded by `shard_train_state`)
+each rank takes its rows of the global batch, every draw is made for the
+global batch from the same generator and the rank keeps its rows
+(`parallel.mesh.RowGenerator`), FSDP2 averages the gradients over the
+ranks, and the loss a step returns is the global batch's mean, the same on
+every rank. So the step computes what the one-device step computes on the
+global batch, up to the rounding of the reductions.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -20,6 +30,8 @@ from ..conditioning import random_mask_batch
 from ..data.featurize import featurize_batch
 from ..diffusion.ema import ema_update
 from ..diffusion.losses import get_sde_loss_fn
+from ..parallel.mesh import local, mean_over_rows, reshard, row_generator
+from ..parallel.mesh import shard_train_state  # noqa: F401 (JAX's home)
 from .state import TrainState
 
 MASK_STREAM = 1  # the inpainting masks' stream of step_generator
@@ -48,21 +60,26 @@ def featurize(config, batch):
     return dict(batch, coords_6d=coords_6d, mask_pair=mask_pair)
 
 
-def with_inpainting_mask(config, batch, seed, step):
+def with_inpainting_mask(config, batch, seed, step, mesh=None):
     """The batch with a random inpainting mask drawn on its device from
     step_generator(seed, step, MASK_STREAM), where the config conditions on
-    inpainting and the batch has none yet."""
+    inpainting and the batch has none yet; on a mesh, drawn for the global
+    batch and this rank's rows kept."""
     if ("inpainting" not in config.model.condition
             or "mask_inpaint" in batch):
         return batch
     lengths = batch["length"]
-    gen = step_generator(seed, step, lengths.device, MASK_STREAM)
+    gen = row_generator(
+        step_generator(seed, step, lengths.device, MASK_STREAM), mesh,
+        lengths.shape[0])
     return dict(batch, mask_inpaint=random_mask_batch(
         lengths, config.data.max_res_num, config, generator=gen))
 
 
-def make_train_step(config, sde, model):
-    """Returns train_step(state, batch, seed) -> loss (a 0-d tensor)."""
+def make_train_step(config, sde, model, mesh=None):
+    """Returns train_step(state, batch, seed) -> loss (a 0-d tensor). On a
+    `mesh`, `batch` holds this rank's rows and the loss is the global
+    batch's mean."""
     loss_fn = get_sde_loss_fn(
         sde, model, train=True, condition=tuple(config.model.condition),
         context_dropout=float(config.model.get("context_dropout", 0.0)),
@@ -70,33 +87,74 @@ def make_train_step(config, sde, model):
 
     def train_step(state: TrainState, batch, seed):
         batch = with_inpainting_mask(config, featurize(config, batch), seed,
-                                     state.step)
-        gen = step_generator(seed, state.step, batch["coords_6d"].device)
+                                     state.step, mesh)
+        coords = batch["coords_6d"]
+        gen = row_generator(step_generator(seed, state.step, coords.device),
+                            mesh, coords.shape[0])
         state.optimizer.zero_grad()
         loss = loss_fn(None, batch, gen)
         loss.backward()
         state.optimizer.step()
         ema_update(state.ema, state.params)
         state.step += 1
-        return loss.detach()
+        return mean_over_rows(mesh, loss.detach())
 
     return train_step
 
 
-def make_eval_step(config, sde, model):
+def make_multi_train_step(config, sde, model, mesh=None):
+    """Returns multi_step(state, batches, seed) -> losses (K,): the K train
+    steps of `batches` (a sequence of K batches), one after the other, each
+    with its own step's generator; the same as K calls of `train_step`."""
+    train_step = make_train_step(config, sde, model, mesh)
+
+    def multi_step(state: TrainState, batches, seed):
+        return torch.stack([train_step(state, b, seed) for b in batches])
+
+    return multi_step
+
+
+@contextlib.contextmanager
+def ema_swapped_in(state: TrainState):
+    """The model holds the EMA parameters inside the block and its own
+    after it (sharded parameters are swapped shard by shard: the EMA of a
+    sharded model cannot be passed as a params dict, as FSDP2 gathers the
+    module's own shards; the gathered copies are freed on the way in and
+    out)."""
+    params = dict(state.model.named_parameters())
+    saved = {k: local(p).detach().clone() for k, p in params.items()}
+    reshard(state.model)
+    with torch.no_grad():
+        for k, p in params.items():
+            local(p).copy_(local(state.ema.params[k]))
+    try:
+        yield
+    finally:
+        reshard(state.model)
+        with torch.no_grad():
+            for k, p in params.items():
+                local(p).copy_(saved[k])
+
+
+def make_eval_step(config, sde, model, mesh=None):
     """Returns eval_step(state, batch, seed) -> loss, computed with the EMA
     params; its draws are fixed by `seed` alone (the inpainting masks from
     step_generator(seed, 0, MASK_STREAM)), so two passes at the same params
-    give the same loss."""
+    give the same loss. On a `mesh`, the global batch's mean."""
     loss_fn = get_sde_loss_fn(sde, model, train=False,
                               condition=tuple(config.model.condition))
 
     def eval_step(state: TrainState, batch, seed):
         batch = with_inpainting_mask(config, featurize(config, batch), seed,
-                                     0)
-        gen = torch.Generator(device=batch["coords_6d"].device)
+                                     0, mesh)
+        coords = batch["coords_6d"]
+        gen = torch.Generator(device=coords.device)
         gen.manual_seed(int(seed))
+        gen = row_generator(gen, mesh, coords.shape[0])
         with torch.no_grad():
-            return loss_fn(state.ema.params, batch, gen)
+            if mesh is None:
+                return loss_fn(state.ema.params, batch, gen)
+            with ema_swapped_in(state):
+                return mean_over_rows(mesh, loss_fn(None, batch, gen))
 
     return eval_step
