@@ -160,6 +160,19 @@ Phases, each printing a flushed line with the seconds since start:
      2 cards or more also data 2, with 4 also data 2 x model 2; then
      `graft_entry.entry()`'s flagship forward on the card (18 forward
      launches) and `graft_entry.dryrun_multichip(n)` on the same ranks.
+ 24. sequence parallel: both f32 kernels against their plain versions at
+     every shape of the bench_l128 train step with the pair grid's rows
+     split over 2 ranks (batch 16 x 2 stacked ranks: 128 query rows against
+     256 gathered keys at 16x16, 8 against 16 and the 64-token caption in
+     the 4x4 mid block), timed as in 3; then 4 train steps of
+     bench_l128_config() at batch 16 (dropout 0.1) with the rows split over
+     a `parallel.sequence.StackedRowGroup` of 2 (the `model` ranks stacked
+     on the batch axis of one process, which needs only one card) against
+     the plain steps from the same weights on phase 6's first batches:
+     losses within 2e-4 relative, the last step's gradients within 5e-3 of
+     their scale (phase 7's bar), exactly 30 forward and 18 backward
+     launches per SP step (the plain step's calls at twice the batch); ms
+     per plain and per SP step, peak memory of each.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -390,6 +403,30 @@ TEXT_PC_SHAPES = [
 TEXT_FWD_PER_PC_STEP = sum(s[6] for s in TEXT_PC_SHAPES)  # 36
 
 
+# sequence parallelism (phase 24): bench_l128 at batch 16 with the pair
+# grid's rows split over SP_MODEL ranks stacked on the batch axis of one
+# process (parallel.sequence.StackedRowGroup), so every attention call runs
+# at batch 16 x 2 with a rank's query rows (8 of 16 rows, 2 of 4 in the mid
+# block) against the gathered keys (self) or the whole 64-token caption
+# (cross). (name, H, Tq, Tk, D, masked, forward calls per train step, the
+# transformer blocks' recompute included); the backward takes one call per
+# attention, every one the kernel (`supports_bwd_cuda`)
+SP_MODEL = 2
+SP_STEPS = 4
+SP_BATCH = TRAIN_BATCH * SP_MODEL
+SP_SHAPES = [
+    ("sp_attnblock_16x16", 1, 128, 256, 256, False, 5),
+    ("sp_self_16x16", 8, 128, 256, 32, False, 10),
+    ("sp_cross_16x16", 8, 128, 64, 32, True, 10),
+    ("sp_attnblock_mid_4x4", 1, 8, 16, 256, False, 1),
+    ("sp_self_mid_4x4", 8, 8, 16, 32, False, 2),
+    ("sp_cross_mid_4x4", 8, 8, 64, 32, True, 2),
+]
+SP_BWD_SHAPES = [(n, h, tq, tk, d, m, c if "attnblock" in n else c // 2)
+                 for n, h, tq, tk, d, m, c in SP_SHAPES]
+SP_LOSS_TOL = 2e-4   # the SP step's losses against the plain step's (rel)
+
+
 def log(msg):
     print(f"[{time.perf_counter() - T0:8.2f}s] {msg}", flush=True)
 
@@ -605,19 +642,19 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
     return rows
 
 
-def phase_kernels_bwd(torch):
-    """The backward at the training shapes, B=16: the kernel against its
-    plain version on the same residuals (from the forward kernel), with the
-    serving masks plus one fully masked row."""
+def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH):
+    """The backward at the training shapes, B=16 (or `shapes` at batch
+    `b`): the kernel against its plain version on the same residuals (from
+    the forward kernel), with the serving masks plus one fully masked
+    row."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    b = TRAIN_BATCH
     rows = []
-    for name, h, tq, tk, d, masked, per_step in TRAIN_SHAPES:
+    for name, h, tq, tk, d, masked, per_step in shapes:
         q, k, v, g = (torch.randn((b, h, t, d), device=dev, generator=gen)
                       for t in (tq, tk, tk, tq))
         mask = None
@@ -2957,6 +2994,121 @@ def phase_distributed(torch, smi, records):
                 dryrun_seconds=dry_s)
 
 
+def phase_sequence_parallel(torch, smi, records):
+    """Phase 24: both f32 kernels at every shape of the sequence-parallel
+    train step against their plain versions and timed, then SP_STEPS train
+    steps of bench_l128_config() at batch 16 with the pair grid's rows
+    split over a stacked group of SP_MODEL ranks, against the plain steps
+    from the same weights on the same batches (phase 6's first) and seed:
+    the losses (rel SP_LOSS_TOL), the last step's gradients (TRAIN_GRAD_TOL
+    of their scale), exactly 30 forward and 18 backward launches per SP
+    step, ms per step of each."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli.train import (
+        split_dataset,
+        train_batches_from,
+    )
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.config import bench_l128_config
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import build_model, init_params
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.parallel.sequence import StackedRowGroup
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+    from text2protein_tpu_torch.training.state import create_train_state
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    fwd_rows = phase_kernels(torch, SP_SHAPES, b=SP_BATCH)
+    bwd_rows = phase_kernels_bwd(torch, SP_BWD_SHAPES, b=SP_BATCH)
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    config = bench_l128_config()
+    ds = ProteinProcessedDataset(records)
+    train_idx, _ = split_dataset(len(ds), config.seed)
+    stream = train_batches_from(ds, train_idx, TRAIN_BATCH,
+                                config.data.max_res_num, config.seed, 0)
+    host = [next(stream) for _ in range(SP_STEPS)]
+    encoder = build_text_encoder(config)
+    batches = []
+    for b in host:
+        arrays = batch_to_device_arrays(b, config, device=dev)
+        ctx, ctx_mask = encoder.encode(b["caption"])
+        arrays["context"] = torch.from_numpy(ctx).to(dev)
+        arrays["context_mask"] = torch.from_numpy(ctx_mask).to(dev)
+        batches.append(arrays)
+    sde, _ = get_sde(config)
+    per_step = FWD_PER_TRAIN_STEP + REMAT_FWD_PER_TRAIN_STEP  # 30
+
+    def run(group):
+        model = init_params(build_model(config, device=dev),
+                            torch.Generator().manual_seed(int(config.seed)))
+        state = create_train_state(config, model)
+        step = make_train_step(config, sde, model, shard_grid=group or False)
+        out = {"losses": [], "ms": [], "fwd": [], "bwd": []}
+        for batch in batches:
+            if group is not None:
+                batch = group.shard_batch(batch)
+            torch.cuda.synchronize()
+            flash.flash_attention_fwd.launches = 0
+            flash.flash_attention_bwd.launches = 0
+            t0 = time.perf_counter()
+            out["losses"].append(float(step(state, batch, config.seed + 1)))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["fwd"].append(flash.flash_attention_fwd.launches)
+            out["bwd"].append(flash.flash_attention_bwd.launches)
+        grads = {k: p.grad.detach().clone() for k, p in
+                 state.model.named_parameters()}
+        return out, grads
+
+    torch.cuda.reset_peak_memory_stats()
+    plain, p_grads = run(None)
+    plain_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp, s_grads = run(StackedRowGroup(SP_MODEL))
+    sp_peak = torch.cuda.max_memory_allocated()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(sp["losses"], plain["losses"]))
+    grad_worst, grad_key = worst_grad_diff(s_grads, p_grads)
+    del p_grads, s_grads
+    torch.cuda.empty_cache()
+    ms_plain = float(np.median(plain["ms"][1:]))
+    ms_sp = float(np.median(sp["ms"][1:]))
+    log(f"sequence parallel: bench_l128 at batch {TRAIN_BATCH}, the pair "
+        f"grid's rows over a stacked group of {SP_MODEL} ({smi}), "
+        f"{SP_STEPS} steps: losses {sp['losses']} vs plain "
+        f"{plain['losses']} (worst rel {loss_rel:.2e}, tol "
+        f"{SP_LOSS_TOL:.0e}); last step's gradients worst {grad_key} "
+        f"{grad_worst:.2e} (tol {TRAIN_GRAD_TOL:.0e}); flash launches per "
+        f"SP step fwd {sp['fwd']} bwd {sp['bwd']} (plain fwd "
+        f"{plain['fwd']} bwd {plain['bwd']})")
+    log(f"sequence parallel: {ms_plain:.2f} ms per plain step, {ms_sp:.2f} "
+        f"ms per SP step (median of steps 2-{SP_STEPS}; all: plain "
+        f"{', '.join(f'{x:.1f}' for x in plain['ms'])}; SP "
+        f"{', '.join(f'{x:.1f}' for x in sp['ms'])}); "
+        f"max_memory_allocated plain {plain_peak / 2**30:.2f} GiB, SP "
+        f"{sp_peak / 2**30:.2f} GiB")
+    if (sp["fwd"] != [per_step] * SP_STEPS
+            or sp["bwd"] != [BWD_PER_TRAIN_STEP] * SP_STEPS):
+        raise AssertionError(f"flash launches per SP step fwd {sp['fwd']} "
+                             f"bwd {sp['bwd']}, expected {per_step} and "
+                             f"{BWD_PER_TRAIN_STEP}")
+    if not (np.isfinite(sp["losses"]).all() and loss_rel < SP_LOSS_TOL
+            and grad_worst < TRAIN_GRAD_TOL):
+        raise AssertionError("the SP step disagrees with the plain one "
+                             "(line above)")
+    return dict(model=SP_MODEL, steps=SP_STEPS, losses=sp["losses"],
+                plain_losses=plain["losses"], loss_rel=loss_rel,
+                grad_worst=grad_worst, grad_key=grad_key, ms=sp["ms"],
+                plain_ms=plain["ms"], ms_per_step=ms_sp,
+                ms_per_plain_step=ms_plain, peak_bytes=sp_peak,
+                plain_peak_bytes=plain_peak,
+                fwd_launches=sum(sp["fwd"]), bwd_launches=sum(sp["bwd"]),
+                fwd_rows=fwd_rows, bwd_rows=bwd_rows)
+
+
 def main():
     import torch
 
@@ -3002,6 +3154,7 @@ def main():
     text = phase_text(torch, ptxas, smi)
     realize = phase_realize(torch, smi, sampling["out_dir"])
     distributed = phase_distributed(torch, smi, records)
+    sequence = phase_sequence_parallel(torch, smi, records)
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -3051,7 +3204,7 @@ def main():
         launches + training["fwd_launches"] + deploy["launches"]
         + sampling["launches"] + training_ss["fwd_launches"]
         + sampling_ss["launches"] + realize["launches"]
-        + distributed["fwd_launches"], rows,
+        + distributed["fwd_launches"] + sequence["fwd_launches"], rows,
         f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
@@ -3059,13 +3212,18 @@ def main():
                                     "bound_ms", "library_ms",
                                     "tc_bound_ms")},
         max_abs_err=max(r["max_abs_err"] for r in deploy_rows))
-    def per_row_step(rs, what):
-        """A bf16 kernel's share of one quality_ss_vp train step."""
+    def per_row_step(rs, what, peak=PEAK_BF16_S):
+        """A kernel's share of one step of another path (`what`)."""
         return dict(per=what, max_abs_err=max(r["max_abs_err"] for r in rs),
                     **{k: per_step(rs, k) for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms", "tc_bound_ms")},
-                    bound_by=bound_by(rs, PEAK_BF16_S))
+                    bound_by=bound_by(rs, peak))
+
+    sp_what = (f"train step at batch {TRAIN_BATCH} with the grid's rows "
+               f"over a stacked group of {SP_MODEL}")
+    fwd_f32["sequence_parallel"] = per_row_step(
+        sequence["fwd_rows"], sp_what + " (forward calls)", PEAK_F32_S)
 
     fwd_bf16 = kernel(
         "flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -3091,17 +3249,22 @@ def main():
     bwd_bf16["text"] = per_row_step(
         text["bwd_rows"], f"quality_text_cfgft train step at batch "
         f"{SS_BATCH}")
+    bwd_f32 = kernel(
+        "flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
+        "text2protein_tpu/ops/flash.py:168",
+        training["bwd_launches"] + training_ss["bwd_launches"]
+        + distributed["bwd_launches"] + sequence["bwd_launches"],
+        bwd_rows, f"train step at batch {TRAIN_BATCH}")
+    bwd_f32["sequence_parallel"] = per_row_step(sequence["bwd_rows"],
+                                                sp_what, PEAK_F32_S)
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
         # deployment batches, the sampling CLI, SS training and sampling,
         # the realize phase's serving batch, the sharded train steps, the
-        # entry() forward and the dryrun (phase 23)
+        # entry() forward and the dryrun (phase 23), the SP train steps
+        # (phase 24)
         fwd_f32,
-        kernel("flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
-               "text2protein_tpu/ops/flash.py:168",
-               training["bwd_launches"] + training_ss["bwd_launches"]
-               + distributed["bwd_launches"],
-               bwd_rows, f"train step at batch {TRAIN_BATCH}"),
+        bwd_f32,
         # bf16: N=256 serving, training (+ its eval) and hybrid; the
         # quality_ss_vp train steps (+ eval); the quality_text_cfgft train
         # steps (+ eval) and its sampling CLI
@@ -3123,7 +3286,7 @@ def main():
         "hybrid_n256": hybrid16, "training_ss": training_ss,
         "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
         "bf16_l128": bf16_l128, "text": text, "realize": realize,
-        "distributed": distributed,
+        "distributed": distributed, "sequence_parallel": sequence,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

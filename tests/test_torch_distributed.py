@@ -251,9 +251,12 @@ def test_batch_sharded_pc_sampler_world2_matches_world1():
 
 def test_dryrun_multichip_four_ranks_on_cpu():
     """dryrun_multichip(4) on the CPU: a data 2 x model 2 mesh, one sharded
-    train step and the batch-sharded PC sampler (8 steps), finite."""
+    train step with the pair grid's rows split over `model` (the JAX
+    dryrun's shard_grid) and the batch-sharded PC sampler (8 steps),
+    finite."""
     res = dryrun_multichip(4, device="cpu", timeout=SPAWN_S)
     assert res["mesh"] == {"data": 2, "model": 2}
+    assert res["shard_grid"] is True
     assert res["step"] == 1 and np.isfinite(res["loss"])
     assert res["samples"].shape == (4, 16, 16, 5)
     assert np.isfinite(res["samples"]).all() and res["nfe"] == 16

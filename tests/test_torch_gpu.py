@@ -951,3 +951,87 @@ def test_entry_forward_on_gpu_matches_cpu(cuda):
         want = fn(*args).numpy()
     assert got.shape == (2, 128, 128, 5)
     assert rel_max_diff(got, want) < 1e-4
+
+
+# (B, H, Tq, Tk, D, masked) of the bench_l128 train step with the pair
+# grid's rows split over 2 ranks stacked on the batch axis (batch 16 x 2):
+# a rank's query rows against the gathered keys (self-attention) or the
+# whole caption (cross-attention), at 16x16 and in the 4x4 mid block
+SP_SHAPES = [
+    (32, 1, 128, 256, 256, False),
+    (32, 8, 128, 256, 32, False),
+    (32, 8, 128, 64, 32, True),
+    (32, 1, 8, 16, 256, False),
+    (32, 8, 8, 16, 32, False),
+    (32, 8, 8, 64, 32, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,masked", SP_SHAPES)
+def test_f32_kernels_at_the_sequence_parallel_shapes(cuda, b, h, tq, tk, d,
+                                                     masked):
+    """Both f32 kernels at the sequence-parallel step's shapes (fewer query
+    rows than keys, Tq = 8) against their plain versions: the forward
+    within atol/rtol 1e-4, the backward (the kernel, as the gate admits)
+    within 1e-4 of the gradients' scale."""
+    q, k, v, mask = _inputs(cuda, b, h, tq, tk, d, masked)
+    out, lse = tflash.flash_attention_fwd(q, k, v, kv_mask=mask)
+    want_out, want_lse = tflash.flash_attention_fwd_reference(q, k, v,
+                                                              kv_mask=mask)
+    torch.testing.assert_close(out, want_out, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    assert tflash.supports_bwd_cuda(q, k, v, masked)
+    g = torch.randn(out.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(7))
+    before = tflash.flash_attention_bwd.launches
+    got = tflash.flash_attention_bwd(q, k, v, out, lse, g, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention_bwd.launches == before + 1
+    want = tflash.flash_attention_bwd_reference(q, k, v, out, lse, g,
+                                                kv_mask=mask)
+    scale = max(1.0, max(w.abs().max().item() for w in want))
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        assert (x - w).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_stacked_sp_step_on_gpu_matches_the_plain_step(cuda):
+    """One train step of the tiny model (dropout 0.1, random inpainting
+    masks) on the card with the pair grid's rows split over a stacked group
+    of 2, against the plain step on the card: the loss within 2e-4
+    relative and every gradient within 5e-3 of its scale (the card's train
+    bars; floored at 1e-3 of the largest)."""
+    import torch_dist_workers as W
+    from text2protein_tpu_torch.parallel.sequence import StackedRowGroup
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    cfg = tiny_config_dict(dropout=0.1, condition=["length", "inpainting"])
+    cfg["optim"] = {"warmup": 0, "lr": 1e-4}
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(9, N + 1, 4).astype(np.int32)
+    row = np.arange(N)[None, :] < lengths[:, None]
+    batch = W.tensors({
+        "coords_6d": rng.uniform(-1, 1, (4, N, N, C)).astype(np.float32),
+        "mask_pair": row[:, :, None] & row[:, None, :],
+        "ss_spans": np.full((4, 32, 2), -1, np.int32),
+        "length": lengths,
+        "context": rng.standard_normal((4, 8, CONTEXT_DIM))
+        .astype(np.float32),
+        "context_mask": np.ones((4, 8), bool)}, cuda)
+    res = []
+    for group in (None, StackedRowGroup(2)):
+        c, state = W.build_state(cfg, device=cuda)
+        sde, _ = tsde.get_sde(c)
+        step = make_train_step(c, sde, state.model, shard_grid=group or False)
+        loss = float(step(state, batch if group is None
+                          else group.shard_batch(batch), 5))
+        res.append((loss, {k: p.grad for k, p in
+                           state.model.named_parameters()}))
+    (want_loss, want), (got_loss, got) = res
+    assert abs(got_loss - want_loss) <= 2e-4 * abs(want_loss)
+    floor = 1e-3 * max(g.abs().max().item() for g in want.values())
+    for k, w in want.items():
+        diff = (got[k] - w).abs().max().item()
+        assert diff <= 5e-3 * max(w.abs().max().item(), floor), (k, diff)

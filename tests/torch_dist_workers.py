@@ -64,10 +64,12 @@ def host_state(state):
     }
 
 
-def train_steps(cfg_dict, data, model, batches, seed, device="cpu"):
+def train_steps(cfg_dict, data, model, batches, seed, device="cpu",
+                shard_grid=False):
     """Train steps on a data x model mesh, each of `batches` (global numpy
-    batches) cut to this rank's rows: the losses, the gradient norms and
-    the final state gathered."""
+    batches) cut to this rank's rows (and, with `shard_grid`, its rows of
+    the pair grid): the losses, the gradient norms, the last step's
+    gradients (clipped) and the final state gathered."""
     dev = init_distributed(device).device
     if dev.type == "cuda":
         use_full_f32()
@@ -75,13 +77,53 @@ def train_steps(cfg_dict, data, model, batches, seed, device="cpu"):
     mesh = make_mesh(data, model, device=dev)
     shard_train_state(state, mesh)
     sde, _ = get_sde(cfg)
-    step = make_train_step(cfg, sde, state.model, mesh)
+    step = make_train_step(cfg, sde, state.model, mesh, shard_grid=shard_grid)
     norms = recording_norms(state)
-    losses = [float(step(state, tensors(shard_batch(mesh, b), dev), seed))
-              for b in batches]
+    losses = [float(step(state, tensors(shard_batch(
+        mesh, b, shard_grid=shard_grid), dev), seed)) for b in batches]
     return {"losses": losses, "norms": norms, **host_state(state),
+            "grads": {k: full_tensor(p.grad).cpu().numpy()
+                      for k, p in state.model.named_parameters()},
             "placements": {k: str(p.placements) for k, p in
                            state.model.named_parameters()}}
+
+
+def sp_loss(cfg_dict, state_dict, data, model, batch, t, z):
+    """The train loss (dropout 0) at injected t and z with the pair grid's
+    rows split over the `model` ranks (FSDP2 on the data x model mesh):
+    the global batch's mean, on this rank."""
+    from text2protein_tpu_torch.diffusion.losses import get_sde_loss_fn
+    from text2protein_tpu_torch.parallel.mesh import batch_rows, grid_rows
+    from text2protein_tpu_torch.parallel.sequence import (
+        row_group,
+        rows_split,
+    )
+
+    init_distributed("cpu")
+    cfg, state = build_state(cfg_dict, state_dict=state_dict)
+    mesh = make_mesh(data, model)
+    shard_train_state(state, mesh)
+    sde, _ = get_sde(cfg)
+    group = row_group(mesh)
+    loss_fn = get_sde_loss_fn(sde, state.model, train=True,
+                              condition=tuple(cfg.model.condition),
+                              row_group=group)
+    lo, hi = batch_rows(mesh, len(t))
+    g0, g1 = grid_rows(mesh, z.shape[1])
+    with rows_split(state.model, group):
+        loss = loss_fn(None, tensors(shard_batch(mesh, batch,
+                                                 shard_grid=True)),
+                       t=torch.from_numpy(t[lo:hi]),
+                       z=torch.from_numpy(
+                           np.ascontiguousarray(z[lo:hi, g0:g1])))
+    return float(mean_over_rows(mesh, loss.detach()))
+
+
+def sequence_parallel(loss_args, train_args):
+    """`sp_loss(*loss_args)` and `train_steps(*train_args,
+    shard_grid=True)` in one process group."""
+    return {"loss": sp_loss(*loss_args),
+            "train": train_steps(*train_args, shard_grid=True)}
 
 
 def loss_and_grads(cfg_dict, state_dict, data, model, batch, t, z):

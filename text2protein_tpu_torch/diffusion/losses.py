@@ -13,7 +13,13 @@ Every random draw is injectable: the diffusion time `t`, the noise `z`, the
 context-dropout keep mask and the SS block-dropout mask. What is not
 injected is drawn from the explicit `generator`, which also feeds the
 model's dropout masks in train mode; a `parallel.mesh.RowGenerator` makes
-each draw for the global batch and keeps this rank's rows.
+each draw for the global batch (a draw of the grid for the whole grid) and
+keeps this rank's rows.
+
+With a `row_group` (`parallel.sequence`: the grid's rows split over ranks)
+the grid keys hold this rank's rows, and each sample's masked sum and
+element count are summed over the group before the division, so every
+rank's loss is the whole batch's (JAX `shard_grid`).
 """
 
 from __future__ import annotations
@@ -26,11 +32,12 @@ from .sde import bcast
 
 
 def block_dropout(coords_6d, ss_spans, p: float = 0.2, generator=None,
-                  drop=None):
+                  drop=None, row_group=None):
     """Zero SS-block channels 4:7 on the rows AND columns of dropped blocks.
     Spans are end-exclusive. `drop` (B, MAX_SS_BLOCKS) bool injects the
-    draw; otherwise each block is dropped with probability p."""
-    b, n = coords_6d.shape[0], coords_6d.shape[1]
+    draw; otherwise each block is dropped with probability p. With a
+    `row_group`, `coords_6d` holds this rank's rows of the grid."""
+    b, n = coords_6d.shape[0], coords_6d.shape[2]
     dev = coords_6d.device
     if drop is None:
         drop = rand(ss_spans.shape[:2], generator, dev) < p
@@ -40,6 +47,8 @@ def block_dropout(coords_6d, ss_spans, p: float = 0.2, generator=None,
                & (pos[None, None, :] < ss_spans[..., 1:2]))  # (B, MAXB, N)
     dropped = torch.any(in_span & drop[..., None], dim=1)     # (B, N)
     keep = ~(dropped[:, :, None] | dropped[:, None, :])       # (B, N, N)
+    if row_group is not None:
+        keep = row_group.local_rows(keep, 1)
     keep = keep[..., None].to(coords_6d.dtype)
     out = coords_6d.clone()
     out[..., 4:7] = out[..., 4:7] * keep
@@ -67,14 +76,17 @@ def make_conditional_mask(coords_6d, condition, mask_inpaint=None):
 
 
 def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
-                    ss_dropout: float = 0.2, context_dropout: float = 0.0):
+                    ss_dropout: float = 0.2, context_dropout: float = 0.0,
+                    row_group=None):
     """Returns loss_fn(params, batch, generator=None, t=None, z=None,
     context_keep=None, ss_drop=None) -> scalar loss.
 
     `params` is None for the model's own parameters, or a {name: tensor}
     dict (the EMA params in eval). `context_dropout` zeroes the whole
     caption embedding of a random subset of samples (the classifier-free
-    guidance null); the token mask is kept."""
+    guidance null); the token mask is kept. `row_group`: the grid's rows
+    are split over it (the model's too: `parallel.sequence.rows_split`),
+    and an injected `z` holds this rank's rows."""
     condition = tuple(condition or ())
 
     def loss_fn(params, batch, generator=None, t=None, z=None,
@@ -93,7 +105,7 @@ def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
         if "ss" in condition:
             coords_6d = block_dropout(coords_6d, batch["ss_spans"],
                                       p=ss_dropout, generator=generator,
-                                      drop=ss_drop)
+                                      drop=ss_drop, row_group=row_group)
 
         score_fn = get_score_fn(sde, model, params, train=train,
                                 generator=generator)
@@ -101,7 +113,7 @@ def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
         if t is None:
             t = rand((b,), generator, dev) * (sde.T - eps) + eps
         if z is None:
-            z = randn(coords_6d.shape, generator, dev)
+            z = randn(coords_6d.shape, generator, dev, rows_dim=1)
         mean, std = sde.marginal_prob(coords_6d, t)
         perturbed = mean + bcast(std, coords_6d.ndim) * z
 
@@ -114,6 +126,9 @@ def get_sde_loss_fn(sde, model, train: bool, condition=(), eps: float = 1e-5,
         score = score_fn(perturbed, t, context, batch.get("context_mask"))
         losses = torch.square(score * bcast(std, score.ndim) + z) * mask
         losses = torch.sum(losses.reshape(b, -1), dim=-1)
+        if row_group is not None:
+            losses, num_elem = row_group.sum(torch.stack(
+                [losses, num_elem.to(losses.dtype)], dim=-1)).unbind(-1)
         losses = losses / (num_elem + 1e-8)
         return torch.mean(losses)
 

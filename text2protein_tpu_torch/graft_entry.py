@@ -11,10 +11,12 @@ dryrun_multichip(n, device=None)
                             sampler on the JAX dryrun's tiny shapes.
 
 The dryrun's mesh is model = 2 where n is even and at least 4, else
-model = 1, as in the JAX package, but the pair grid is not sharded over
-`model` (the JAX dryrun's `shard_grid`, sequence parallelism, is not
-ported): the `model` ranks shard the parameters, Adam and the EMA (FSDP2)
-and compute on the same rows. On CUDA, n ranks need n devices.
+model = 1, as in the JAX package. Where model = 2 the train step also
+splits the pair grid's rows over `model` (the JAX dryrun's `shard_grid`,
+sequence parallelism: `parallel.sequence`), and the `model` ranks shard
+the parameters, Adam and the EMA (FSDP2); the sampler holds whole grids,
+its batch split over every rank's `data` index. On CUDA, n ranks need n
+devices.
 """
 
 from __future__ import annotations
@@ -130,15 +132,22 @@ def _dryrun_rank(n_devices, device_type):
     mesh = make_mesh(n_devices // model_axis, model_axis, device=device)
     sde, _ = get_sde(config)
     b = n_devices
-    rows = {k: torch.from_numpy(v).to(device) for k, v in shard_batch(
-        mesh, _dryrun_batch(b, config), per_node=False).items()}
+    shard_grid = model_axis > 1
+    batch = _dryrun_batch(b, config)
+
+    def place(**kwargs):
+        return {k: torch.from_numpy(v).to(device) for k, v in shard_batch(
+            mesh, batch, per_node=False, **kwargs).items()}
+
+    rows = place()
     flash.flash_attention_fwd.launches = 0
     flash.flash_attention_bwd.launches = 0
     t0 = time.perf_counter()
     state = shard_train_state(
         create_train_state(config, _init_model(config, device)), mesh)
-    train_step = make_train_step(config, sde, state.model, mesh)
-    loss = float(train_step(state, rows, 1))
+    train_step = make_train_step(config, sde, state.model, mesh,
+                                 shard_grid=shard_grid)
+    loss = float(train_step(state, place(shard_grid=shard_grid), 1))
     train_s = time.perf_counter() - t0
     if not np.isfinite(loss) or state.step != 1:
         raise AssertionError(f"dryrun step: loss {loss}, step {state.step}")
@@ -164,7 +173,8 @@ def _dryrun_rank(n_devices, device_type):
     if samples.shape != (b, nres, nres, c) or not np.isfinite(samples).all():
         raise AssertionError(f"dryrun sampler: shape {samples.shape}, "
                              f"finite {np.isfinite(samples).all()}")
-    return {"mesh": {"data": mesh.data, "model": mesh.model}, "loss": loss,
+    return {"mesh": {"data": mesh.data, "model": mesh.model},
+            "shard_grid": shard_grid, "loss": loss,
             "step": state.step, "samples": samples, "nfe": nfe,
             "train_seconds": train_s, "sample_seconds": sample_s,
             "fwd_launches": flash.flash_attention_fwd.launches,
@@ -172,17 +182,18 @@ def _dryrun_rank(n_devices, device_type):
 
 
 def dryrun_multichip(n_devices: int, device=None, timeout: float = 600.0):
-    """One full sharded train step and a batch-sharded PC sampler on
-    `n_devices` ranks (a process each); returns rank 0's results (loss,
-    samples (n, 16, 16, 5), nfe, mesh, seconds, flash launches). On CUDA,
+    """One full sharded train step (the pair grid's rows split over
+    `model` where it is 2) and a batch-sharded PC sampler on `n_devices`
+    ranks (a process each); returns rank 0's results (loss, samples (n,
+    16, 16, 5), nfe, mesh, shard_grid, seconds, flash launches). On CUDA,
     n_devices above the device count raises."""
     from .parallel.launch import spawn
 
     device = resolve_device(device)
     res = spawn(_dryrun_rank, n_devices, args=(n_devices, device.type),
                 device=device, timeout=timeout)[0]
-    print(f"dryrun_multichip({n_devices}): mesh={res['mesh']} sp=False "
-          f"loss={res['loss']:.4f}")
+    print(f"dryrun_multichip({n_devices}): mesh={res['mesh']} "
+          f"sp={res['shard_grid']} loss={res['loss']:.4f}")
     print(f"dryrun_multichip({n_devices}): sampler ok "
           f"shape={res['samples'].shape} nfe={int(res['nfe'])}")
     return res

@@ -18,8 +18,8 @@ import torch
 from torch import nn
 
 from ..ops.attention import dot_product_attention
-from .layers import (Conv2d, Dropout, GroupNormF32Stats, Linear, gelu_tanh,
-                     remat)
+from .layers import (Conv2d, Dropout, GroupNormF32Stats, Linear, gather_keys,
+                     gelu_tanh, remat)
 
 
 class LayerNorm(nn.Module):
@@ -64,7 +64,7 @@ class FeedForward(nn.Module):
         inner = int(dim * mult)
         first = (GEGLU(dim, inner, dtype=dtype) if glu
                  else nn.Sequential(Linear(dim, inner, dtype=dtype), GELU()))
-        self.net = nn.Sequential(first, Dropout(dropout),
+        self.net = nn.Sequential(first, Dropout(dropout, rows_dim=1),
                                  Linear(inner, dim, dtype=dtype))
 
     def forward(self, x, generator=None):
@@ -72,7 +72,12 @@ class FeedForward(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Multi-head attention; context=None -> self-attention."""
+    """Multi-head attention; context=None -> self-attention. With a
+    `row_group` (`parallel.sequence`) self-attention's queries are this
+    rank's tokens and its keys and values are gathered from every rank's;
+    cross-attention is local (the whole caption is on every rank)."""
+
+    row_group = None
 
     def __init__(self, query_dim, context_dim=None, heads=8, dim_head=64,
                  dropout=0.0, dtype=torch.float32):
@@ -84,7 +89,7 @@ class CrossAttention(nn.Module):
         self.to_k = Linear(context_dim, inner, bias=False, dtype=dtype)
         self.to_v = Linear(context_dim, inner, bias=False, dtype=dtype)
         self.to_out = nn.Sequential(Linear(inner, query_dim, dtype=dtype),
-                                    Dropout(dropout))
+                                    Dropout(dropout, rows_dim=1))
 
     def forward(self, x, context=None, context_mask=None, generator=None):
         b, n, _ = x.shape
@@ -95,8 +100,14 @@ class CrossAttention(nn.Module):
             return t.reshape(b, length, self.heads, self.dim_head).transpose(1, 2)
 
         q = heads(self.to_q(x), n)
-        k = heads(self.to_k(ctx), tk)
-        v = heads(self.to_v(ctx), tk)
+        if context is None and self.row_group is not None:
+            k, v = gather_keys(self.row_group, self.to_k(ctx),
+                               self.to_v(ctx))
+            tk = k.shape[1]
+            k, v = heads(k, tk), heads(v, tk)
+        else:
+            k = heads(self.to_k(ctx), tk)
+            v = heads(self.to_v(ctx), tk)
         out = dot_product_attention(q, k, v, scale=self.dim_head**-0.5,
                                     kv_mask=context_mask)
         out = out.transpose(1, 2).reshape(b, n, self.heads * self.dim_head)

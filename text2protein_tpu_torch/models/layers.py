@@ -96,12 +96,15 @@ class Dropout(nn.Module):
     1 - p and scale it by 1 / (1 - p); in eval mode the identity. The keep
     mask is drawn from the `generator` the caller passes, so every draw of
     a training step comes from one explicit, seeded generator (a
-    RowGenerator on a mesh: drawn for the global batch, this rank's rows
-    kept)."""
+    RowGenerator on a mesh: drawn for the global batch and the whole grid,
+    this rank's rows kept; `rows_dim` is the axis of the grid's rows in the
+    input: 2 in NCHW, 1 for row-major tokens, None for an input that is not
+    of the grid)."""
 
-    def __init__(self, p):
+    def __init__(self, p, rows_dim=None):
         super().__init__()
         self.p = float(p)
+        self.rows_dim = rows_dim
 
     def forward(self, x, generator=None):
         if not self.training or self.p == 0.0:
@@ -109,7 +112,8 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in train mode needs a torch.Generator")
         keep_prob = 1.0 - self.p
-        keep = rand(x.shape, generator, x.device) < keep_prob
+        keep = rand(x.shape, generator, x.device,
+                    rows_dim=self.rows_dim) < keep_prob
         return torch.where(keep, x / const(keep_prob, x.dtype),
                            torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -120,7 +124,13 @@ class Dropout(nn.Module):
 class Conv2d(nn.Conv2d):
     """flax `nn.Conv` with `dtype`: in bf16 the input and the f32 weights
     are cast to bf16, the convolution's output is rounded to bf16 and the
-    bias is added after it, in bf16. In float32 the plain `nn.Conv2d`."""
+    bias is added after it, in bf16. In float32 the plain `nn.Conv2d`.
+
+    With a `row_group` (`parallel.sequence`: the grid's rows split over
+    ranks) a 3x3 convolution takes one halo row from each neighbour and
+    pads only the columns; a 1x1 one is local."""
+
+    row_group = None
 
     def __init__(self, *args, dtype=torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
@@ -128,10 +138,15 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         dt = self.compute_dtype
+        x, padding = x.to(dt), self.padding
+        if self.row_group is not None and self.kernel_size[0] > 1:
+            x, padding = self.row_group.halo(x, 2), (0, 1)
+        conv = functools.partial(F.conv2d, stride=self.stride,
+                                 padding=padding, dilation=self.dilation,
+                                 groups=self.groups)
         if dt == torch.float32:
-            return super().forward(x.to(dt))
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
-        return y + self.bias.to(dt)[:, None, None]
+            return conv(x, self.weight, self.bias)
+        return conv(x, self.weight.to(dt)) + self.bias.to(dt)[:, None, None]
 
 
 class Linear(nn.Linear):
@@ -188,7 +203,12 @@ class GroupNormF32Stats(nn.Module):
     and the affine run in the input's dtype, op by op as XLA rounds them,
     (x - mean) * inv * scale + bias, with mean, inv, scale and bias rounded
     to that dtype. Otherwise (and for an f32 input) all in float32, and the
-    output is float32."""
+    output is float32.
+
+    With a `row_group` (`parallel.sequence`) the f32 sums of x and x^2
+    are summed over the group and divided by the whole grid's count."""
+
+    row_group = None
 
     def __init__(self, num_groups, num_channels, eps=1e-6,
                  follow_input_dtype=False):
@@ -204,8 +224,15 @@ class GroupNormF32Stats(nn.Module):
         g = self.num_groups
         xg = x.to(torch.float32).reshape(b, g, c // g, *x.shape[2:])
         axes = tuple(range(2, xg.ndim))
-        mean = xg.mean(dim=axes, keepdim=True)
-        mean2 = (xg * xg).mean(dim=axes, keepdim=True)
+        if self.row_group is None:
+            mean = xg.mean(dim=axes, keepdim=True)
+            mean2 = (xg * xg).mean(dim=axes, keepdim=True)
+        else:
+            count = xg[0, 0].numel() * self.row_group.size
+            sums = self.row_group.sum(torch.stack(
+                [xg.sum(dim=axes), (xg * xg).sum(dim=axes)], dim=-1))
+            keep = (b, g) + (1,) * len(axes)
+            mean, mean2 = (m.reshape(keep) for m in (sums / count).unbind(-1))
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         inv = torch.rsqrt(var + self.eps)
         shape = (1, c) + (1,) * (x.ndim - 2)
@@ -288,7 +315,7 @@ class ResnetBlockDDPM(nn.Module):
         self.Dense_0 = (Linear(temb_dim, out_ch, dtype=dtype)
                         if temb_dim is not None else None)
         self.GroupNorm_1 = group_norm(out_ch, norm_dtype)
-        self.Dropout_0 = Dropout(dropout)
+        self.Dropout_0 = Dropout(dropout, rows_dim=2)
         self.Conv_1 = conv3x3(out_ch, out_ch, dtype=dtype)
         self.Conv_2 = self.NIN_0 = None
         if in_ch != out_ch:
@@ -328,7 +355,7 @@ class ResnetBlockBigGAN(nn.Module):
         self.Dense_0 = (Linear(temb_dim, out_ch, dtype=dtype)
                         if temb_dim is not None else None)
         self.GroupNorm_1 = group_norm(out_ch, norm_dtype)
-        self.Dropout_0 = Dropout(dropout)
+        self.Dropout_0 = Dropout(dropout, rows_dim=2)
         self.Conv_1 = conv3x3(out_ch, out_ch, dtype=dtype)
         self.Conv_2 = (conv1x1(in_ch, out_ch, dtype=dtype)
                        if in_ch != out_ch or up or down else None)
@@ -354,7 +381,11 @@ class ResnetBlockBigGAN(nn.Module):
 
 class AttnBlock(nn.Module):
     """Single-head self-attention over the full HW token grid, scale C^-0.5,
-    through the flash-attention forward."""
+    through the flash-attention forward. With a `row_group`
+    (`parallel.sequence`) the queries are this rank's tokens and the keys
+    and values are gathered from every rank's."""
+
+    row_group = None
 
     def __init__(self, ch, skip_rescale=False, dtype=torch.float32,
                  norm_dtype=torch.float32):
@@ -371,13 +402,24 @@ class AttnBlock(nn.Module):
         h = self.GroupNorm_0(x)
         tokens = h.flatten(2).transpose(1, 2)  # (B, HW, C), row-major
         q = self.NIN_0(tokens).reshape(b, 1, hh * ww, c)
-        k = self.NIN_1(tokens).reshape(b, 1, hh * ww, c)
-        v = self.NIN_2(tokens).reshape(b, 1, hh * ww, c)
+        if self.row_group is None:
+            k = self.NIN_1(tokens).reshape(b, 1, hh * ww, c)
+            v = self.NIN_2(tokens).reshape(b, 1, hh * ww, c)
+        else:
+            k, v = gather_keys(self.row_group, self.NIN_1(tokens),
+                               self.NIN_2(tokens))
+            k, v = k[:, None], v[:, None]
         h = dot_product_attention(q, k, v, scale=c**-0.5)
         h = self.NIN_3(h.reshape(b, hh * ww, c))
         h = h.transpose(1, 2).reshape(b, c, hh, ww)
         out = x.to(h.dtype) + h
         return rescale(out) if self.skip_rescale else out
+
+
+def gather_keys(group, k, v):
+    """Every rank's keys and values (B, T, C), gathered over the row group
+    along the token axis in one collective."""
+    return group.gather(torch.cat([k, v], dim=-1), 1).chunk(2, dim=-1)
 
 
 def remat(fn, *args, generator=None):

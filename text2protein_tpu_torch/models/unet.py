@@ -37,7 +37,8 @@ from .. import resolve_device
 from ..config import check_ported_model
 from ..diffusion.sde import get_sigmas
 from . import layers
-from .attention import LayerNorm, SpatialTransformer
+from ..parallel.sequence import check_grid
+from .attention import CrossAttention, LayerNorm, SpatialTransformer
 from .registry import get_model, register_model
 
 
@@ -68,13 +69,14 @@ class ScoreUNet(nn.Module):
         super().__init__()
         self.init_scale = init_scale
         self.num_channels = num_channels
+        self.max_res_num = max_res_num
         self.nf = nf
         self.scale_by_sigma = scale_by_sigma
         self.dtype = dtype
         self.remat_resblocks = remat_resblocks
         act = layers.get_act(nonlinearity)
         dtypes = dict(dtype=dtype, norm_dtype=norm_dtype)
-        num_resolutions = len(ch_mult)
+        num_resolutions = self.num_resolutions = len(ch_mult)
         all_res = [max_res_num // (2**i) for i in range(num_resolutions)]
         temb_dim = nf * 4
 
@@ -144,6 +146,20 @@ class ScoreUNet(nn.Module):
             torch.from_numpy(get_sigmas(sigma_min, sigma_max, num_scales)),
             persistent=False,
         )
+
+    def set_row_group(self, group):
+        """Split the pair grid's rows over `group` (`parallel.sequence`), or
+        hold whole grids again with None: each 3x3 convolution, GroupNorm
+        and self-attention then exchanges what crosses a rank's rows, and
+        the forward takes and returns this rank's rows (x (B, N / size, N,
+        C)). Raises ValueError where the rows do not split evenly at every
+        level (`parallel.sequence.check_grid`)."""
+        if group is not None:
+            check_grid(self.max_res_num, self.num_resolutions, group.size)
+        for m in self.modules():
+            if isinstance(m, (layers.Conv2d, layers.GroupNormF32Stats,
+                              layers.AttnBlock, CrossAttention)):
+                m.row_group = group
 
     def _run(self, blocks, h, temb, context, context_mask, generator):
         for m in blocks:

@@ -15,6 +15,13 @@ admits the unmasked shapes that the JAX rule refuses for TPU tiling
 reasons. A call without a gradient (serving, under `inference_mode`)
 calls the forward alone.
 
+With the pair grid's rows split over ranks (`parallel.sequence`) the
+dispatch decides by the shapes this rank holds: its query tokens against
+the gathered keys. So at model 4 the 4x4 mid block's self-attention (Tq =
+4 < 8) takes the einsum path where the JAX package, deciding by the
+global shapes under SPMD, takes the flash kernel. On the CPU both routes
+are plain PyTorch of the same function.
+
 Layout: q (B, H, Tq, D), k/v (B, H, Tk, D); optional kv_mask (B, Tk) bool.
 """
 

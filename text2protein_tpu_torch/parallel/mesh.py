@@ -18,12 +18,20 @@ Parameters, Adam moments and the EMA: sharded over `model`, replicated over
 over dim 0 and shards dim 0 of every tensor over dim 1); the JAX package
 shards each tensor's largest divisible axis instead. The gradients are
 averaged over every rank, which is the gradient of the global batch's mean
-loss, since the `model` ranks of a row block compute the same gradient.
+loss: the `model` ranks of a row block compute the same gradient, or, with
+the pair grid's rows split over them (`parallel.sequence`), each holds
+`model` times its share of it, so their mean is the sum of the shares.
+
+Sequence parallelism (`shard_batch(..., shard_grid=True)`): the `model`
+ranks of a row block also split the rows of its pair grids (the JAX
+package's `P("data", "model")` of `grid_sharding`), and the layers
+exchange what crosses a row block through `parallel.sequence`.
 
 Random draws (`RowGenerator`): every draw of a step is made at the global
-batch's shape from the step's generator, and each rank keeps its rows, so a
-step's draws do not depend on the mesh; a draw made once per batch (a 0-d
-one) is the same on every rank.
+batch's shape, and a draw of the grid at the whole grid's, from the step's
+generator, and each rank keeps its rows, so a step's draws do not depend
+on the mesh; a draw made once per batch (a 0-d one) is the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -181,13 +189,27 @@ def batch_rows(mesh: Mesh, global_b: int) -> tuple[int, int]:
     return mesh.data_index * per, (mesh.data_index + 1) * per
 
 
-def shard_batch(mesh: Mesh | None, batch: dict,
-                per_node: bool = True) -> dict:
+def grid_rows(mesh: Mesh, n: int) -> tuple[int, int]:
+    """[lo, hi) of this rank's rows of an (n, n) pair grid split over the
+    `model` ranks (the JAX package's `P("data", "model")` shard)."""
+    if n % mesh.model:
+        raise ValueError(f"a pair grid of {n} rows does not split over "
+                         f"model={mesh.model}")
+    per = n // mesh.model
+    return mesh.model_index * per, (mesh.model_index + 1) * per
+
+
+def shard_batch(mesh: Mesh | None, batch: dict, per_node: bool = True,
+                shard_grid: bool = False) -> dict:
     """This rank's rows of every key of `batch` (arrays, tensors, lists;
     the whole batch without a mesh). With `per_node` the batch is this
     node's share of the global batch (batch_size rows of batch_size x
     host_count); else it is the whole global batch, which every node
-    holds."""
+    holds. With `shard_grid` (sequence parallelism) also this rank's rows
+    of the pair grid keys (`coords_6d`, `mask_pair`, `mask_inpaint`: axis
+    1), over the `model` ranks."""
+    from .sequence import GRID_KEYS
+
     if mesh is None:
         return batch
     def rows(v):
@@ -205,6 +227,9 @@ def shard_batch(mesh: Mesh | None, batch: dict,
             if len(v) != n:
                 raise ValueError(f"batch key {k} has {len(v)} rows, not {n}")
             v = v[lo:hi]
+            if shard_grid and k in GRID_KEYS:
+                g0, g1 = grid_rows(mesh, v.shape[1])
+                v = v[:, g0:g1]
         out[k] = v
     return out
 
@@ -232,14 +257,23 @@ def mean_over_rows(mesh: Mesh | None, x: torch.Tensor) -> torch.Tensor:
 
 
 class RowGenerator:
-    """A torch.Generator whose draws are made for the global batch: a draw
-    of shape (b, ...) with b = hi - lo is drawn at (total, ...) and rows
-    [lo, hi) are kept; a 0-d draw is drawn as it is. `get_state` and
-    `set_state` are the generator's (`models.layers.remat` replays them)."""
+    """A torch.Generator whose draws are made for the global batch and the
+    whole pair grid. A draw of shape (b, ...) is drawn at (total, ...) and
+    the batch's rows [lo, hi) are kept. A draw of the grid (`rows_dim`: the
+    axis of the grid's rows, or of its row-major tokens) is drawn with that
+    axis `blocks` times as long and row block `block` of it is kept; with
+    `block` None (the `model` ranks stacked on the batch axis,
+    `parallel.sequence.StackedRowGroup`) every block is kept, stacked
+    rank-major on the batch axis, and a draw not of the grid is repeated
+    once per block. A 0-d draw is drawn as it is. `get_state` and
+    `set_state` are the generator's (`models.layers.remat` replays
+    them)."""
 
-    def __init__(self, generator, lo: int, hi: int, total: int):
+    def __init__(self, generator, lo: int, hi: int, total: int,
+                 blocks: int = 1, block: int | None = 0):
         self.generator, self.lo, self.hi, self.total = (
             generator, lo, hi, total)
+        self.blocks, self.block = blocks, block
 
     @property
     def device(self):
@@ -251,41 +285,62 @@ class RowGenerator:
     def set_state(self, state):
         self.generator.set_state(state)
 
-    def draw(self, fn, shape, **kwargs):
+    def draw(self, fn, shape, rows_dim=None, **kwargs):
         shape = tuple(shape)
         if not shape:
             return fn(shape, generator=self.generator, **kwargs)
-        if shape[0] != self.hi - self.lo:
+        copies = self.blocks if self.block is None else 1
+        if shape[0] != copies * (self.hi - self.lo):
             raise ValueError(f"a draw of {shape} from rows {self.lo}:"
-                             f"{self.hi} of {self.total}")
-        full = fn((self.total, *shape[1:]), generator=self.generator,
-                  **kwargs)
-        return full[self.lo:self.hi]
+                             f"{self.hi} of {self.total}"
+                             + (f" x {copies} copies" if copies > 1 else ""))
+        full = [self.total, *shape[1:]]
+        grid = rows_dim is not None and self.blocks > 1
+        if grid:
+            full[rows_dim] *= self.blocks
+        out = fn(tuple(full), generator=self.generator,
+                 **kwargs)[self.lo:self.hi]
+        if not grid:
+            return out.repeat(copies, *([1] * (out.ndim - 1))) \
+                if copies > 1 else out
+        parts = out.chunk(self.blocks, dim=rows_dim)
+        return torch.cat(parts) if self.block is None else parts[self.block]
 
 
-def row_generator(generator, mesh: Mesh | None, rows: int):
-    """`generator` for a rank that holds `rows` rows of the global batch:
-    itself without a mesh or with one data rank, else a RowGenerator."""
-    if generator is None or mesh is None or mesh.data == 1:
+def row_generator(generator, mesh: Mesh | None, rows: int, group=None):
+    """`generator` for a rank that holds `rows` rows of the global batch
+    (of each stacked copy, under a StackedRowGroup) and, with a row `group`
+    (`parallel.sequence`), its rows of the grid: itself where the rank holds
+    the whole batch and the whole grid, else a RowGenerator."""
+    data = 1 if mesh is None else mesh.data
+    blocks = 1 if group is None else group.size
+    if generator is None or (data == 1 and blocks == 1):
         return generator
-    lo = mesh.data_index * rows
-    return RowGenerator(generator, lo, lo + rows, rows * mesh.data)
+    lo = 0 if mesh is None else mesh.data_index * rows
+    return RowGenerator(generator, lo, lo + rows, rows * data, blocks,
+                        0 if group is None else group.index)
 
 
-def _draw(fn, shape, generator, **kwargs):
+def _draw(fn, shape, generator, rows_dim=None, **kwargs):
     if isinstance(generator, RowGenerator):
-        return generator.draw(fn, shape, **kwargs)
+        return generator.draw(fn, shape, rows_dim, **kwargs)
     return fn(tuple(shape), generator=generator, **kwargs)
 
 
-def rand(shape, generator=None, device=None, dtype=torch.float32):
-    """torch.rand from `generator`, a torch.Generator or a RowGenerator."""
-    return _draw(torch.rand, shape, generator, device=device, dtype=dtype)
+def rand(shape, generator=None, device=None, dtype=torch.float32,
+         rows_dim=None):
+    """torch.rand from `generator`, a torch.Generator or a RowGenerator;
+    `rows_dim` marks a draw of the grid (the axis of its rows)."""
+    return _draw(torch.rand, shape, generator, rows_dim, device=device,
+                 dtype=dtype)
 
 
-def randn(shape, generator=None, device=None, dtype=torch.float32):
-    """torch.randn from `generator`, a torch.Generator or a RowGenerator."""
-    return _draw(torch.randn, shape, generator, device=device, dtype=dtype)
+def randn(shape, generator=None, device=None, dtype=torch.float32,
+          rows_dim=None):
+    """torch.randn from `generator`, a torch.Generator or a RowGenerator;
+    `rows_dim` marks a draw of the grid (the axis of its rows)."""
+    return _draw(torch.randn, shape, generator, rows_dim, device=device,
+                 dtype=dtype)
 
 
 # ---------------------------------------------------------- sharded state
@@ -368,7 +423,9 @@ def shard_params(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     their gathered copy is the whole tensor either way, so it is kept from
     the forward to the backward (one gather a step instead of two). No
     MixedPrecisionPolicy: parameters keep their dtype and gradients are
-    reduced in it."""
+    reduced in it. The reduction is FSDP2's mean over every rank, with or
+    without the grid's rows split over `model` (the module docstring says
+    why both are the loss's gradient)."""
     from ..models import layers
     from ..models.attention import SpatialTransformer
 

@@ -17,6 +17,18 @@ global batch from the same generator and the rank keeps its rows
 ranks, and the loss a step returns is the global batch's mean, the same on
 every rank. So the step computes what the one-device step computes on the
 global batch, up to the rounding of the reductions.
+
+With `shard_grid` (sequence parallelism, JAX `make_train_step(...,
+shard_grid=True)`) the `model` ranks of a row block also split the rows of
+its pair grids (`parallel.sequence`): the batch holds this rank's rows of
+`coords_6d`, `mask_pair` and `mask_inpaint` (`parallel.mesh.shard_batch(
+..., shard_grid=True)`), featurization on the device and the inpainting
+masks build the whole grid and keep the rank's rows, every draw of the
+grid is made for the whole grid, and the loss is still the global batch's.
+A `parallel.sequence.StackedRowGroup` in place of True runs the `model`
+ranks in one process, stacked on the batch axis (its batch from
+`StackedRowGroup.shard_batch`). The eval step and the samplers hold whole
+grids, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from ..diffusion.ema import ema_update
 from ..diffusion.losses import get_sde_loss_fn
 from ..parallel.mesh import local, mean_over_rows, reshard, row_generator
 from ..parallel.mesh import shard_train_state  # noqa: F401 (JAX's home)
+from ..parallel import sequence
 from .state import TrainState
 
 MASK_STREAM = 1  # the inpainting masks' stream of step_generator
@@ -47,53 +60,79 @@ def step_generator(seed: int, step: int, device,
     return torch.Generator(device=device).manual_seed(value)
 
 
-def featurize(config, batch):
+def featurize(config, batch, row_group=None):
     """The batch the loss takes: a batch that carries backbones (`bb`, from
     `data.featurize_on_device`) gets coords_6d and mask_pair built on its
     device, with the SS block channels `ss_block` for C=8 (JAX
-    `_featurizer`); any other batch is returned as it is."""
+    `_featurizer`), and keeps this rank's rows of them under a
+    `row_group`; any other batch is returned as it is."""
     if "bb" not in batch or "coords_6d" in batch:
         return batch
     coords_6d, mask_pair = featurize_batch(batch["bb"], batch["mask_res"],
                                            config.data.num_channels,
                                            ss_block=batch.get("ss_block"))
+    if row_group is not None:
+        coords_6d = row_group.local_rows(coords_6d, 1)
+        mask_pair = row_group.local_rows(mask_pair, 1)
     return dict(batch, coords_6d=coords_6d, mask_pair=mask_pair)
 
 
-def with_inpainting_mask(config, batch, seed, step, mesh=None):
+def with_inpainting_mask(config, batch, seed, step, mesh=None,
+                         row_group=None):
     """The batch with a random inpainting mask drawn on its device from
     step_generator(seed, step, MASK_STREAM), where the config conditions on
     inpainting and the batch has none yet; on a mesh, drawn for the global
-    batch and this rank's rows kept."""
+    batch and this rank's rows kept, and under a `row_group` its rows of
+    the grid."""
     if ("inpainting" not in config.model.condition
             or "mask_inpaint" in batch):
         return batch
     lengths = batch["length"]
+    copies = 1 if row_group is None else row_group.copies
     gen = row_generator(
         step_generator(seed, step, lengths.device, MASK_STREAM), mesh,
-        lengths.shape[0])
-    return dict(batch, mask_inpaint=random_mask_batch(
-        lengths, config.data.max_res_num, config, generator=gen))
+        lengths.shape[0] // copies, row_group)
+    mask = random_mask_batch(lengths, config.data.max_res_num, config,
+                             generator=gen)
+    if row_group is not None:
+        mask = row_group.local_rows(mask, 1)
+    return dict(batch, mask_inpaint=mask)
 
 
-def make_train_step(config, sde, model, mesh=None):
+def make_train_step(config, sde, model, mesh=None, shard_grid=False):
     """Returns train_step(state, batch, seed) -> loss (a 0-d tensor). On a
     `mesh`, `batch` holds this rank's rows and the loss is the global
-    batch's mean."""
+    batch's mean. `shard_grid`: True splits the pair grid's rows over the
+    mesh's `model` ranks (a no-op with one), a `parallel.sequence.RowGroup`
+    over that group; raises ValueError where the rows do not split evenly
+    at every level of the model."""
+    if shard_grid is True:
+        if mesh is None:
+            raise ValueError("shard_grid=True needs a mesh (or pass a "
+                             "parallel.sequence.RowGroup)")
+        group = sequence.row_group(mesh)
+    else:
+        group = shard_grid or None
+    if group is not None:
+        sequence.check_grid(model.max_res_num, model.num_resolutions,
+                            group.size)
+    copies = 1 if group is None else group.copies
     loss_fn = get_sde_loss_fn(
         sde, model, train=True, condition=tuple(config.model.condition),
         context_dropout=float(config.model.get("context_dropout", 0.0)),
+        row_group=group,
     )
 
     def train_step(state: TrainState, batch, seed):
-        batch = with_inpainting_mask(config, featurize(config, batch), seed,
-                                     state.step, mesh)
+        batch = with_inpainting_mask(config, featurize(config, batch, group),
+                                     seed, state.step, mesh, group)
         coords = batch["coords_6d"]
         gen = row_generator(step_generator(seed, state.step, coords.device),
-                            mesh, coords.shape[0])
+                            mesh, coords.shape[0] // copies, group)
         state.optimizer.zero_grad()
-        loss = loss_fn(None, batch, gen)
-        loss.backward()
+        with sequence.rows_split(model, group):
+            loss = loss_fn(None, batch, gen)
+            loss.backward()
         state.optimizer.step()
         ema_update(state.ema, state.params)
         state.step += 1
