@@ -136,9 +136,10 @@ Phases, each printing a flushed line with the seconds since start:
      linesearch steps, iterates within 1e-3 A); `run_minimization` at the
      JAX test's bar (L=64 bundle, 3 restarts, max_iter 150, seed 1: TM >
      0.8 to the truth by `eval.tmscore`, N-CA and C-N within 0.1 A of
-     ideal); `realize_batch` of the 4 designs at its defaults (5 restarts,
-     max_iter 300): TM-scores, selection energies, evaluations per solve,
-     seconds per batch; 10 fold-stage iterations of that batch under the
+     ideal); `realize_batch` of the 4 designs (5 restarts, its default,
+     and max_iter 150 where it defaults to 300: the depth cut to keep the
+     script inside its limit): TM-scores, selection energies, evaluations
+     per solve, seconds per batch; 10 fold-stage iterations of that batch under the
      profiler (device busy share, launches per evaluation); the flagship
      Server at batch 4 with realize on at lengths 128, 96, 64 and 40: PDBs
      of those lengths, finite energies, seconds per realized design, no
@@ -173,6 +174,34 @@ Phases, each printing a flushed line with the seconds since start:
      their scale (phase 7's bar), exactly 30 forward and 18 backward
      launches per SP step (the plain step's calls at twice the batch); ms
      per plain and per SP step, peak memory of each.
+ 25. sequence parallel N=256: both bf16 kernels against their plain
+     versions at every shape of the quality_n256.yml train step with the
+     pair grid's rows split over 2 ranks (batch 8 x 2 stacked ranks: 512,
+     128 or 32 query rows against 1024, 256 or 64 gathered keys, or the
+     16-token caption), the forward at all 9, the backward at the 6
+     unmasked, timed as in 8; then 4 train steps of quality_n256_config()
+     as written (bf16, remat, featurization on the device, batch 8,
+     dropout 0.1) with the rows over a `StackedRowGroup` of 2 against the
+     plain steps from the same weights on phase 12's first batches:
+     losses within 2e-3 relative and the last step's gradients within
+     1e-1 of their scale (the CPU test's bf16 + remat bars), exactly 80
+     bf16 forward (48 + the 32 of the transformer blocks' recompute) and
+     32 bf16 backward launches per SP step and no f32 launch; ms per plain
+     and per SP step, peak memory of each.
+ 26. HTTP server: `python -m text2protein_tpu_torch.cli.serve
+     configs/deploy_l128.yml <phase 6's workdir>/checkpoints/best_eval
+     --batch_size 4 --sampler pc --num_steps 10 --max_wait_ms 500
+     --warmup --realize --port 0` (the JAX server's command line) as a
+     process: /healthz (the JAX keys, platform gpu, the checkpoint's
+     step); a burst of 4 concurrent requests and a seeded one sent while
+     the burst is queued, a pair 100 ms apart, a realized request and a
+     length of 1 (HTTP 400); the batches formed (one seed a batch) must be
+     the JAX batcher's: the burst one batch, the seeded request alone, the
+     pair one batch; the seeded map equal to the same request re-sent
+     alone; every map checked as in 4; per-request latency and samples/min
+     over the burst; on SIGINT the server prints its batches (the warm-up
+     included) and flash launches, exactly batches x nfe x 18 f32
+     forward and no other.
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -425,6 +454,59 @@ SP_SHAPES = [
 SP_BWD_SHAPES = [(n, h, tq, tk, d, m, c if "attnblock" in n else c // 2)
                  for n, h, tq, tk, d, m, c in SP_SHAPES]
 SP_LOSS_TOL = 2e-4   # the SP step's losses against the plain step's (rel)
+
+# sequence parallelism at N=256 (phase 25): quality_n256.yml as written
+# (bf16, remat, featurization on the device, batch 8) with the rows split
+# over SP_MODEL stacked ranks, so every attention call runs at batch 8 x 2
+# with a rank's query rows (16 of 32 rows, 8 of 16, 4 of 8) against the
+# gathered keys (self) or the 16-token caption (cross). (name, H, Tq, Tk,
+# D, masked, forward calls per train step, the transformer blocks'
+# recompute included: 80); the backward takes the unmasked calls (32), the
+# masked cross-attention over 16 keys the einsum recompute (`supports_bwd`)
+SP256_BATCH = N256_TRAIN_BATCH * SP_MODEL
+SP256_SHAPES = [
+    ("sp_attnblock_32x32", 1, 512, 1024, 512, False, 5),
+    ("sp_self_32x32", 8, 512, 1024, 64, False, 10),
+    ("sp_cross_32x32", 8, 512, 16, 64, True, 10),
+    ("sp_attnblock_16x16", 1, 128, 256, 512, False, 5),
+    ("sp_self_16x16", 8, 128, 256, 64, False, 10),
+    ("sp_cross_16x16", 8, 128, 16, 64, True, 10),
+    ("sp_attnblock_8x8", 1, 32, 64, 512, False, 6),
+    ("sp_self_8x8", 8, 32, 64, 64, False, 12),
+    ("sp_cross_8x8", 8, 32, 16, 64, True, 12),
+]
+SP256_BWD_SHAPES = [(n, h, tq, tk, d, m, c if "attnblock" in n else c // 2)
+                    for n, h, tq, tk, d, m, c in SP256_SHAPES if not m]
+# the SP step against the plain one in bf16 + remat: the bars of the CPU
+# test of the same settings (tests/test_torch_sequence_parallel.py
+# SETTINGS["bf16_remat"]): the split rows sum the halo convolutions,
+# GroupNorm and the gathered attention in another order and bf16 rounds
+# each op, so the two steps sit about as far apart as bf16 from f32 (on the
+# CPU at the N=256 depth: loss 0, gradients 9.0e-3 of their scale)
+SP256_LOSS_TOL = 2e-3
+SP256_GRAD_TOL = 1e-1
+
+# the HTTP server (phase 26): the JAX server's command line on phase 6's
+# best_eval with the deployment config, sampled by 10 PC steps at batch 4
+HTTP_BATCH = 4
+HTTP_STEPS = 10
+HTTP_WAIT_MS = 500      # the batcher's window
+HTTP_START_S = 600      # the server's start (imports, weights, warm-up)
+HTTP_REQUEST_S = 600    # each request's limit (the realized one included)
+HTTP_PAIR_GAP_S = 0.1   # the pair's second request, inside the window
+HTTP_BURST = [
+    {"caption": "A small alpha-helical bundle that binds zinc.",
+     "length": 64},
+    {"caption": "beta barrel membrane transporter", "length": 100},
+    {"caption": "", "length": 128},
+    {"caption": "three helix bundle", "length": 87},
+]
+HTTP_SEEDED = {"caption": "Kinase domain with a long activation loop.",
+               "length": 77, "seed": 24680}
+HTTP_PAIR = [{"caption": "a coiled coil", "length": 112},
+             {"caption": "a four helix bundle", "length": 96}]
+HTTP_REALIZE = {"caption": "a helical hairpin", "length": 40,
+                "realize": True}
 
 
 def log(msg):
@@ -2383,10 +2465,12 @@ def phase_text(torch, ptxas, smi):
 # realization (phase 22): L=128 designs of the port's synthetic helix
 # bundles, compacted on the card; the quality check of the JAX package's
 # own test (tests/test_realize.py: L=64, 3 restarts, max_iter 150, seed 1,
-# TM > 0.8, N-CA and C-N within 0.1 A of ideal); realize_batch at its
-# defaults (5 restarts, max_iter 300); the flagship Server at batch 4 with
-# realize; cli/sampling_rosetta on phase 14's pickles
+# TM > 0.8, N-CA and C-N within 0.1 A of ideal); realize_batch with 5
+# restarts and REALIZE_BATCH_ITERS (its default 300 halved: the depth cut
+# that keeps the script inside its time limit, ~75 s); the flagship Server
+# at batch 4 with realize; cli/sampling_rosetta on phase 14's pickles
 REALIZE_L = 128
+REALIZE_BATCH_ITERS = 150
 REALIZE_SEEDS = (0, 1, 2, 3)
 REALIZE_QUALITY = dict(L=64, seed=5, n_restarts=3, max_iter=150, run_seed=1)
 REALIZE_LENGTHS = (128, 96, 64, 40)
@@ -2581,11 +2665,12 @@ def phase_realize(torch, smi, sampled_dir):
         f"{secs:.2f}s, evaluations per solve "
         f"{[s.evaluations for s in solver_log]}")
 
-    # realize_batch at its defaults on the 4 L=128 designs
+    # realize_batch on the 4 L=128 designs
     solver_log = []
     torch.cuda.synchronize()
     t = time.perf_counter()
-    got, es = tm.realize_batch(maps, device="cuda", solver_log=solver_log)
+    got, es = tm.realize_batch(maps, max_iter=REALIZE_BATCH_ITERS,
+                               device="cuda", solver_log=solver_log)
     secs = time.perf_counter() - t
     tms = [tm_score(got[k, :, 1], bbs[k, :, 1]) for k in range(len(bbs))]
     if not (np.isfinite(got).all() and np.isfinite(es).all()):
@@ -2597,8 +2682,8 @@ def phase_realize(torch, smi, sampled_dir):
                         solves=_solver_stats(solver_log),
                         bond_dev=[_bond_dev(b) for b in got])
     log(f"realize ({smi}): realize_batch D=4 x 5 restarts at L={L}, "
-        f"max_iter 300: {secs:.2f}s per batch; TM to the truth "
-        f"{[round(x, 4) for x in tms]}; selection energies "
+        f"max_iter {REALIZE_BATCH_ITERS}: {secs:.2f}s per batch; TM to the "
+        f"truth {[round(x, 4) for x in tms]}; selection energies "
         f"{[round(float(x), 2) for x in es]}; evaluations per solve "
         f"{[s.evaluations for s in solver_log]} over "
         f"{[len(s.linesearch_steps) for s in solver_log]} iterations")
@@ -2994,6 +3079,130 @@ def phase_distributed(torch, smi, records):
                 dryrun_seconds=dry_s)
 
 
+def first_train_batches(torch, config, records, b, steps):
+    """The trainer's first `steps` batches of `records` at batch `b` (its
+    data order from config.seed), on the card with their captions
+    encoded."""
+    from text2protein_tpu_torch.cli.train import (
+        split_dataset,
+        train_batches_from,
+    )
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+
+    dev = torch.device("cuda")
+    ds = ProteinProcessedDataset(records)
+    train_idx, _ = split_dataset(len(ds), config.seed)
+    stream = train_batches_from(ds, train_idx, b, config.data.max_res_num,
+                                config.seed, 0)
+    encoder = build_text_encoder(config)
+    batches = []
+    for _ in range(steps):
+        host = next(stream)
+        arrays = batch_to_device_arrays(host, config, device=dev)
+        ctx, ctx_mask = encoder.encode(host["caption"])
+        arrays["context"] = torch.from_numpy(ctx).to(dev)
+        arrays["context_mask"] = torch.from_numpy(ctx_mask).to(dev)
+        batches.append(arrays)
+    return batches
+
+
+def sp_against_plain(torch, config, batches, group):
+    """Train steps of `config` on `batches` (seed config.seed + 1), plain
+    and with the pair grid's rows over `group`, each from the JAX
+    initializers drawn from config.seed: per run {"losses", "ms" (host,
+    the card synchronized by the loss), "fwd", "bwd", "fwd_bf16",
+    "bwd_bf16" (flash launches per step), "peak" (max_memory_allocated)};
+    then the worst relative loss difference and the last step's worst
+    gradient difference (`worst_grad_diff`) and its name."""
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import build_model, init_params
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.training.state import create_train_state
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    dev = torch.device("cuda")
+    sde, _ = get_sde(config)
+    counters = (flash.flash_attention_fwd, flash.flash_attention_bwd)
+
+    def run(group):
+        model = init_params(build_model(config, device=dev),
+                            torch.Generator().manual_seed(int(config.seed)))
+        state = create_train_state(config, model)
+        step = make_train_step(config, sde, model, shard_grid=group or False)
+        out = {k: [] for k in ("losses", "ms", "fwd", "bwd", "fwd_bf16",
+                               "bwd_bf16")}
+        for batch in batches:
+            if group is not None:
+                batch = group.shard_batch(batch)
+            torch.cuda.synchronize()
+            for c in counters:
+                c.launches = c.launches_bf16 = 0
+            t0 = time.perf_counter()
+            out["losses"].append(float(step(state, batch, config.seed + 1)))
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            for c, kind in zip(counters, ("fwd", "bwd")):
+                out[kind].append(c.launches)
+                out[kind + "_bf16"].append(c.launches_bf16)
+        grads = {k: p.grad.detach().clone() for k, p in
+                 state.model.named_parameters()}
+        return out, grads
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    plain, p_grads = run(None)
+    plain["peak"] = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sp, s_grads = run(group)
+    sp["peak"] = torch.cuda.max_memory_allocated()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(sp["losses"], plain["losses"]))
+    grad_worst, grad_key = worst_grad_diff(s_grads, p_grads)
+    del p_grads, s_grads
+    torch.cuda.empty_cache()
+    return plain, sp, loss_rel, grad_worst, grad_key
+
+
+def report_sp(what, smi, runs, loss_tol, grad_tol, launches):
+    """Log `sp_against_plain`'s `runs`; raise where a launch count differs
+    from `launches` ({counter: per step}, 0 where absent) or a bar is
+    missed. Returns the phase's record."""
+    import numpy as np
+
+    plain, sp, loss_rel, grad_worst, grad_key = runs
+    ms_plain = float(np.median(plain["ms"][1:]))
+    ms_sp = float(np.median(sp["ms"][1:]))
+    counts = {k: sp[k] for k in ("fwd", "bwd", "fwd_bf16", "bwd_bf16")}
+    log(f"{what} ({smi}), {SP_STEPS} steps: losses {sp['losses']} vs "
+        f"plain {plain['losses']} (worst rel {loss_rel:.2e}, tol "
+        f"{loss_tol:.0e}); last step's gradients worst {grad_key} "
+        f"{grad_worst:.2e} (tol {grad_tol:.0e}); flash launches per SP "
+        f"step {counts} (plain "
+        f"{ {k: plain[k] for k in counts} })")
+    log(f"{what}: {ms_plain:.2f} ms per plain step, {ms_sp:.2f} ms per SP "
+        f"step (median of steps 2-{SP_STEPS}; all: plain "
+        f"{', '.join(f'{x:.1f}' for x in plain['ms'])}; SP "
+        f"{', '.join(f'{x:.1f}' for x in sp['ms'])}); "
+        f"max_memory_allocated plain {plain['peak'] / 2**30:.2f} GiB, SP "
+        f"{sp['peak'] / 2**30:.2f} GiB")
+    want = {k: [launches.get(k, 0)] * SP_STEPS for k in counts}
+    if counts != want:
+        raise AssertionError(f"flash launches per SP step {counts}, "
+                             f"expected {want}")
+    if not (np.isfinite(sp["losses"]).all() and loss_rel < loss_tol
+            and grad_worst < grad_tol):
+        raise AssertionError("the SP step disagrees with the plain one "
+                             "(line above)")
+    return dict(model=SP_MODEL, steps=SP_STEPS, losses=sp["losses"],
+                plain_losses=plain["losses"], loss_rel=loss_rel,
+                grad_worst=grad_worst, grad_key=grad_key, ms=sp["ms"],
+                plain_ms=plain["ms"], ms_per_step=ms_sp,
+                ms_per_plain_step=ms_plain, peak_bytes=sp["peak"],
+                plain_peak_bytes=plain["peak"], launches_per_step=counts)
+
+
 def phase_sequence_parallel(torch, smi, records):
     """Phase 24: both f32 kernels at every shape of the sequence-parallel
     train step against their plain versions and timed, then SP_STEPS train
@@ -3003,110 +3212,249 @@ def phase_sequence_parallel(torch, smi, records):
     the losses (rel SP_LOSS_TOL), the last step's gradients (TRAIN_GRAD_TOL
     of their scale), exactly 30 forward and 18 backward launches per SP
     step, ms per step of each."""
-    import numpy as np
-
-    from text2protein_tpu_torch.cli.train import (
-        split_dataset,
-        train_batches_from,
-    )
-    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
     from text2protein_tpu_torch.config import bench_l128_config
-    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
-    from text2protein_tpu_torch.diffusion.sde import get_sde
-    from text2protein_tpu_torch.models.unet import build_model, init_params
-    from text2protein_tpu_torch.ops import flash
     from text2protein_tpu_torch.parallel.sequence import StackedRowGroup
-    from text2protein_tpu_torch.text.encoder import build_text_encoder
-    from text2protein_tpu_torch.training.state import create_train_state
-    from text2protein_tpu_torch.training.steps import make_train_step
 
     fwd_rows = phase_kernels(torch, SP_SHAPES, b=SP_BATCH)
     bwd_rows = phase_kernels_bwd(torch, SP_BWD_SHAPES, b=SP_BATCH)
-    torch.cuda.empty_cache()
-    dev = torch.device("cuda")
     config = bench_l128_config()
-    ds = ProteinProcessedDataset(records)
-    train_idx, _ = split_dataset(len(ds), config.seed)
-    stream = train_batches_from(ds, train_idx, TRAIN_BATCH,
-                                config.data.max_res_num, config.seed, 0)
-    host = [next(stream) for _ in range(SP_STEPS)]
-    encoder = build_text_encoder(config)
-    batches = []
-    for b in host:
-        arrays = batch_to_device_arrays(b, config, device=dev)
-        ctx, ctx_mask = encoder.encode(b["caption"])
-        arrays["context"] = torch.from_numpy(ctx).to(dev)
-        arrays["context_mask"] = torch.from_numpy(ctx_mask).to(dev)
-        batches.append(arrays)
-    sde, _ = get_sde(config)
-    per_step = FWD_PER_TRAIN_STEP + REMAT_FWD_PER_TRAIN_STEP  # 30
+    batches = first_train_batches(torch, config, records, TRAIN_BATCH,
+                                  SP_STEPS)
+    runs = sp_against_plain(torch, config, batches,
+                            StackedRowGroup(SP_MODEL))
+    out = report_sp(
+        f"sequence parallel: bench_l128 at batch {TRAIN_BATCH}, the pair "
+        f"grid's rows over a stacked group of {SP_MODEL}", smi, runs,
+        SP_LOSS_TOL, TRAIN_GRAD_TOL,
+        {"fwd": FWD_PER_TRAIN_STEP + REMAT_FWD_PER_TRAIN_STEP,  # 30
+         "bwd": BWD_PER_TRAIN_STEP})
+    return dict(out, fwd_launches=sum(runs[1]["fwd"]),
+                bwd_launches=sum(runs[1]["bwd"]), fwd_rows=fwd_rows,
+                bwd_rows=bwd_rows)
 
-    def run(group):
-        model = init_params(build_model(config, device=dev),
-                            torch.Generator().manual_seed(int(config.seed)))
-        state = create_train_state(config, model)
-        step = make_train_step(config, sde, model, shard_grid=group or False)
-        out = {"losses": [], "ms": [], "fwd": [], "bwd": []}
-        for batch in batches:
-            if group is not None:
-                batch = group.shard_batch(batch)
-            torch.cuda.synchronize()
-            flash.flash_attention_fwd.launches = 0
-            flash.flash_attention_bwd.launches = 0
-            t0 = time.perf_counter()
-            out["losses"].append(float(step(state, batch, config.seed + 1)))
-            out["ms"].append((time.perf_counter() - t0) * 1e3)
-            out["fwd"].append(flash.flash_attention_fwd.launches)
-            out["bwd"].append(flash.flash_attention_bwd.launches)
-        grads = {k: p.grad.detach().clone() for k, p in
-                 state.model.named_parameters()}
-        return out, grads
 
-    torch.cuda.reset_peak_memory_stats()
-    plain, p_grads = run(None)
-    plain_peak = torch.cuda.max_memory_allocated()
+def phase_sequence_parallel_n256(torch, ptxas, smi, records):
+    """Phase 25: both bf16 kernels at every shape of the quality_n256
+    train step with the rows split over SP_MODEL stacked ranks against
+    their plain versions and timed, then SP_STEPS train steps of
+    quality_n256_config() as written with the rows split, against the
+    plain steps from the same weights on phase 12's first batches: losses
+    (rel SP256_LOSS_TOL), the last step's gradients (SP256_GRAD_TOL of
+    their scale), exactly 80 bf16 forward and 32 bf16 backward launches
+    per SP step and no f32 launch."""
+    from text2protein_tpu_torch.config import quality_n256_config
+    from text2protein_tpu_torch.parallel.sequence import StackedRowGroup
+
+    fwd_rows, bwd_rows = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", SP256_SHAPES, SP256_BATCH),
+                            ("bwd", SP256_BWD_SHAPES, SP256_BATCH)))
+    config = quality_n256_config()
+    batches = first_train_batches(torch, config, records, N256_TRAIN_BATCH,
+                                  SP_STEPS)
+    runs = sp_against_plain(torch, config, batches,
+                            StackedRowGroup(SP_MODEL))
+    out = report_sp(
+        f"sequence parallel N=256: quality_n256.yml (bf16, remat, "
+        f"featurization on the device) at batch {N256_TRAIN_BATCH}, the "
+        f"pair grid's rows over a stacked group of {SP_MODEL}", smi, runs,
+        SP256_LOSS_TOL, SP256_GRAD_TOL,
+        {"fwd_bf16": N256_FWD_PER_TRAIN_STEP
+         + N256_REMAT_FWD_PER_TRAIN_STEP,  # 80
+         "bwd_bf16": N256_BWD_PER_TRAIN_STEP})  # 32
+    return dict(out, fwd_launches=sum(runs[1]["fwd_bf16"]),
+                bwd_launches=sum(runs[1]["bwd_bf16"]), fwd_rows=fwd_rows,
+                bwd_rows=bwd_rows)
+
+
+class _Lines:
+    """The lines a process prints, read by a daemon thread."""
+
+    def __init__(self, stream):
+        import threading
+
+        self.lines = []
+        self.cond = threading.Condition()
+        threading.Thread(target=self._read, args=(stream,),
+                         daemon=True).start()
+
+    def _read(self, stream):
+        for line in stream:
+            with self.cond:
+                self.lines.append(line.rstrip("\n"))
+                self.cond.notify_all()
+
+    def wait_for(self, prefix, timeout, proc):
+        """The first line that starts with `prefix`; raises if the process
+        exits or `timeout` passes first."""
+        def found():
+            return next((x for x in self.lines if x.startswith(prefix)),
+                        None)
+
+        with self.cond:
+            self.cond.wait_for(lambda: found() is not None
+                               or proc.poll() is not None, timeout)
+            line = found()
+        if line is None:
+            raise AssertionError(f"no line {prefix!r} from the server "
+                                 f"(exit code {proc.poll()}); its output:\n"
+                                 + "\n".join(self.lines[-40:]))
+        return line
+
+
+def _http(base, payload=None, path="/v1/sample"):
+    """(status, response, seconds) of a GET (`payload` None) or POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_REQUEST_S) as r:
+            return r.status, json.load(r), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e), time.perf_counter() - t0
+
+
+def phase_http(torch, smi, workdir, step):
+    """Phase 26: the JAX server's command line on phase 6's best_eval (the
+    EMA of training step `step`) as a process, driven over HTTP: /healthz,
+    the batches formed from a burst, a seeded request, a pair inside the
+    window, a realized request and a refused length; the launches the
+    server counted."""
+    import re
+    import signal
+    import threading
+
+    import numpy as np
+
+    from text2protein_tpu_torch.cli.serve import decode_coords
+
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sp, s_grads = run(StackedRowGroup(SP_MODEL))
-    sp_peak = torch.cuda.max_memory_allocated()
-    loss_rel = max(abs(a - b) / abs(b) for a, b in
-                   zip(sp["losses"], plain["losses"]))
-    grad_worst, grad_key = worst_grad_diff(s_grads, p_grads)
-    del p_grads, s_grads
-    torch.cuda.empty_cache()
-    ms_plain = float(np.median(plain["ms"][1:]))
-    ms_sp = float(np.median(sp["ms"][1:]))
-    log(f"sequence parallel: bench_l128 at batch {TRAIN_BATCH}, the pair "
-        f"grid's rows over a stacked group of {SP_MODEL} ({smi}), "
-        f"{SP_STEPS} steps: losses {sp['losses']} vs plain "
-        f"{plain['losses']} (worst rel {loss_rel:.2e}, tol "
-        f"{SP_LOSS_TOL:.0e}); last step's gradients worst {grad_key} "
-        f"{grad_worst:.2e} (tol {TRAIN_GRAD_TOL:.0e}); flash launches per "
-        f"SP step fwd {sp['fwd']} bwd {sp['bwd']} (plain fwd "
-        f"{plain['fwd']} bwd {plain['bwd']})")
-    log(f"sequence parallel: {ms_plain:.2f} ms per plain step, {ms_sp:.2f} "
-        f"ms per SP step (median of steps 2-{SP_STEPS}; all: plain "
-        f"{', '.join(f'{x:.1f}' for x in plain['ms'])}; SP "
-        f"{', '.join(f'{x:.1f}' for x in sp['ms'])}); "
-        f"max_memory_allocated plain {plain_peak / 2**30:.2f} GiB, SP "
-        f"{sp_peak / 2**30:.2f} GiB")
-    if (sp["fwd"] != [per_step] * SP_STEPS
-            or sp["bwd"] != [BWD_PER_TRAIN_STEP] * SP_STEPS):
-        raise AssertionError(f"flash launches per SP step fwd {sp['fwd']} "
-                             f"bwd {sp['bwd']}, expected {per_step} and "
-                             f"{BWD_PER_TRAIN_STEP}")
-    if not (np.isfinite(sp["losses"]).all() and loss_rel < SP_LOSS_TOL
-            and grad_worst < TRAIN_GRAD_TOL):
-        raise AssertionError("the SP step disagrees with the plain one "
-                             "(line above)")
-    return dict(model=SP_MODEL, steps=SP_STEPS, losses=sp["losses"],
-                plain_losses=plain["losses"], loss_rel=loss_rel,
-                grad_worst=grad_worst, grad_key=grad_key, ms=sp["ms"],
-                plain_ms=plain["ms"], ms_per_step=ms_sp,
-                ms_per_plain_step=ms_plain, peak_bytes=sp_peak,
-                plain_peak_bytes=plain_peak,
-                fwd_launches=sum(sp["fwd"]), bwd_launches=sum(sp["bwd"]),
-                fwd_rows=fwd_rows, bwd_rows=bwd_rows)
+    cmd = [sys.executable, "-m", "text2protein_tpu_torch.cli.serve",
+           str(DEPLOY_CONFIG.relative_to(ROOT)),
+           str(workdir / "checkpoints" / "best_eval"),
+           "--batch_size", str(HTTP_BATCH), "--sampler", "pc",
+           "--num_steps", str(HTTP_STEPS), "--max_wait_ms",
+           str(HTTP_WAIT_MS), "--warmup", "--realize", "--port", "0"]
+    log(f"http: {' '.join(cmd[1:])}")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    out = _Lines(proc.stdout)
+    try:
+        line = out.wait_for("serving ", HTTP_START_S, proc)
+        start_s = time.perf_counter() - t_start
+        warmup = out.wait_for("warmup batch done in ", 1, proc)
+        base = re.search(r"(http://[^ ]+)", line).group(1)
+        status, health, _ = _http(base, path="/healthz")
+        want = {"status": "ok", "step": step, "platform": "gpu",
+                "batch_size": HTTP_BATCH, "max_res_num": 128,
+                "sampler": "pc"}
+        if status != 200 or health != want:
+            raise AssertionError(f"/healthz {status} {health}, expected "
+                                 f"{want}")
+        log(f"http: {line} after {start_s:.1f}s ({warmup}); /healthz "
+            f"{health}")
+
+        replies = {}
+
+        def post(name, req, gate=None):
+            if gate is not None:
+                gate.wait(HTTP_REQUEST_S)
+            replies[name] = _http(base, req)
+
+        gate = threading.Barrier(len(HTTP_BURST))
+        burst = [threading.Thread(target=post, args=(f"burst{i}", r, gate))
+                 for i, r in enumerate(HTTP_BURST)]
+        t0 = time.perf_counter()
+        for t in burst:
+            t.start()
+        time.sleep(HTTP_PAIR_GAP_S)  # the burst is queued or running
+        seeded = threading.Thread(target=post, args=("seeded", HTTP_SEEDED))
+        seeded.start()
+        for t in burst:
+            t.join(HTTP_REQUEST_S)
+        burst_s = time.perf_counter() - t0
+        seeded.join(HTTP_REQUEST_S)
+        pair = threading.Thread(target=post, args=("pair0", HTTP_PAIR[0]))
+        pair.start()
+        time.sleep(HTTP_PAIR_GAP_S)
+        post("pair1", HTTP_PAIR[1])
+        pair.join(HTTP_REQUEST_S)
+        post("realize", HTTP_REALIZE)
+        post("refused", {"caption": "too short", "length": 1})
+        post("seeded_alone", HTTP_SEEDED)
+
+        reqs = {f"burst{i}": r for i, r in enumerate(HTTP_BURST)}
+        reqs.update(seeded=HTTP_SEEDED, pair0=HTTP_PAIR[0],
+                    pair1=HTTP_PAIR[1], realize=HTTP_REALIZE,
+                    seeded_alone=HTTP_SEEDED)
+        for name in reqs:
+            if name not in replies or replies[name][0] != 200:
+                raise AssertionError(f"http: {name} answered "
+                                     f"{replies.get(name)}")
+        if replies["refused"][0] != 400:
+            raise AssertionError(f"http: length 1 answered "
+                                 f"{replies['refused'][:2]}, expected 400")
+        check_maps([replies[k][1] for k in reqs], list(reqs.values()), 128)
+        # one seed a batch: the responses that share one formed a batch
+        # (the seeded request re-sent alone, the last batch, left out)
+        by_seed = {}
+        for name in list(reqs)[:-1]:
+            by_seed.setdefault(replies[name][1]["seed"], []).append(name)
+        want_batches = [sorted(f"burst{i}" for i in range(len(HTTP_BURST))),
+                        ["pair0", "pair1"], ["realize"], ["seeded"]]
+        formed = sorted(sorted(b) for b in by_seed.values())
+        if formed != sorted(want_batches):
+            raise AssertionError(f"http: batches formed {formed}, the JAX "
+                                 f"batcher's {sorted(want_batches)}")
+        if not np.array_equal(decode_coords(replies["seeded"][1]),
+                              decode_coords(replies["seeded_alone"][1])):
+            raise AssertionError("http: the seeded map differs from the "
+                                 "same request sent alone")
+        pdb = replies["realize"][1].get("pdb", "")
+        ca = [x for x in pdb.splitlines()
+              if x.startswith("ATOM") and x[12:16].strip() == "CA"]
+        if len(ca) != HTTP_REALIZE["length"]:
+            raise AssertionError(f"http: the realized backbone has "
+                                 f"{len(ca)} CA atoms")
+        nfe = {replies[k][1]["nfe"] for k in reqs}
+        latency = {k: round(replies[k][2], 3) for k in replies}
+        per_min = len(HTTP_BURST) * 60 / burst_s
+        log(f"http: batches formed {formed} (the JAX batcher's); latency "
+            f"s {latency}; the burst of {len(HTTP_BURST)} in {burst_s:.3f}s "
+            f"({per_min:.2f} samples/min at {HTTP_STEPS} PC steps, batch "
+            f"{HTTP_BATCH}); nfe {sorted(nfe)}; seeded map = sent alone; "
+            f"realized: {len(ca)} CA atoms, energy "
+            f"{replies['realize'][1]['energy']:.1f}; length 1: HTTP 400")
+        proc.send_signal(signal.SIGINT)
+        stopped = out.wait_for("stopped after ", HTTP_START_S, proc)
+        rc = proc.wait(HTTP_START_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    # batches run; flash launches forward f32, bf16, backward f32, bf16
+    counts = [int(x) for x in re.fullmatch(
+        r"stopped after (\d+) batches; flash launches: forward (\d+) f32, "
+        r"(\d+) bf16; backward (\d+) f32, (\d+) bf16", stopped).groups()]
+    ran = counts[0]
+    # + the seeded request alone and the warm-up
+    want_counts = [len(want_batches) + 2,
+                   ran * max(nfe) * DEPLOY_LAUNCHES_PER_EVAL, 0, 0, 0]
+    if rc != 0 or len(nfe) != 1 or counts != want_counts:
+        raise AssertionError(f"http: server exit code {rc}, {stopped!r}; "
+                             f"expected exit 0, batches and launches "
+                             f"{want_counts}, one "
+                             f"nfe {nfe}")
+    log(f"http: {stopped} (the warm-up included: {ran} x {max(nfe)} nfe "
+        f"x {DEPLOY_LAUNCHES_PER_EVAL}), exit code 0 ({smi})")
+    return dict(command=cmd[1:], start_s=start_s, warmup=warmup,
+                healthz=health, batches=formed, latency_s=latency,
+                burst_s=burst_s, burst_samples_per_min=per_min,
+                nfe=max(nfe), stopped=stopped, launches=counts[1])
 
 
 def main():
@@ -3155,6 +3503,8 @@ def main():
     realize = phase_realize(torch, smi, sampling["out_dir"])
     distributed = phase_distributed(torch, smi, records)
     sequence = phase_sequence_parallel(torch, smi, records)
+    sequence16 = phase_sequence_parallel_n256(torch, ptxas, smi, records16)
+    http = phase_http(torch, smi, workdir, deploy["step"])
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -3204,8 +3554,8 @@ def main():
         launches + training["fwd_launches"] + deploy["launches"]
         + sampling["launches"] + training_ss["fwd_launches"]
         + sampling_ss["launches"] + realize["launches"]
-        + distributed["fwd_launches"] + sequence["fwd_launches"], rows,
-        f"PC step at batch {BATCH}")
+        + distributed["fwd_launches"] + sequence["fwd_launches"]
+        + http["launches"], rows, f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
         **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
@@ -3229,7 +3579,8 @@ def main():
         "flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
         "text2protein_tpu/ops/flash.py:50",
         launches16 + training16["fwd_launches"] + hybrid16["launches"]
-        + bf16_l128["fwd_launches"] + text["fwd_launches"], fwd16_rows,
+        + bf16_l128["fwd_launches"] + text["fwd_launches"]
+        + sequence16["fwd_launches"], fwd16_rows,
         f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S)
     fwd_bf16["l128"] = per_row_step(
         bf16_l128["fwd_rows"],
@@ -3237,11 +3588,15 @@ def main():
     fwd_bf16["text"] = per_row_step(
         text["fwd_rows"], f"quality_text_cfgft PC step at batch "
         f"{TEXT_SAMPLING_BATCH}")
+    sp16_what = (f"quality_n256 train step at batch {N256_TRAIN_BATCH} with "
+                 f"the grid's rows over a stacked group of {SP_MODEL}")
+    fwd_bf16["sequence_parallel_n256"] = per_row_step(
+        sequence16["fwd_rows"], sp16_what + " (forward calls)")
     bwd_bf16 = kernel(
         "flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
         training16["bwd_launches"] + bf16_l128["bwd_launches"]
-        + text["bwd_launches"], bwd16_rows,
+        + text["bwd_launches"] + sequence16["bwd_launches"], bwd16_rows,
         f"N=256 train step at batch {N256_TRAIN_BATCH}", PEAK_BF16_S)
     bwd_bf16["l128"] = per_row_step(
         bf16_l128["bwd_rows"],
@@ -3249,6 +3604,8 @@ def main():
     bwd_bf16["text"] = per_row_step(
         text["bwd_rows"], f"quality_text_cfgft train step at batch "
         f"{SS_BATCH}")
+    bwd_bf16["sequence_parallel_n256"] = per_row_step(sequence16["bwd_rows"],
+                                                      sp16_what)
     bwd_f32 = kernel(
         "flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
@@ -3262,12 +3619,13 @@ def main():
         # deployment batches, the sampling CLI, SS training and sampling,
         # the realize phase's serving batch, the sharded train steps, the
         # entry() forward and the dryrun (phase 23), the SP train steps
-        # (phase 24)
+        # (phase 24), the HTTP server's batches and warm-up (phase 26)
         fwd_f32,
         bwd_f32,
         # bf16: N=256 serving, training (+ its eval) and hybrid; the
         # quality_ss_vp train steps (+ eval); the quality_text_cfgft train
-        # steps (+ eval) and its sampling CLI
+        # steps (+ eval) and its sampling CLI; the N=256 SP train steps
+        # (phase 25)
         fwd_bf16,
         bwd_bf16,
     ]
@@ -3287,6 +3645,7 @@ def main():
         "train_reference_ss": train_ref_ss, "sampling_ss": sampling_ss,
         "bf16_l128": bf16_l128, "text": text, "realize": realize,
         "distributed": distributed, "sequence_parallel": sequence,
+        "sequence_parallel_n256": sequence16, "http": http,
     }, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

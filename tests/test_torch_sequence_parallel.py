@@ -9,6 +9,8 @@ launched by `parallel.launch.spawn` as tests/test_torch_distributed.py
 does: one 4-rank run serves every gloo check of this file).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -48,6 +50,7 @@ B = 4          # the global batch
 SEED = 5       # the train steps' seed
 LR = 1e-4      # the train configs' Adam learning rate
 SPAWN_S = 300  # the 4-rank run's time limit (a loaded CPU is slow)
+REPO = Path(__file__).resolve().parents[1]
 
 
 def _whole(group, y, dim):
@@ -425,9 +428,11 @@ def test_stacked_sp_step_matches_the_plain_step(plain_steps, train_batches,
     _assert_steps_close(got, plain_steps)
 
 
-def _records_batches(tmp_path, cfg_dict, n_batches=1, **records):
-    """Batches of helix records as `data.featurize_on_device` ships them
-    (backbones; for C=8 the SS block channels)."""
+def _records_batches(tmp_path, cfg_dict, n_batches=1, b=B, lengths=None,
+                     **records):
+    """Batches of `b` helix records (lengths 9 to N by default) as
+    `data.featurize_on_device` ships them (backbones; for C=8 the SS block
+    channels)."""
     from text2protein_tpu_torch.conditioning import batch_to_device_arrays
     from text2protein_tpu_torch.config import load_config
     from text2protein_tpu_torch.data.dataset import (
@@ -438,12 +443,14 @@ def _records_batches(tmp_path, cfg_dict, n_batches=1, **records):
     from text2protein_tpu_torch.text.encoder import build_text_encoder
 
     cfg = load_config(cfg_dict)
-    write_records(tmp_path, B * n_batches, lengths=(9, N), **records)
+    n = cfg.data.max_res_num
+    write_records(tmp_path, b * n_batches, lengths=lengths or (9, n),
+                  **records)
     ds = ProteinProcessedDataset(tmp_path)
     encoder = build_text_encoder(cfg)
     out = []
     for i in range(n_batches):
-        host = make_batch([ds[j] for j in range(B * i, B * i + B)], N)
+        host = make_batch([ds[j] for j in range(b * i, b * i + b)], n)
         arrays = batch_to_device_arrays(host, cfg)
         arrays["context"], arrays["context_mask"] = encoder.encode(
             host["caption"])
@@ -488,3 +495,26 @@ def test_stacked_sp_step_with_featurization_on_the_device(tmp_path, name):
     plain = _steps(cfg, batches)
     got = _steps(cfg, batches, StackedRowGroup(2))
     _assert_steps_close(got, plain, loss_rtol, grad_tol, tol)
+
+
+def test_stacked_sp_step_at_the_n256_models_depth(tmp_path):
+    """configs/quality_n256.yml as written but narrow (nf 8, one residual
+    block a level, 2 heads, a 32-wide caption, batch 1): its 6 levels down
+    to an 8 x 8 grid that `model` 2 splits into 4 rows a rank, attention
+    at 32, 16 and 8, bf16 with remat of the residual and transformer
+    blocks, featurization on the device, dropout 0.1. The stacked 2-rank
+    step against the plain step within the bf16 + remat tolerances of
+    SETTINGS."""
+    import yaml
+
+    cfg = yaml.safe_load((REPO / "configs" / "quality_n256.yml").read_text())
+    cfg["model"].update(nf=8, num_res_blocks=1, n_heads=2,
+                        context_dim=CONTEXT_DIM)
+    cfg["optim"].update(warmup=0, lr=LR)
+    cfg["training"]["batch_size"] = 1
+    assert cfg["data"]["max_res_num"] == 256
+    assert len(cfg["model"]["ch_mult"]) == 6
+    batches = _records_batches(tmp_path, cfg, b=1, lengths=(128, 256))
+    plain = _steps(cfg, batches)
+    got = _steps(cfg, batches, StackedRowGroup(2))
+    _assert_steps_close(got, plain, *SETTINGS["bf16_remat"][2:])

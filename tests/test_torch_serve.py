@@ -1,18 +1,25 @@
 """The port's serving path on the CPU: the text encoder against the JAX
-package, the Server's responses, its HTTP front end, and the rule that the
-port (and chip_smoke.py) import nothing of JAX."""
+package, the Server's responses, its HTTP front end and command line
+against the JAX server's (`tests/test_cli.py::test_serve_cli`), the
+trainer's JAX command line, and the rule that the port (and chip_smoke.py)
+import nothing of JAX."""
 
+import functools
 import json
+import shlex
+import signal
 import subprocess
 import sys
 import threading
 import urllib.error
 import urllib.request
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from text2protein_tpu.config import load_config as j_load_config
 from text2protein_tpu.text.encoder import HashTextEncoder as JHashTextEncoder
@@ -20,12 +27,17 @@ from text2protein_tpu.text.encoder import (
     build_text_encoder as j_build_text_encoder,
 )
 from text2protein_tpu_torch import resolve_device
+from text2protein_tpu_torch.cli import train as ttrain
 from text2protein_tpu_torch.cli.serve import (
     Server,
+    build_parser,
+    checkpoint_slot,
     decode_coords,
+    http_server_from_args,
     make_http_server,
 )
 from text2protein_tpu_torch.config import load_config
+from text2protein_tpu_torch.data.helix_records import write_records
 from text2protein_tpu_torch.text.encoder import (
     HashTextEncoder,
     build_text_encoder,
@@ -135,6 +147,7 @@ def test_http_front_end(server):
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
             health = json.load(r)
         assert health["status"] == "ok" and health["max_res_num"] == N
+        assert health["step"] is None and health["platform"] == "cpu"
         req = {"caption": "helix", "length": 11, "seed": 3}
         post = urllib.request.Request(
             f"{base}/v1/sample", data=json.dumps(req).encode(),
@@ -231,3 +244,265 @@ def test_chip_smoke_route_bound_pads_ragged_tiles():
     plan = {"rows": 128, "tile": 64, "chunks": 1}
     got = chip_smoke.bf16_mma_flops("fwd", 3, 2, 24, 40, 8, plan)
     assert got == 2 * 3 * 2 * 128 * 64 * (16 + 2 * 64)
+
+
+# ----------------------------------------------- the JAX server's command line
+
+WAIT_S = 300  # the limit of every wait on the server
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A tiny config trained for 2 steps by the trainer's JAX command line
+    (the config positional): (config path, workdir)."""
+    tmp = tmp_path_factory.mktemp("serve_cli")
+    write_records(tmp / "rec", 41, lengths=(9, N))
+    cfg = tiny_config_dict()
+    cfg["training"].update({"batch_size": 2, "eval_freq": 1})
+    cfg["data"]["min_res_num"] = 4
+    path = tmp / "tiny.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    res = ttrain.main([str(path), "--data", str(tmp / "rec"), "--max_steps",
+                       "2", "--device", "cpu", "--workdir_root",
+                       str(tmp / "training")])
+    return path, Path(res["workdir"])
+
+
+def _get(base, path):
+    with urllib.request.urlopen(f"{base}{path}", timeout=WAIT_S) as r:
+        return json.load(r)
+
+
+def _post(base, payload):
+    req = urllib.request.Request(
+        f"{base}/v1/sample", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+        return json.load(r)
+
+
+def _jax_healthz():
+    """The payload of the JAX server's GET /healthz handler, run on a stub
+    server (no model)."""
+    from text2protein_tpu.cli import serve as jserve
+
+    sent = {}
+    handler = object.__new__(jserve._Handler)
+    handler.path = "/healthz"
+    handler.server_obj = SimpleNamespace(step=2, platform="cpu", b=2, n=N,
+                                         config=SimpleNamespace(
+                                             sampling={"method": "pc"}))
+    handler._send = lambda code, payload: sent.update(payload)
+    jserve._Handler.do_GET(handler)
+    return sent
+
+
+def test_serve_cli(trained, monkeypatch):
+    """The counterpart of the JAX `test_serve_cli`, from the JAX argv (the
+    slot named without `.pt`): /healthz answers the JAX handler's payload;
+    two concurrent requests make one batch; a seeded request gives the
+    same map with concurrent traffic as alone; a realized request has a
+    CA atom per residue; a length out of range gets HTTP 400."""
+    from text2protein_tpu_torch.realize import minimize
+
+    # the torsion protocol, 2 restarts of 3 iterations: the Cartesian
+    # protocol's failing linesearches on these noise maps take a minute
+    monkeypatch.setattr(minimize, "realize_6d_sample", functools.partial(
+        minimize.realize_6d_sample, n_restarts=2, max_iter=3,
+        method="torsion"))
+    cfg, wd = trained
+    args = build_parser().parse_args([
+        str(cfg), str(wd / "checkpoints" / "best_eval"), "--batch_size", "2",
+        "--num_steps", "4", "--port", "0", "--realize", "--max_wait_ms",
+        "200", "--device", "cpu"])
+    httpd = http_server_from_args(args)
+    server = httpd.RequestHandlerClass.worker.server
+    batches = []
+    run_batch = server.run_batch
+
+    def counted(reqs):
+        batches.append([r.get("caption") for r in reqs])
+        return run_batch(reqs)
+
+    server.run_batch = counted
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        health = _get(base, "/healthz")
+        assert health == _jax_healthz()
+        assert health["step"] == 2 and health["max_res_num"] == N
+
+        lengths = (12, 10)
+        results = [None, None]
+        ready = threading.Barrier(2)
+
+        def client(i):
+            ready.wait(WAIT_S)
+            results[i] = _post(base, {"caption": f"helix {i}",
+                                      "length": lengths[i]})
+
+        clients = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(2)]
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join(WAIT_S)
+        assert len(batches) == 1 and len(batches[0]) == 2
+        assert results[0]["seed"] == results[1]["seed"]
+        for res, L in zip(results, lengths):
+            cnn = decode_coords(res)
+            assert cnn.shape == (C, N, N) and np.isfinite(cnn).all()
+            assert cnn[-1][:L, :L].min() == 1.0
+            assert cnn[-1].sum() == L * L
+            assert res["nfe"] == 8
+
+        seeded = {"caption": "helix", "length": 12, "seed": 7}
+        alone = _post(base, seeded)
+        noise = threading.Thread(
+            target=_post, args=(base, {"caption": "noise", "length": 9}),
+            daemon=True)
+        noise.start()
+        again = _post(base, seeded)
+        noise.join(WAIT_S)
+        assert alone["seed"] == again["seed"] == 7
+        np.testing.assert_array_equal(decode_coords(alone),
+                                      decode_coords(again))
+
+        item = _post(base, {"caption": "helix", "length": 10,
+                            "realize": True})
+        ca = [ln for ln in item["pdb"].splitlines()
+              if ln.startswith("ATOM") and ln[12:16].strip() == "CA"]
+        assert len(ca) == 10 and np.isfinite(item["energy"])
+
+        bad = urllib.request.Request(
+            f"{base}/v1/sample", data=json.dumps({"length": 9999}).encode())
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(bad, timeout=WAIT_S)
+        assert e.value.code == 400
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=WAIT_S)
+    assert not thread.is_alive()
+
+
+def test_serve_warmup_prints_its_line(trained, capsys):
+    cfg, _ = trained
+    args = build_parser().parse_args([
+        str(cfg), "--batch_size", "1", "--num_steps", "1", "--port", "0",
+        "--warmup", "--device", "cpu"])
+    httpd = http_server_from_args(args)
+    httpd.server_close()
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("warmup batch done in ")
+    assert out[0].endswith("s")
+    assert out[1].startswith("serving random weights (seed 0) on "
+                             f"http://127.0.0.1:{httpd.server_address[1]} ")
+    assert httpd.RequestHandlerClass.worker.batches == 1  # its thread
+
+
+def test_serve_module_answers_then_stops_on_sigint(trained):
+    """`python -m text2protein_tpu_torch.cli.serve <config> <checkpoint>`
+    as a process: it announces its port, answers, and on SIGINT prints the
+    batches it ran and the flash launches (none on the CPU: the plain
+    versions run there) and exits 0."""
+    cfg, wd = trained
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "text2protein_tpu_torch.cli.serve", str(cfg),
+         str(wd / "checkpoints" / "best_eval"), "--batch_size", "2",
+         "--num_steps", "2", "--port", "0", "--device", "cpu"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving step-2 model on http://"), line
+        base = line.split()[4]
+        res = _post(base, {"caption": "helix", "length": 11, "seed": 3})
+        assert decode_coords(res).shape == (C, N, N)
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=WAIT_S)
+    finally:
+        proc.kill()
+        proc.wait(WAIT_S)
+    assert proc.returncode == 0, out
+    assert out.splitlines()[-1] == (
+        "stopped after 1 batches; flash launches: forward 0 f32, 0 bf16; "
+        "backward 0 f32, 0 bf16")
+
+
+def test_checkpoint_slot_follows_the_jax_rule(tmp_path):
+    """The workdir is the slot's parent's parent and the slot the path, or
+    the path with `.pt` (the JAX package's slot names have no suffix), or
+    else the workdir's first slot; a directory is the workdir."""
+    wd = tmp_path / "run"
+    best = wd / "checkpoints" / "best_eval.pt"
+    best.parent.mkdir(parents=True)
+    best.write_bytes(b"")
+    assert checkpoint_slot(wd / "checkpoints" / "best_eval") == (wd, best)
+    assert checkpoint_slot(best) == (wd, best)
+    assert checkpoint_slot(wd) == (wd, None)
+    assert checkpoint_slot(wd / "checkpoints" / "best_train") == (wd, None)
+
+
+def _readme_commands(module):
+    """The argv of every `python -m text2protein_tpu.cli.<module>` command
+    of the README."""
+    text = (REPO / "README.md").read_text().replace("\\\n", " ")
+    prefix = f"python -m text2protein_tpu.cli.{module} "
+    return [shlex.split(line.split(prefix, 1)[1])
+            for line in text.splitlines() if prefix in line]
+
+
+@pytest.mark.parametrize("module", ["serve", "train"])
+def test_readme_jax_command_lines_parse_in_the_port(module):
+    """Each JAX command line of the README, the module name changed, parses
+    in the port to the JAX parser's values."""
+    from text2protein_tpu.cli import serve as jserve
+    from text2protein_tpu.cli import train as jtrain
+
+    parsers = {"serve": (jserve.build_parser, build_parser),
+               "train": (jtrain.build_argparser, ttrain.build_argparser)}
+    jparser, pparser = (make() for make in parsers[module])
+    commands = _readme_commands(module)
+    assert commands
+    for argv in commands:
+        want = vars(jparser.parse_args(argv))
+        got = vars(pparser.parse_args(argv))
+        assert {k: got[k] for k in want} == want, argv
+
+
+@pytest.mark.parametrize("parser", [build_parser, ttrain.build_argparser])
+def test_config_given_both_ways_is_an_error(parser, capsys):
+    with pytest.raises(SystemExit):
+        parser().parse_args(["a.yml", "--config", "a.yml"])
+    assert "config given both" in capsys.readouterr().err
+    assert parser().parse_args(["--config", "a.yml"]).config == "a.yml"
+    assert parser().parse_args([]).config is None
+
+
+def test_serve_checkpoint_given_both_ways_is_an_error():
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["a.yml", "w", "--checkpoint", "w"])
+    args = build_parser().parse_args(["--checkpoint", "w", "a.yml"])
+    assert (args.config, args.checkpoint) == ("a.yml", "w")
+
+
+def test_train_local_test_caps_the_batch_and_the_records(tmp_path):
+    """`--local_test`, as the JAX trainer takes it: training.batch_size
+    capped at 2, the dataset cut to its first 200 records."""
+    write_records(tmp_path / "rec", 203, lengths=(9, N))
+    cfg = tiny_config_dict()
+    cfg["training"].update({"batch_size": 4, "eval_freq": 100})
+    path = tmp_path / "tiny.yml"
+    path.write_text(yaml.safe_dump(cfg))
+    res = ttrain.main([str(path), "--local_test", "--data",
+                       str(tmp_path / "rec"), "--max_steps", "1", "--device",
+                       "cpu", "--workdir_root", str(tmp_path / "training")])
+    wd = Path(res["workdir"])
+    assert res["records"] == 200
+    assert load_config(str(wd / "config.yml")).training.batch_size == 2
+    ids = sorted((wd / "train_ids.txt").read_text().split()
+                 + (wd / "test_ids.txt").read_text().split())
+    names = sorted(p.name.split(".")[0] for p in (tmp_path / "rec").iterdir())
+    assert ids == names[:200]

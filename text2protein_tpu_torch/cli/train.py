@@ -79,10 +79,12 @@ one-device run computes at the same batch, up to the rounding of the
 reductions, and its checkpoints resume on any mesh. A mesh that does not
 fit the world raises before the first step, also in one process.
 
-Usage:
-  python -m text2protein_tpu_torch.cli.train [--config cfg.yml]
+Usage (the JAX command line, the module name changed):
+  python -m text2protein_tpu_torch.cli.train [config] [--local_test]
       [--data DIR] [--max_steps N] [--workdir_root DIR | --resume DIR]
       [--out ema.pt] [--device cpu] [--multihost]
+  config may also be given as --config; --local_test caps
+  training.batch_size at 2 and the dataset at its first 200 records.
   python -m torch.distributed.run --nproc_per_node=K -m
       text2protein_tpu_torch.cli.train --config configs/bench_l128.yml
       --data DIR  (K ranks on one node; several nodes: --nnodes,
@@ -95,7 +97,6 @@ Usage:
 
 from __future__ import annotations
 
-import argparse
 import math
 import os
 import pickle
@@ -135,15 +136,19 @@ from ..training.steps import (
     step_generator,
 )
 from ..utils.logging import MetricsWriter
+from . import ArgumentParser
 
 SNAPSHOT_STREAM = 2  # step_generator stream of the snapshot samples
 
 
 def build_argparser():
-    p = argparse.ArgumentParser(description="Train the score model")
-    p.add_argument("--config", type=str, default=None,
-                   help="YAML config (default: configs/bench_l128.yml as "
-                        "bench_l128_config() builds it)")
+    p = ArgumentParser(description="Train the score model")
+    p.positional_or_flag(
+        "config", help="YAML config (default: configs/bench_l128.yml as "
+        "bench_l128_config() builds it)")
+    p.add_argument("--local_test", action="store_true",
+                   help="cap training.batch_size at 2 and the dataset at "
+                        "its first 200 records")
     p.add_argument("--data", type=str, default=None,
                    help="directory of processed .npz records (default: "
                         "data.processed_dataset_path)")
@@ -367,6 +372,8 @@ def main(argv=None):
     "nodes"} (None in one process)."""
     args = build_argparser().parse_args(argv)
     config = load_config(args.config) if args.config else bench_l128_config()
+    if args.local_test:
+        config.training.batch_size = min(config.training.batch_size, 2)
     device = resolve_device(args.device)
     owns_group = not dist.is_initialized()
     info, mesh, device = setup_mesh(args, config, device)
@@ -401,6 +408,8 @@ def _train(args, config, device, info, mesh: Mesh | None):
 
     dataset = ProteinProcessedDataset(args.data
                                       or config.data.processed_dataset_path)
+    if args.local_test:
+        dataset.data_paths = dataset.data_paths[:200]
     n_total = len(dataset)
     if n_total < 2:
         raise ValueError(f"need at least 2 records, found {n_total} in "
