@@ -24,7 +24,7 @@ Phases, each printing a flushed line with the seconds since start:
      model on the CPU (plain versions).
   6. training: `cli/train.main` trains the bench_l128 configuration at batch
      16 on records written here (enough that the steps fall in one epoch,
-     so the loader reads ahead as on a real dataset), 2 warm-up and 6 timed
+     so the loader reads ahead as on a real dataset), 2 warm-up and 3 timed
      steps; losses finite, exactly 18 backward and 30 forward launches per
      step (18 + the 12 of the rematted transformer blocks' recompute), the
      weights moved, the EMA apart from them. A Server loads the EMA weights
@@ -53,7 +53,7 @@ Phases, each printing a flushed line with the seconds since start:
      beside the bf16-against-f32 gap.
  12. training N=256: `cli/train.main --config configs/quality_n256.yml` as
      written (bf16, remat, featurization on the device, batch 8) on seeded
-     helix records of lengths 128-256, 2 warm-up and 6 timed steps: losses
+     helix records of lengths 128-256, 1 warm-up and 3 timed steps: losses
      finite, weights and EMA moved, exactly 80 bf16 forward (48 + the 32 of
      the transformer blocks' recompute) and 32 bf16 backward launches per
      step (the 16 masked cross-attention calls over the 16-token caption
@@ -62,8 +62,9 @@ Phases, each printing a flushed line with the seconds since start:
  13. deployment serving: `cli/serve` with configs/deploy_l128.yml as
      written (the hybrid sampler, 60 Heun + 170 PC steps, CFG 2.0) and
      `--checkpoint` phase 6's workdir (its best_eval EMA; bench_l128 has the
-     same architecture) answers two batches of 4 requests (different
-     captions and lengths, the first batch seeded) over the full schedule:
+     same architecture) answers a seeded batch of 4 requests (different
+     captions and lengths; one batch: the depth cut to keep the script
+     inside its limit) over the full schedule:
      maps finite, (5, 128, 128), the length mask as the last channel, nfe
      920 in every response, exactly 16,560 f32 forward launches a batch
      (920 evaluations x 18) and no backward launch.
@@ -84,7 +85,7 @@ Phases, each printing a flushed line with the seconds since start:
  17. SS training: `cli/train.main --config configs/quality_ss.yml` as
      written (length + SS + inpainting, C=8 featurized on the device, the
      caption padded to 16 tokens, batch 16, the JAX initializers) on C=8
-     helix records written here, 2 warm-up and 6 timed steps: losses
+     helix records written here, 2 warm-up and 3 timed steps: losses
      finite, weights and EMA moved, exactly 30 f32 forward (18 + the 12 of
      the transformer blocks' recompute) and 12 f32 backward launches per
      step (the 6 masked cross-attention calls over 16 keys take the JAX
@@ -137,10 +138,10 @@ Phases, each printing a flushed line with the seconds since start:
      JAX test's bar (L=64 bundle, 3 restarts, max_iter 150, seed 1: TM >
      0.8 to the truth by `eval.tmscore`, N-CA and C-N within 0.1 A of
      ideal); `realize_batch` of the 4 designs (5 restarts, its default,
-     and max_iter 150 where it defaults to 300: the depth cut to keep the
+     and max_iter 75 where it defaults to 300: the depth cut to keep the
      script inside its limit): TM-scores, selection energies, evaluations
-     per solve, seconds per batch; 10 fold-stage iterations of that batch under the
-     profiler (device busy share, launches per evaluation); the flagship
+     per solve, seconds per batch; 2 fold-stage iterations of that batch
+     under the profiler (device busy share, launches per evaluation); the flagship
      Server at batch 4 with realize on at lengths 128, 96, 64 and 40: PDBs
      of those lengths, finite energies, seconds per realized design, no
      flash launch outside sampling; `cli/sampling_rosetta --fastdesign
@@ -148,7 +149,7 @@ Phases, each printing a flushed line with the seconds since start:
      pickles (the depth cut to keep the script inside its limit), its
      score.txt files read back by `eval.tm_sweeps.reu_stats`.
  23. distributed: min(cards, 4) ranks (2 of 3), one per card, NCCL, by
-     `parallel.launch.spawn`: 4 train steps of bench_l128_config() at
+     `parallel.launch.spawn`: 3 train steps of bench_l128_config() at
      batch 16 on phase 6's first batches under FSDP2 (mesh.model 1),
      held to the plain one-device steps on rank 0's card (phase 6's bars:
      loss 1e-4, the last step's gradients and the parameters 5e-3 of their
@@ -165,7 +166,7 @@ Phases, each printing a flushed line with the seconds since start:
      every shape of the bench_l128 train step with the pair grid's rows
      split over 2 ranks (batch 16 x 2 stacked ranks: 128 query rows against
      256 gathered keys at 16x16, 8 against 16 and the 64-token caption in
-     the 4x4 mid block), timed as in 3; then 4 train steps of
+     the 4x4 mid block), timed as in 3; then 3 train steps of
      bench_l128_config() at batch 16 (dropout 0.1) with the rows split over
      a `parallel.sequence.StackedRowGroup` of 2 (the `model` ranks stacked
      on the batch axis of one process, which needs only one card) against
@@ -179,7 +180,7 @@ Phases, each printing a flushed line with the seconds since start:
      pair grid's rows split over 2 ranks (batch 8 x 2 stacked ranks: 512,
      128 or 32 query rows against 1024, 256 or 64 gathered keys, or the
      16-token caption), the forward at all 9, the backward at the 6
-     unmasked, timed as in 8; then 4 train steps of quality_n256_config()
+     unmasked, timed as in 8; then 3 train steps of quality_n256_config()
      as written (bf16, remat, featurization on the device, batch 8,
      dropout 0.1) with the rows over a `StackedRowGroup` of 2 against the
      plain steps from the same weights on phase 12's first batches:
@@ -202,6 +203,62 @@ Phases, each printing a flushed line with the seconds since start:
      over the burst; on SIGINT the server prints its batches (the warm-up
      included) and flash launches, exactly batches x nfe x 18 f32
      forward and no other.
+ 27. kernels at the reference configurations: both f32 kernels against
+     their plain versions at test_config.yml's shapes (the forward at its
+     sampling batch 4, the backward at its training batch 2: the AttnBlock
+     at D=512 and the transformer's 8 heads of 64 at 32x32, 16x16 and
+     8x8, the cross-attention over the 512-key caption bucket, timed as in
+     3, and over the 64-, 192- and 320-key buckets, held only), at
+     test_config_large's 8x8 level (batch 2: the AttnBlock at D=1024, heads
+     of 128) and at the caption configs' cross-attention (batch 8, heads
+     of 32, every bucket from 128 to 512 keys, held only); the bf16
+     forward at test_config_large's 8x8 shapes at batch 1 (D=1024 on the
+     mma.sync kernel) and at bench_l128's cross-attention over 64 keys at
+     batch 16, timed as in 8. Every masked call has a fully masked row.
+ 28. reference config: `cli/train.main` on configs/test_config.yml as
+     written (f32, N=256, no condition, the 4096-wide caption hashed to
+     64-token buckets, batch 2) on 24 N=256 helix records with
+     abstract-length captions (40-600 hash tokens), 1 + 2 steps; its
+     end-of-run snapshot sample cut to 2 PC steps (the yml's 2000: the
+     depth cut): losses finite, exactly 80 f32 forward (48 + the 32 of the
+     transformer blocks' recompute) and 48 backward launches per step, 48
+     for the eval batch and 48 x 2 x 2 for the snapshot, the snapshot
+     (2, 5, 256, 256) finite; ms per train step, peak memory; then a
+     Server from the checkpoint it wrote answers a seeded batch of 4
+     (captions past the 512-token cut) over 10 PC steps, after one
+     evaluation at its shapes (cuDNN's search): 960 forward launches,
+     maps finite (5, 256, 256) with the length mask last; ms per PC step,
+     peak memory. The caption buckets every encode took are printed.
+ 29. reference config on the CPU: test_config.yml at B=1 from seeded
+     random weights: one score evaluation (rel 1e-4) and one train step
+     (dropout 0, injected t and z: loss 1e-4, gradients 5e-3 of scale,
+     the kernels against the plain attention backward on the card 1e-3)
+     on the card against the CPU; 48 forward and 48 backward launches.
+ 30. reference variants: pod_config.yml and test_config_large.yml as
+     written (f32, batch 1 and 2): one PC step of a Server with seeded
+     random weights at the yml's batch, then one train step of those
+     weights by `training.steps.make_train_step` (what cli/train.main runs
+     each step; the trainer's two checkpoint slots would be 2 x 8 GB and
+     2 x 14 GB): 18 and 66 forward launches an evaluation (attention pairs
+     from the yml), 5 and 3 times that a train step, maps finite with the
+     length mask last, the gradients finite; then test_config_large in
+     bf16 (bench.py's dtype) with the same weights: one forward at batch
+     1, 66 bf16 launches, finite, against the same forward with the plain
+     attention (reported).
+ 31. caption family: the 4096-wide caption configs at L=128 as written
+     (batch 8) on C=5 and C=8 helix records with abstract-length captions:
+     `cli/train.main` on cond_ss_inpainting.yml for 3 steps and
+     `cli/sampling_6d --pdb --mask_info` at 4 PC steps; cond_length,
+     cond_length_no_ss, cond_length_inpainting, cond_ss and no_cond one
+     train step and `cli/sampling_6d` at 2 PC steps each (--pdb where the
+     yml conditions on SS or inpainting, else --select_length): exactly 30
+     forward and 18 backward launches per step, 18 for the eval batch, 36
+     per PC step; pickles finite, the conditions clamped, the length mask
+     last. Then bench.py's default: a Server with bench_l128.yml in bf16
+     at batch 16 over 10 PC steps, two batches: 360 bf16 forward launches
+     a batch, no f32 launch, maps checked; ms per PC step (a smoke line).
+     The batches of phases 28-31 must together have taken every caption
+     bucket from 64 to 512 keys (the 600-token captions cut to 512).
 Phase 3 also holds and times the f32 forward at the deployment config's
 cross-attention shapes (the caption padded to 16 tokens: 256x16 and 16x16,
 a fully masked row).
@@ -250,7 +307,7 @@ TRAIN_GRAD_TOL = 5e-3
 TRAIN_KERNEL_TOL = 1e-3
 TRAIN_BATCH = 16     # configs/bench_l128.yml training.batch_size
 TRAIN_WARMUP = 2     # train steps before the timed ones
-TRAIN_TIMED = 6
+TRAIN_TIMED = 3
 # the 95/5 split leaves 138 train records: 8 batches of 16, so every step
 # of the run is in one epoch and the loader's thread reads ahead (a split of
 # one batch would start a new loader, unread, on every step); the 7 eval
@@ -269,8 +326,8 @@ PEAK_BF16_S = 989e12     # H100 SXM bf16 tensor cores, dense
 N256_STEPS = 10
 N256_BATCH = 4
 N256_TRAIN_BATCH = 8
-N256_WARMUP = 2
-N256_TIMED = 6
+N256_WARMUP = 1
+N256_TIMED = 3
 N256_RECORDS = 72
 N256_MEM_BATCH = 2   # the remat / no-remat peak-memory step
 # a bf16 kernel against its plain version: both round one f32 result to
@@ -377,7 +434,7 @@ SS_CONFIG = ROOT / "configs" / "quality_ss.yml"
 SS_VP_CONFIG = ROOT / "configs" / "quality_ss_vp.yml"
 SS_RECORDS = 145
 SS_BATCH = 16
-SS_WARMUP, SS_TIMED = 2, 6
+SS_WARMUP, SS_TIMED = 2, 3
 SS_VP_WARMUP, SS_VP_TIMED = 2, 2
 # (name, H, Tq, Tk, D, masked, calls per train step) of a quality_ss train
 # step: the flagship's attention with the caption padded to 16 tokens
@@ -441,7 +498,7 @@ TEXT_FWD_PER_PC_STEP = sum(s[6] for s in TEXT_PC_SHAPES)  # 36
 # transformer blocks' recompute included); the backward takes one call per
 # attention, every one the kernel (`supports_bwd_cuda`)
 SP_MODEL = 2
-SP_STEPS = 4
+SP_STEPS = 3
 SP_BATCH = TRAIN_BATCH * SP_MODEL
 SP_SHAPES = [
     ("sp_attnblock_16x16", 1, 128, 256, 256, False, 5),
@@ -507,6 +564,100 @@ HTTP_PAIR = [{"caption": "a coiled coil", "length": 112},
              {"caption": "a four helix bundle", "length": 96}]
 HTTP_REALIZE = {"caption": "a helical hairpin", "length": 40,
                 "realize": True}
+
+
+# the repo's reference configurations (phases 27-31). test_config.yml: the
+# reference's f32 N=256 model, attention at 32, 16 and 8 (the AttnBlock one
+# head of 512, the transformer 8 heads of 64), the caption 4096 wide,
+# hashed to 64-token buckets of at most 512, no condition; trained at its
+# batch 2, sampled at batch 4. Its variants: test_config_large.yml (the 8x8
+# level 1024 wide: the AttnBlock at D=1024, heads of 128; 3 res blocks)
+# and pod_config.yml (attention at 8 only, a 128-wide caption, batch 1).
+# The caption configs at L=128 (batch 8, the caption 4096 wide). Captions
+# of abstract length (`helix_records.abstract_captions`: 40-600 hash
+# tokens), so that the batches land in every bucket from 64 to 512 and
+# past the 512-token cut.
+REF_CONFIG = ROOT / "configs" / "test_config.yml"
+REF_LARGE_CONFIG = ROOT / "configs" / "test_config_large.yml"
+REF_POD_CONFIG = ROOT / "configs" / "pod_config.yml"
+BENCH_CONFIG = ROOT / "configs" / "bench_l128.yml"
+# N=256 records of lengths 128-256: the 95/5 split leaves 23 train records,
+# 11 batches of 2, and the eval record is filled to one batch
+REF_RECORDS = 24
+REF_TRAIN_BATCH = 2
+REF_BATCH = 4
+REF_WARMUP, REF_TIMED = 1, 2
+REF_STEPS = 10           # PC steps of test_config's sampling batch
+REF_SNAPSHOT_STEPS = 2   # the end-of-run snapshot sample's PC steps (the
+#                          yml's schedule is 2000: the depth cut)
+REF_TK = 512             # the sampling batch's caption bucket
+REF_BUCKETS = (64, 192, 320, 512)
+CAPTION_BUCKETS = tuple(range(128, 513, 64))
+
+
+def attn_pairs(config):
+    """Attention pairs (an AttnBlock and a SpatialTransformer) of one
+    evaluation, from the yml: num_res_blocks on the way down and
+    num_res_blocks + 1 on the way up at each attention resolution, and the
+    mid block's."""
+    m = config.model
+    return (2 * m.num_res_blocks + 1) * len(m.attn_resolutions) + 1
+
+
+def attn_shapes(levels, d_model, tk, per_call):
+    """(name, H, Tq, Tk, D, masked, count) of the AttnBlock (one head of
+    d_model), the transformer's self-attention (8 heads) and its masked
+    cross-attention over the `tk`-key caption at each (resolution, pairs)
+    of `levels`; `per_call(kind, pairs)` gives each kind's count."""
+    out = []
+    for res, pairs in levels:
+        t = res * res
+        out += [(f"attnblock_{res}x{res}", 1, t, t, d_model, False,
+                 per_call("attnblock", pairs)),
+                (f"self_{res}x{res}", 8, t, t, d_model // 8, False,
+                 per_call("self", pairs)),
+                (f"cross_{res}x{res}", 8, t, tk, d_model // 8, True,
+                 per_call("cross", pairs))]
+    return out
+
+
+# test_config's attention: five pairs at 32 and at 16, six at 8 (the mid
+# block's included), 48 calls an evaluation; the PC step's counts (two
+# evaluations) and the train step's backward calls (one each: every masked
+# call over a 64-multiple bucket passes `supports_bwd`)
+REF_LEVELS = ((32, 5), (16, 5), (8, 6))
+REF_SHAPES = attn_shapes(REF_LEVELS, 512, REF_TK, lambda k, p: 2 * p)
+REF_BWD_SHAPES = attn_shapes(REF_LEVELS, 512, REF_TK, lambda k, p: p)
+# test_config_large's 8x8 level (seven pairs and the mid block's), at
+# its training batch 2
+REF_LARGE_SHAPES = attn_shapes(((8, 8),), 1024, REF_TK, lambda k, p: p)
+# the caption configs' cross-attention (batch 8; five pairs at 16x16, the
+# 4x4 mid block's), 8 heads of 32, over every bucket from 128 to 512
+CAPTION_SHAPES = [
+    (f"cross_{r}x{r}_tk{tk}", 8, r * r, tk, 32, True, p)
+    for tk in CAPTION_BUCKETS for r, p in ((16, 5), (4, 1))]
+CAPTION_BATCH = 8
+# (yml, record set's channels, train steps, sampling condition, PC steps):
+# the union config first, for a few steps
+CAPTION_FAMILY = [
+    ("cond_ss_inpainting.yml", 8, 3, "pdb", 4),
+    ("cond_length.yml", 5, 1, "length", 2),
+    ("cond_length_no_ss.yml", 5, 1, "length", 2),
+    ("cond_length_inpainting.yml", 8, 1, "pdb", 2),
+    ("cond_ss.yml", 8, 1, "pdb", 2),
+    ("no_cond.yml", 8, 1, "length", 2),
+]
+CAPTION_RECORDS = {5: 24, 8: 24}   # L=128 records (lengths 64-128) a set
+CAPTION_LENGTH_INDEX = 61          # --select_length: length 100
+# bench.py's default: bench_l128.yml in bf16 at batch 16 (its cross-
+# attention over the 64-key bucket at D=32 had not run in bf16)
+BENCH_BF16_BATCH = 16
+BENCH_BF16_STEPS = 10
+BENCH_BF16_SHAPES = [("cross_16x16", 8, 256, 64, 32, True, 10),
+                     ("cross_mid_4x4", 8, 16, 64, 32, True, 2)]
+# test_config_large in bf16 (bench.py's dtype): its 8x8 calls at batch 1,
+# the AttnBlock at D=1024 on the mma.sync kernels
+REF_LARGE_BF16_SHAPES = attn_shapes(((8, 8),), 1024, 128, lambda k, p: p)
 
 
 def log(msg):
@@ -660,9 +811,11 @@ def phase_build():
     return ptxas
 
 
-def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
+def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH,
+                  timed=True):
     """The f32 forward at `shapes` (batch b), a masked call's key lengths
-    `lengths` and then all keys (a length of 0: a fully masked row)."""
+    `lengths` and then all keys (a length of 0: a fully masked row); with
+    `timed` False only held to the plain version."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
@@ -688,6 +841,16 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
         if not (err <= TOL and torch.isfinite(out).all()):
             raise AssertionError(f"{name}: kernel vs plain max abs error "
                                  f"{err:.3e} > {TOL:.0e}")
+        if masked and 0 in lengths and not bool((out[0] == 0).all()):
+            raise AssertionError(f"{name}: the fully masked row is not 0")
+        if not timed:
+            rows.append(dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
+                             masked=masked, max_abs_err=err))
+            log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} "
+                f"D={d} mask={masked}"
+                f"{' +dead row' if masked and 0 in lengths else ''}: "
+                f"max_abs_err {err:.2e} (tol {TOL:.0e})")
+            continue
         attn_mask = None if mask is None else mask[:, None, None, :]
         kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd(
             q, k, v, scale, mask))
@@ -711,8 +874,6 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
             library_ms=library_ms,
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
             tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
-        if masked and 0 in lengths and not bool((out[0] == 0).all()):
-            raise AssertionError(f"{name}: the fully masked row is not 0")
         log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
             f"mask={masked}{' +dead row' if masked and 0 in lengths else ''}"
             f": max_abs_err {err:.2e} (tol {TOL:.0e}) "
@@ -724,11 +885,13 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH):
     return rows
 
 
-def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH):
+def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH,
+                      timed=True):
     """The backward at the training shapes, B=16 (or `shapes` at batch
     `b`): the kernel against its plain version on the same residuals (from
     the forward kernel), with the serving masks plus one fully masked
-    row."""
+    row (at b < 5, the first b - 1 of them); with `timed` False only held
+    to the plain version."""
     import torch.nn.functional as F
 
     from text2protein_tpu_torch.ops import flash
@@ -741,8 +904,8 @@ def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH):
                       for t in (tq, tk, tk, tq))
         mask = None
         if masked:
-            lengths = torch.tensor([5, 12, 37] + [tk] * (b - 4) + [0],
-                                   device=dev)
+            lengths = torch.tensor(
+                ([5, 12, 37] + [tk] * (b - 4))[:b - 1] + [0], device=dev)
             mask = torch.arange(tk, device=dev)[None, :] < lengths[:, None]
         scale = d**-0.5
         out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
@@ -759,6 +922,15 @@ def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH):
             raise AssertionError(
                 f"{name}: backward kernel vs plain max abs error "
                 f"{err:.3e} > {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}")
+        if not timed:
+            rows.append(dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
+                             masked=masked, dead_row=masked,
+                             max_abs_err=err, grad_scale=ref_scale))
+            log(f"kernel flash_bwd {name} B={b} H={h} Tq={tq} Tk={tk} "
+                f"D={d} mask={masked}{' +dead row' if masked else ''}: "
+                f"max_abs_err {err:.2e} (tol {BWD_TOL:.0e} x "
+                f"{max(1.0, ref_scale):.3g})")
+            continue
         kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd(
             q, k, v, out, lse, g, scale, mask))
         host = host_us(lambda: flash.flash_attention_bwd(
@@ -1032,18 +1204,12 @@ DEPLOY_REQUESTS = [
      {"caption": "beta barrel membrane transporter", "length": 100},
      {"caption": "", "length": 128},
      {"caption": "three helix bundle", "length": 77}],
-    [{"caption": "Kinase domain with a long activation loop.",
-      "length": 90},
-     {"caption": "A de novo designed four-helix bundle with a hydrophobic "
-                 "core.", "length": 117},
-     {"caption": "zinc finger", "length": 64},
-     {"caption": "beta barrel membrane transporter", "length": 128}],
 ]
 
 
 def phase_deploy(torch, workdir):
     """`cli/serve --config configs/deploy_l128.yml --checkpoint WORKDIR`
-    answers two batches of 4 over the full hybrid + CFG schedule."""
+    answers a seeded batch of 4 over the full hybrid + CFG schedule."""
     from text2protein_tpu_torch.cli import serve
     from text2protein_tpu_torch.ops import flash
 
@@ -1260,17 +1426,21 @@ def worst_grad_diff(got, want):
     return worst, key
 
 
-def phase_train_reference(torch, records):
-    """One flagship train step at B=1, dropout 0 and injected t, z, from the
-    same weights: on the GPU (kernels) against the CPU (plain versions),
-    and on the GPU against itself with the attention backward through its
-    plain version: the loss and every gradient."""
+def train_step_card_vs_cpu(torch, config, records, index, seed=1,
+                           score=False):
+    """One train step of `config` at B=1 (record `index`, dropout 0,
+    injected t and z from one seed, random weights from `seed`): on the
+    GPU (kernels), on the GPU with the attention backward through its
+    plain version, and on the CPU (plain versions). Returns the losses,
+    the gradients' worst diffs (each over its own scale, floored) and the
+    GPU's backward launches; with `score`, first one score evaluation of
+    the same models on a random map at label 1000 (its relative max diff
+    and the GPU's forward launches)."""
     import copy
 
     import numpy as np
 
     from text2protein_tpu_torch.conditioning import batch_to_device_arrays
-    from text2protein_tpu_torch.config import bench_l128_config
     from text2protein_tpu_torch.data.dataset import (
         ProteinProcessedDataset,
         make_batch,
@@ -1284,19 +1454,35 @@ def phase_train_reference(torch, records):
     from text2protein_tpu_torch.ops import flash
     from text2protein_tpu_torch.text.encoder import build_text_encoder
 
-    config = bench_l128_config()
     config.model.dropout = 0.0
+    n, c = config.data.max_res_num, config.data.num_channels
     sde, _ = get_sde(config)
-    gpu_model = init_random_weights(build_model(config, device="cuda"), 1)
+    gpu_model = init_random_weights(build_model(config, device="cuda"), seed)
     cpu_model = copy.deepcopy(gpu_model).to("cpu")
-    rec = ProteinProcessedDataset(records)[3]
-    host = make_batch([rec], config.data.max_res_num)
+    rec = ProteinProcessedDataset(records)[index]
+    host = make_batch([rec], n)
     ctx, ctx_mask = build_text_encoder(config).encode(host["caption"])
     rng = np.random.default_rng(2)
     t = torch.from_numpy(rng.uniform(0.05, 1.0, 1).astype(np.float32))
-    z = torch.from_numpy(rng.standard_normal((1, 128, 128, 5))
+    z = torch.from_numpy(rng.standard_normal((1, n, n, c))
                          .astype(np.float32))
     kernel_bwd = flash.flash_attention_bwd
+    out = {}
+    if score:
+        x = torch.from_numpy((rng.standard_normal((1, n, n, c)) * 10)
+                             .astype(np.float32))
+        labels = torch.tensor([1000.0])
+        args = (labels, torch.from_numpy(ctx), torch.from_numpy(ctx_mask))
+        before = flash.flash_attention_fwd.launches
+        with torch.inference_mode():
+            gpu = gpu_model(x.cuda(), *(a.cuda() for a in args)).cpu()
+            out["score_launches"] = flash.flash_attention_fwd.launches - (
+                before)
+            t0 = time.perf_counter()
+            cpu = cpu_model(x, *args)
+            out["score_cpu_seconds"] = time.perf_counter() - t0
+        out["score_rel_diff"] = ((gpu - cpu).abs().max()
+                                 / cpu.abs().max()).item()
 
     def step(model, dev):
         batch = batch_to_device_arrays(host, config, device=dev)
@@ -1318,30 +1504,63 @@ def phase_train_reference(torch, records):
         _, p_grads, _ = step(gpu_model, "cuda")
     finally:
         flash.flash_attention_bwd = kernel_bwd
+    del gpu_model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     c_loss, c_grads, c_launch = step(cpu_model, "cpu")
-    if g_launch != BWD_PER_TRAIN_STEP or c_launch != 0:
-        raise AssertionError(f"backward launches GPU {g_launch}, CPU "
-                             f"{c_launch}; expected {BWD_PER_TRAIN_STEP}, 0")
-    loss_diff = abs(g_loss - c_loss) / abs(c_loss)
     worst, worst_key = worst_grad_diff(g_grads, c_grads)
     plain_worst, plain_key = worst_grad_diff(p_grads, c_grads)
     kernel_worst, kernel_key = worst_grad_diff(g_grads, p_grads)
-    log(f"train reference: flagship train step at B=1, GPU (kernels) vs "
-        f"CPU: loss {g_loss:.6f} vs {c_loss:.6f} (rel {loss_diff:.2e}, tol "
-        f"{TRAIN_LOSS_TOL:.0e}); worst of {len(c_grads)} gradients "
-        f"{worst_key} {worst:.2e} (tol {TRAIN_GRAD_TOL:.0e}; with the "
-        f"attention backward on its plain version {plain_worst:.2e} at "
-        f"{plain_key}); GPU kernels vs GPU plain attention backward: worst "
-        f"{kernel_key} {kernel_worst:.2e} (tol {TRAIN_KERNEL_TOL:.0e}); GPU "
-        f"backward launches {g_launch}")
-    if not (loss_diff < TRAIN_LOSS_TOL and worst < TRAIN_GRAD_TOL
-            and kernel_worst < TRAIN_KERNEL_TOL):
-        raise AssertionError("the GPU train step disagrees (line above)")
-    return dict(loss_gpu=g_loss, loss_cpu=c_loss, loss_rel_diff=loss_diff,
+    return dict(out, loss_gpu=g_loss, loss_cpu=c_loss,
+                loss_rel_diff=abs(g_loss - c_loss) / abs(c_loss),
                 worst_grad=worst_key, worst_grad_rel_diff=worst,
+                plain_bwd_worst_grad=plain_key,
                 plain_bwd_worst_grad_rel_diff=plain_worst,
                 kernel_vs_plain_bwd_worst=kernel_worst,
-                kernel_vs_plain_bwd_worst_grad=kernel_key)
+                kernel_vs_plain_bwd_worst_grad=kernel_key,
+                n_grads=len(c_grads), gpu_bwd_launches=g_launch,
+                cpu_bwd_launches=c_launch, caption_tokens=ctx.shape[1],
+                cpu_seconds=time.perf_counter() - t0)
+
+
+def check_train_reference(what, r, bwd_per_step):
+    """Logs a `train_step_card_vs_cpu` result and holds it to the bars
+    (loss 1e-4, gradients 5e-3 of scale, kernels vs plain backward on the
+    card 1e-3, `bwd_per_step` backward launches on the card, none on the
+    CPU)."""
+    log(f"{what}: GPU (kernels) vs CPU: loss {r['loss_gpu']:.6f} vs "
+        f"{r['loss_cpu']:.6f} (rel {r['loss_rel_diff']:.2e}, tol "
+        f"{TRAIN_LOSS_TOL:.0e}); worst of {r['n_grads']} gradients "
+        f"{r['worst_grad']} {r['worst_grad_rel_diff']:.2e} (tol "
+        f"{TRAIN_GRAD_TOL:.0e}; with the attention backward on its plain "
+        f"version {r['plain_bwd_worst_grad_rel_diff']:.2e} at "
+        f"{r['plain_bwd_worst_grad']}); GPU kernels vs GPU plain attention "
+        f"backward: worst {r['kernel_vs_plain_bwd_worst_grad']} "
+        f"{r['kernel_vs_plain_bwd_worst']:.2e} (tol "
+        f"{TRAIN_KERNEL_TOL:.0e}); GPU backward launches "
+        f"{r['gpu_bwd_launches']}; caption {r['caption_tokens']} keys; CPU "
+        f"step {r['cpu_seconds']:.1f}s")
+    if (r["gpu_bwd_launches"], r["cpu_bwd_launches"]) != (bwd_per_step, 0):
+        raise AssertionError(f"backward launches GPU {r['gpu_bwd_launches']}"
+                             f", CPU {r['cpu_bwd_launches']}; expected "
+                             f"{bwd_per_step}, 0")
+    if not (r["loss_rel_diff"] < TRAIN_LOSS_TOL
+            and r["worst_grad_rel_diff"] < TRAIN_GRAD_TOL
+            and r["kernel_vs_plain_bwd_worst"] < TRAIN_KERNEL_TOL):
+        raise AssertionError("the GPU train step disagrees (line above)")
+
+
+def phase_train_reference(torch, records):
+    """One flagship train step at B=1, dropout 0 and injected t, z, from the
+    same weights: on the GPU (kernels) against the CPU (plain versions),
+    and on the GPU against itself with the attention backward through its
+    plain version: the loss and every gradient."""
+    from text2protein_tpu_torch.config import bench_l128_config
+
+    r = train_step_card_vs_cpu(torch, bench_l128_config(), records, 3)
+    check_train_reference("train reference: flagship train step at B=1", r,
+                          BWD_PER_TRAIN_STEP)
+    return r
 
 
 def bf16_step(scale):
@@ -1764,7 +1983,7 @@ def remat_peak_memory(torch, records):
     step = make_train_step(config, sde, model)
     batch = _n256_batch(torch, records, N256_MEM_BATCH, config)
     out = {}
-    for remat in (True, False, True):
+    for remat in (True, False):
         _set_remat(model, remat)
         step(state, batch, 0)  # warm: cuDNN's search and the allocator
         torch.cuda.synchronize()
@@ -1842,26 +2061,18 @@ def phase_train_reference_n256(torch, records):
         _set_remat(model, False)
         l_n, g_n, _ = grads(model)
         _set_remat(model, True)
-        # the same remat step again: what the card alone moves
-        _, g_again, _ = grads(model)
         flash.flash_attention_bwd = flash.flash_attention_bwd_reference
         try:
             _, g_p, _ = grads(model)
         finally:
             flash.flash_attention_bwd = kernel_bwd
-    # bf16 against f32, both as the trainer runs them (cuDNN on); and remat
-    # against no remat with cuDNN on, reported only (its algorithm choice)
+    # bf16 against f32, both as the trainer runs them (cuDNN on)
     _, g_b, _ = grads(model)
-    _set_remat(model, False)
-    _, g_bn, _ = grads(model)
-    _set_remat(model, True)
-    cudnn_worst, cudnn_key = worst_grad_diff(g_b, g_bn)
     l_f, g_f, _ = grads(model32)
     if n_r != N256_BWD_PER_TRAIN_STEP:
         raise AssertionError(f"bf16 backward launches {n_r}, expected "
                              f"{N256_BWD_PER_TRAIN_STEP}")
     remat_worst, remat_key = worst_grad_diff(g_r, g_n)
-    rerun_worst, rerun_key = worst_grad_diff(g_again, g_r)
     keys = sorted(g_f)
 
     def flat(g):
@@ -1874,9 +2085,7 @@ def phase_train_reference_n256(torch, records):
     log(f"train reference N=256: bf16 step at B=1, dropout 0.1: loss remat "
         f"{l_r:.6f}, no remat {l_n:.6f}, f32 {l_f:.6f}; remat vs no remat "
         f"worst gradient {remat_key} {remat_worst:.2e} (tol "
-        f"{REMAT_TOL:.0e}, cuDNN off; the remat step run again: "
-        f"{rerun_worst:.2e} at {rerun_key}; with cuDNN on, not held: "
-        f"{cudnn_worst:.2e} at {cudnn_key}); kernels vs plain attention "
+        f"{REMAT_TOL:.0e}, cuDNN off); kernels vs plain attention "
         f"backward {kernel_gap:.2e} of the gradient's scale (tol: half of "
         f"bf16 vs f32, {bf16_gap:.2e}); bf16 backward launches {n_r}")
     if not (l_r == l_n and remat_worst <= REMAT_TOL
@@ -1887,7 +2096,6 @@ def phase_train_reference_n256(torch, records):
     torch.cuda.empty_cache()
     return dict(loss_remat=l_r, loss_no_remat=l_n, loss_f32=l_f,
                 remat_worst=remat_worst, remat_worst_grad=remat_key,
-                rerun_worst=rerun_worst, cudnn_on_remat_worst=cudnn_worst,
                 kernels_vs_plain_bwd=kernel_gap, bf16_vs_f32=bf16_gap)
 
 
@@ -2470,7 +2678,7 @@ def phase_text(torch, ptxas, smi):
 # that keeps the script inside its time limit, ~75 s); the flagship Server
 # at batch 4 with realize; cli/sampling_rosetta on phase 14's pickles
 REALIZE_L = 128
-REALIZE_BATCH_ITERS = 150
+REALIZE_BATCH_ITERS = 75
 REALIZE_SEEDS = (0, 1, 2, 3)
 REALIZE_QUALITY = dict(L=64, seed=5, n_restarts=3, max_iter=150, run_seed=1)
 REALIZE_LENGTHS = (128, 96, 64, 40)
@@ -2494,7 +2702,7 @@ REALIZE_X_ATOL = 1e-2
 # batched evaluation on the card's host, and up to 20 evaluations an
 # iteration on maps from an 8-step model
 ROSETTA_FLAGS = ["--n_restarts", "2", "--max_iter", "10"]
-REALIZE_PROFILE_ITERS = 10
+REALIZE_PROFILE_ITERS = 2
 
 
 def _realize_terms(rst, ca_ref):
@@ -2804,7 +3012,7 @@ def phase_realize(torch, smi, sampled_dir):
 # phase 23: bench_l128 at batch 16 on a mesh of ranks, one per card (NCCL),
 # against the plain one-device steps on rank 0's card; each layout is one
 # `parallel.launch.spawn` of its ranks
-DIST_STEPS = 4       # train steps of each run (the first warms cuDNN up)
+DIST_STEPS = 3       # train steps of each run (the first warms cuDNN up)
 DIST_GROUP_S = 600   # every collective's time limit (rank 0 runs the plain
 #                      steps while the others wait in their first one)
 DIST_LOSS_TOL = TRAIN_LOSS_TOL   # phase 6's card bars: loss 1e-4,
@@ -3457,6 +3665,608 @@ def phase_http(torch, smi, workdir, step):
                 nfe=max(nfe), stopped=stopped, launches=counts[1])
 
 
+class BucketLog:
+    """Records the token width of every hash-encoder call while entered:
+    the caption buckets the paths took."""
+
+    def __enter__(self):
+        from text2protein_tpu_torch.text import encoder
+
+        self.widths = []
+        self._cls, self._real = encoder.HashTextEncoder, (
+            encoder.HashTextEncoder.encode)
+        real, widths = self._real, self.widths
+
+        def encode(enc, captions):
+            out = real(enc, captions)
+            widths.append(int(out[0].shape[1]))
+            return out
+
+        self._cls.encode = encode
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.encode = self._real
+
+
+def reset_launches():
+    from text2protein_tpu_torch.ops import flash
+
+    for c in (flash.flash_attention_fwd, flash.flash_attention_bwd):
+        c.launches = c.launches_bf16 = 0
+
+
+def read_launches():
+    """(f32 forward, f32 backward, bf16 forward, bf16 backward)."""
+    from text2protein_tpu_torch.ops import flash
+
+    f, b = flash.flash_attention_fwd, flash.flash_attention_bwd
+    return f.launches, b.launches, f.launches_bf16, b.launches_bf16
+
+
+def check_train_run(what, res, steps, want):
+    """A cli/train.main result: finite losses and eval loss, the launches
+    (f32 fwd, f32 bwd, bf16 fwd, bf16 bwd) exactly `want`."""
+    import numpy as np
+
+    got = read_launches()
+    if len(res["losses"]) != steps or not (
+            np.isfinite(res["losses"]).all()
+            and np.isfinite(res["eval_loss"])):
+        raise AssertionError(f"{what}: losses {res['losses']}, eval "
+                             f"{res['eval_loss']}")
+    if got != want:
+        raise AssertionError(f"{what}: launches (f32 fwd, f32 bwd, bf16 fwd,"
+                             f" bf16 bwd) {got}, expected {want}")
+    return got
+
+
+def abstract_requests(seed, tokens, lengths, seeded=None):
+    from text2protein_tpu_torch.data.helix_records import abstract_caption
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    reqs = [{"caption": abstract_caption(rng, t), "length": n}
+            for t, n in zip(tokens, lengths)]
+    if seeded is not None:
+        reqs[0]["seed"] = seeded
+    return reqs
+
+
+# test_config's sampling batch: past the 512-token cut, the first seeded
+REF_REQUESTS = ((600, 30, 450, 290), (233, 64, 140, 256), 97531)
+
+
+def phase_kernels_reference(torch, ptxas):
+    """The f32 kernels at the shapes of the reference configurations, each
+    against its plain version: test_config's forward at its sampling batch
+    4 and backward at its training batch 2 (timed at the REF_TK bucket;
+    the cross-attention also over the other REF_BUCKETS), the 8x8 level of
+    test_config_large at batch 2 (the AttnBlock at D=1024, heads of 128),
+    the caption configs' cross-attention at batch 8 over every bucket from
+    128 to 512; the bf16 forward at test_config_large's 8x8 shapes at
+    batch 1 (D=1024 on the mma.sync kernel) and at bench_l128's
+    cross-attention at batch 16."""
+    def other_buckets(shapes, buckets):
+        return [(f"{n}_tk{tk}", h, tq, tk, d, m, c)
+                for n, h, tq, _, d, m, c in shapes if m
+                for tk in buckets if tk != REF_TK]
+
+    fwd = phase_kernels(torch, REF_SHAPES, lengths=(0, 37, 300),
+                        b=REF_BATCH)
+    bwd = phase_kernels_bwd(torch, REF_BWD_SHAPES, b=REF_TRAIN_BATCH)
+    checked = phase_kernels(torch, other_buckets(REF_SHAPES, REF_BUCKETS),
+                            lengths=(0, 37, 300), b=REF_BATCH, timed=False)
+    checked += phase_kernels_bwd(
+        torch, other_buckets(REF_BWD_SHAPES, REF_BUCKETS),
+        b=REF_TRAIN_BATCH, timed=False)
+    large_fwd = phase_kernels(torch, REF_LARGE_SHAPES, lengths=(0, 300),
+                              b=REF_TRAIN_BATCH)
+    large_bwd = phase_kernels_bwd(torch, REF_LARGE_SHAPES,
+                                  b=REF_TRAIN_BATCH)
+    checked += phase_kernels(
+        torch, other_buckets(REF_LARGE_SHAPES, REF_BUCKETS),
+        lengths=(0, 300), b=REF_TRAIN_BATCH, timed=False)
+    checked += phase_kernels_bwd(
+        torch, other_buckets(REF_LARGE_SHAPES, REF_BUCKETS),
+        b=REF_TRAIN_BATCH, timed=False)
+    caption_fwd = phase_kernels(torch, CAPTION_SHAPES, lengths=(0, 37, 300),
+                                b=CAPTION_BATCH, timed=False)
+    caption_bwd = phase_kernels_bwd(torch, CAPTION_SHAPES, b=CAPTION_BATCH,
+                                    timed=False)
+    large16_fwd, _ = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", REF_LARGE_BF16_SHAPES, 1),), seed=7)
+    bench16_fwd, _ = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", BENCH_BF16_SHAPES, BENCH_BF16_BATCH),),
+        seed=9)
+    return dict(fwd_rows=fwd, bwd_rows=bwd, large_fwd_rows=large_fwd,
+                large_bwd_rows=large_bwd, checked=checked,
+                caption_fwd=caption_fwd, caption_bwd=caption_bwd,
+                large_bf16_fwd_rows=large16_fwd,
+                bench_bf16_fwd_rows=bench16_fwd)
+
+
+def phase_reference_config(torch, records):
+    """test_config.yml as written (f32, no remat of the residual blocks,
+    batch 2) through cli/train.main on N=256 helix records with
+    abstract-length captions, its end-of-run snapshot sample cut to
+    REF_SNAPSHOT_STEPS PC steps; then a Server from the checkpoint it
+    wrote answers a batch of 4 over REF_STEPS PC steps."""
+    import pickle
+
+    import numpy as np
+
+    from text2protein_tpu_torch.cli import train
+    from text2protein_tpu_torch.cli.serve import Server
+    from text2protein_tpu_torch.config import load_config
+
+    config = load_config(REF_CONFIG)
+    p = attn_pairs(config)
+    if (config.training.batch_size, str(config.model.get("dtype",
+                                                           "float32")),
+            p, config.training.snapshot_sampling) != (
+                REF_TRAIN_BATCH, "float32", 16, True):
+        raise AssertionError("test_config.yml is not the f32 batch-2 model "
+                             "with 16 attention pairs and snapshot sampling")
+    steps = REF_WARMUP + REF_TIMED
+    real_sampling_fn = train.get_sampling_fn
+
+    def snapshot_sampling_fn(*a, **k):
+        return real_sampling_fn(*a, **dict(k, num_steps=REF_SNAPSHOT_STEPS))
+
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    train.get_sampling_fn = snapshot_sampling_fn
+    try:
+        with BucketLog() as buckets:
+            res = train.main(["--config", str(REF_CONFIG), "--data",
+                              str(records), "--max_steps", str(steps),
+                              "--workdir_root", str(WORK / "training_ref")])
+    finally:
+        train.get_sampling_fn = real_sampling_fn
+    peak = torch.cuda.max_memory_allocated()
+    # 3 calls a pair, the transformer blocks' self and cross again in the
+    # backward's recompute; the eval batch; the snapshot's 2 evaluations a
+    # PC step
+    want_fwd = (5 * p * steps + 3 * p + 3 * p * 2 * REF_SNAPSHOT_STEPS)
+    launches = check_train_run("test_config training", res, steps,
+                               (want_fwd, 3 * p * steps, 0, 0))
+    workdir = res["workdir"]
+    pkls = sorted(workdir.glob("samples/epoch_*/sample.pkl"))
+    if len(pkls) != 1:
+        raise AssertionError(f"snapshot samples {pkls}")
+    with open(pkls[0], "rb") as f:
+        snap = pickle.load(f)
+    if snap.shape != (REF_TRAIN_BATCH, 5, 256, 256) or not np.isfinite(
+            snap).all():
+        raise AssertionError(f"snapshot sample {snap.shape}")
+    # the weights moved: the EMA (decay 0.999) stands apart from them
+    state = res["state"]
+    n_params = sum(p.numel() for p in state.model.parameters())
+    named = dict(state.model.named_parameters())
+    ema_apart = sum(not torch.equal(named[k].detach(), v)
+                    for k, v in state.ema.params.items())
+    if ema_apart < len(named) // 2:
+        raise AssertionError(f"{ema_apart} of {len(named)} EMA params apart "
+                             f"from the params")
+    del state
+    secs = res["step_seconds"]
+    timed = np.asarray(secs[REF_WARMUP:]) * 1e3
+    ms = float(np.median(timed))
+    log(f"reference config: test_config.yml (f32, N=256, {n_params} params) "
+        f"at batch {REF_TRAIN_BATCH}, {steps} steps on {res['records']} "
+        f"records: losses {res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} "
+        f"(all finite), eval (EMA) {res['eval_loss']:.4f}; flash_fwd "
+        f"launches {launches[0]} (= {5 * p} x {steps} + {3 * p} eval + "
+        f"{3 * p} x 2 x {REF_SNAPSHOT_STEPS} snapshot), flash_bwd "
+        f"{launches[1]} (= {3 * p} x {steps}), bf16 0; snapshot sample "
+        f"{snap.shape} finite; {ema_apart} of {len(named)} EMA tensors "
+        f"apart from the weights; caption buckets "
+        f"{sorted(set(buckets.widths))}")
+    log(f"reference config: {ms:.2f} ms per train step (median of the last "
+        f"{REF_TIMED}: {', '.join(f'{x:.1f}' for x in timed)}; first "
+        f"{REF_WARMUP}: {', '.join(f'{x * 1e3:.1f}' for x in secs[:REF_WARMUP])}"
+        f" ms), max_memory_allocated {peak / 2**30:.2f} GiB")
+    del res, named
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    server = Server(config, batch_size=REF_BATCH, num_steps=REF_STEPS,
+                    checkpoint=workdir, device="cuda")
+    log(f"reference config: Server from the EMA of step {server.step} of "
+        f"{workdir.relative_to(ROOT)} built in {time.perf_counter() - t:.2f}s")
+    tokens, lengths, seed = REF_REQUESTS
+    reqs = abstract_requests(40, tokens, lengths, seed)
+    # one evaluation at the batch's shapes first: cuDNN's search
+    t = time.perf_counter()
+    with torch.inference_mode():
+        server.model(torch.zeros((REF_BATCH, 256, 256, 5), device="cuda"),
+                     torch.zeros(REF_BATCH, device="cuda"),
+                     *(torch.from_numpy(a).cuda() for a in
+                       server.encoder.encode([r["caption"] for r in reqs])))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    with BucketLog() as served:
+        reset_launches()
+        t = time.perf_counter()
+        results = server.run_batch(reqs)
+        batch_s = time.perf_counter() - t
+    sampled = read_launches()
+    if sampled != (3 * p * 2 * REF_STEPS, 0, 0, 0):
+        raise AssertionError(f"test_config sampling launches {sampled}")
+    check_maps(results, reqs, 256)
+    sample_peak = torch.cuda.max_memory_allocated()
+    ms_pc = batch_s / REF_STEPS * 1e3
+    log(f"reference config: sampling at batch {REF_BATCH} over {REF_STEPS} "
+        f"PC steps (after one evaluation with cuDNN's search, "
+        f"{warm_s:.2f}s): {batch_s:.3f}s, flash_fwd {sampled[0]} (= "
+        f"{3 * p} x 2 x {REF_STEPS}), maps finite (5, 256, 256), last "
+        f"channel = length mask; caption bucket {served.widths}; "
+        f"{ms_pc:.2f} ms per PC step; max_memory_allocated "
+        f"{sample_peak / 2**30:.2f} GiB")
+    del server
+    shutil.rmtree(workdir)  # two 6 GB slots
+    torch.cuda.empty_cache()
+    return dict(ms_per_train_step=ms, train_ms=timed.tolist(),
+                step_seconds=secs, peak_train_bytes=peak,
+                warm_seconds=warm_s, batch_seconds=batch_s,
+                ms_per_pc_step=ms_pc, peak_sampling_bytes=sample_peak,
+                fwd_launches=launches[0] + sampled[0],
+                bwd_launches=launches[1], train_buckets=buckets.widths,
+                sampling_buckets=served.widths, n_params=n_params)
+
+
+def phase_reference_config_cpu(torch, records):
+    """test_config.yml at B=1 from the same random weights: one score
+    evaluation and one train step (dropout 0, injected t, z) on the card
+    against the CPU (score rel 1e-4; loss 1e-4, gradients 5e-3 of scale)."""
+    from text2protein_tpu_torch.config import load_config
+
+    config = load_config(REF_CONFIG)
+    p = attn_pairs(config)
+    r = train_step_card_vs_cpu(torch, config, records, 5, seed=3,
+                               score=True)
+    log(f"reference config: test_config score at B=1 (caption "
+        f"{r['caption_tokens']} keys), GPU vs CPU rel max diff "
+        f"{r['score_rel_diff']:.2e} (tol {E2E_TOL:.0e}), "
+        f"{r['score_launches']} flash_fwd launches; CPU "
+        f"{r['score_cpu_seconds']:.1f}s")
+    if not (r["score_rel_diff"] < E2E_TOL and r["score_launches"] == 3 * p):
+        raise AssertionError("test_config: GPU score vs CPU score")
+    check_train_reference("reference config: test_config train step at B=1",
+                          r, 3 * p)
+    return r
+
+
+def phase_reference_variants(torch, records):
+    """pod_config.yml and test_config_large.yml as written (f32, batch 1
+    and 2): one PC step of a Server with seeded random weights at the
+    yml's batch, then one train step of those weights through the
+    trainer's step (`training.steps.make_train_step`, what cli/train.main
+    runs each step; the trainer's checkpoint slots would be 2 x 8 GB and
+    2 x 14 GB) on a batch of the records; then test_config_large in bf16
+    (bench.py's dtype): one forward at batch 1 with the same weights, the
+    AttnBlock at D=1024 on the bf16 mma.sync kernel, against the same
+    forward with the plain attention."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli.serve import Server
+    from text2protein_tpu_torch.conditioning import batch_to_device_arrays
+    from text2protein_tpu_torch.config import load_config
+    from text2protein_tpu_torch.data.dataset import (
+        ProteinProcessedDataset,
+        make_batch,
+    )
+    from text2protein_tpu_torch.diffusion.sde import get_sde
+    from text2protein_tpu_torch.models.unet import build_model
+    from text2protein_tpu_torch.ops import flash
+    from text2protein_tpu_torch.text.encoder import build_text_encoder
+    from text2protein_tpu_torch.training.state import create_train_state
+    from text2protein_tpu_torch.training.steps import make_train_step
+
+    def pc_then_step(path, tokens, first):
+        config = load_config(path)
+        p, b = attn_pairs(config), config.training.batch_size
+        server = Server(config, batch_size=b, num_steps=1, device="cuda",
+                        weight_seed=0)
+        reqs = abstract_requests(60, tokens, (256, 133)[:b])
+        reset_launches()
+        t = time.perf_counter()
+        with BucketLog() as served:
+            results = server.run_batch(reqs)
+        pc_s = time.perf_counter() - t
+        sampled = read_launches()
+        if sampled != (3 * p * 2, 0, 0, 0):
+            raise AssertionError(f"{path.name} PC step launches {sampled}, "
+                                 f"expected {3 * p * 2} f32 forward")
+        check_maps(results, reqs, 256)
+        weights = server.model.state_dict()
+        del server
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(config, device="cuda")
+        model.load_state_dict(weights)
+        sde, _ = get_sde(config)
+        state = create_train_state(config, model)
+        step = make_train_step(config, sde, model)
+        ds = ProteinProcessedDataset(records)
+        host = make_batch([ds[i] for i in range(first, first + b)],
+                          config.data.max_res_num)
+        batch = batch_to_device_arrays(host, config, device="cuda")
+        with BucketLog() as buckets:
+            ctx = build_text_encoder(config).encode(host["caption"])
+        batch["context"], batch["context_mask"] = (
+            torch.from_numpy(a).cuda() for a in ctx)
+        reset_launches()
+        t = time.perf_counter()
+        loss = float(step(state, batch, 0))
+        secs = time.perf_counter() - t
+        got = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        # the first step runs at lr 0 (warmup): its gradients, not its
+        # update
+        graded = sum(q.grad is not None and bool(q.grad.isfinite().all())
+                     and bool(q.grad.any()) for q in model.parameters())
+        n_tensors = len(list(model.parameters()))
+        if got != (5 * p, 3 * p, 0, 0) or not np.isfinite(loss) or (
+                graded < n_tensors // 2):
+            raise AssertionError(f"{path.name} step: loss {loss}, launches "
+                                 f"{got}, {graded} of {n_tensors} gradients "
+                                 f"finite and nonzero")
+        del state, step, model, batch
+        torch.cuda.empty_cache()
+        log(f"reference variants: {path.name} (f32, {p} attention pairs, "
+            f"batch {b}): one PC step of a Server (seeded random weights): "
+            f"{pc_s:.2f}s, flash_fwd {sampled[0]} (= {3 * p} x 2), maps "
+            f"finite, last channel = length mask, bucket {served.widths}; "
+            f"one train step of those weights (training.steps): loss "
+            f"{loss:.4f}, {secs:.2f}s with cuDNN's search, flash_fwd "
+            f"{got[0]} (= {5 * p}), flash_bwd {got[1]}, {graded} of "
+            f"{n_tensors} gradients finite and nonzero; caption bucket "
+            f"{buckets.widths}; max_memory_allocated {peak / 2**30:.2f} GiB")
+        return dict(pairs=p, batch=b, train_seconds=secs, loss=loss,
+                    peak_bytes=peak, pc_seconds=pc_s, launches=got,
+                    pc_launches=sampled,
+                    buckets=buckets.widths + served.widths), weights, ctx
+
+    out = {}
+    # the requests' and records' captions take the 256-, 384-, 192- and
+    # 512-key buckets
+    out["pod_config"], _, _ = pc_then_step(REF_POD_CONFIG, (230,), 9)
+    out["test_config_large"], weights, ctx = pc_then_step(REF_LARGE_CONFIG,
+                                                          (170, 60), 0)
+
+    # test_config_large in bf16, the same weights
+    config = load_config(REF_LARGE_CONFIG)
+    config.model.dtype = "bfloat16"
+    p = attn_pairs(config)
+    model = build_model(config, device="cuda")
+    model.load_state_dict(weights)
+    del weights
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((1, 256, 256, 5)) * 10)
+                         .astype(np.float32)).cuda()
+    labels = torch.tensor([700.0], device="cuda")
+    ctx, mask = (torch.from_numpy(a[:1]).cuda() for a in ctx)
+    reset_launches()
+    with torch.inference_mode():
+        got16 = model(x, labels, ctx, mask).float()
+        launched = read_launches()
+        kernel_fwd = flash.flash_attention_fwd
+        flash.flash_attention_fwd = flash.flash_attention_fwd_reference
+        try:
+            plain16 = model(x, labels, ctx, mask).float()
+        finally:
+            flash.flash_attention_fwd = kernel_fwd
+    if launched != (0, 0, 3 * p, 0) or not bool(torch.isfinite(got16).all()):
+        raise AssertionError(f"test_config_large bf16 forward: launches "
+                             f"{launched}, finite "
+                             f"{bool(torch.isfinite(got16).all())}")
+    gap = ((got16 - plain16).abs().max() / plain16.abs().max()).item()
+    log(f"reference variants: test_config_large.yml in bf16 (bench.py's "
+        f"dtype), one forward at batch 1: {launched[2]} bf16 flash_fwd "
+        f"launches (= 3 x {p}; the 8x8 AttnBlock at D=1024 on the mma.sync "
+        f"kernel), finite; against the same forward with the plain "
+        f"attention: rel max diff {gap:.2e} (reported)")
+    del model
+    torch.cuda.empty_cache()
+    out["large_bf16"] = dict(launches=launched[2], kernels_vs_plain=gap)
+    runs = (out["pod_config"], out["test_config_large"])
+    return dict(out, fwd_launches=sum(r["launches"][0] + r["pc_launches"][0]
+                                      for r in runs),
+                bwd_launches=sum(r["launches"][1] for r in runs),
+                fwd_bf16_launches=launched[2])
+
+
+def check_pickles(out_dir, n_want, c, cond):
+    """Each pickle (1, c, 128, 128), finite; the conditions of `cond`
+    clamped: SS channels, the entries outside the inpainting region, the
+    length mask as the last channel."""
+    import pickle
+
+    import numpy as np
+
+    pickles = sorted(out_dir.glob("*.pkl"))
+    if len(pickles) != n_want:
+        raise AssertionError(f"{len(pickles)} pickles, expected {n_want}")
+    for p in pickles:
+        with open(p, "rb") as f:
+            a = pickle.load(f)
+        if a.shape != (1, c, 128, 128) or not np.isfinite(a).all():
+            raise AssertionError(f"{p.name}: {a.shape}")
+        x = a[0].transpose(1, 2, 0)
+        ok = np.array_equal(x[..., -1], cond["length"][0].cpu().numpy())
+        if "ss" in cond:
+            ok &= np.array_equal(x[..., 4:7], cond["ss"][0].cpu().numpy())
+        if "inpainting" in cond:
+            free = cond["inpainting"]["mask_inpaint"][0].cpu().numpy()
+            coords = cond["inpainting"]["coords_6d"][0].cpu().numpy()
+            ok &= np.array_equal(x[~free], coords[~free])
+        if not ok:
+            raise AssertionError(f"{p.name}: the conditions are not clamped")
+    return len(pickles)
+
+
+def phase_caption_family(torch):
+    """The 4096-wide caption configs at L=128 (batch 8) as written, on C=5
+    and C=8 helix records with abstract-length captions:
+    cond_ss_inpainting.yml through cli/train.main for 3 steps, then
+    cli/sampling_6d --pdb --mask_info at 4 PC steps; cond_length,
+    cond_length_no_ss, cond_length_inpainting, cond_ss and no_cond one
+    train step and 2 PC steps each (--pdb where the yml conditions on SS
+    or inpainting, else --select_length)."""
+    from text2protein_tpu_torch.cli import sampling_6d, train
+    from text2protein_tpu_torch.conditioning import get_conditions_from_pdb
+    from text2protein_tpu_torch.conditioning import get_mask_all_lengths
+    from text2protein_tpu_torch.config import load_config
+    from text2protein_tpu_torch.data import helix_records
+    from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
+    from text2protein_tpu_torch.data.pdbio import write_backbone_pdb
+
+    records = {}
+    for c, n in CAPTION_RECORDS.items():
+        records[c] = WORK / f"caption_records_c{c}"
+        helix_records.write_records(
+            records[c], n, lengths=(64, 128), seed=10 + c, num_channels=c,
+            captions=helix_records.abstract_captions(n, seed=c))
+    rec = ProteinProcessedDataset(records[8])[0]
+    pdb = WORK / "caption_condition.pdb"
+    write_backbone_pdb(pdb, rec["coords"], seq=rec["aa_str"])
+    out, fwd_launches, bwd_launches, all_buckets = {}, 0, 0, set()
+    for name, c, steps, how, pc_steps in CAPTION_FAMILY:
+        path = ROOT / "configs" / name
+        config = load_config(path)
+        p = attn_pairs(config)
+        if (config.data.num_channels, config.model.context_dim,
+                config.training.batch_size, p) != (c, 4096, CAPTION_BATCH,
+                                                   6):
+            raise AssertionError(f"{name}: not C={c}, 4096 wide, batch "
+                                 f"{CAPTION_BATCH}, 6 attention pairs")
+        reset_launches()
+        with BucketLog() as buckets:
+            res = train.main(["--config", str(path), "--data",
+                              str(records[c]), "--max_steps", str(steps),
+                              "--workdir_root",
+                              str(WORK / "training_caption")])
+        got = check_train_run(name, res, steps, (5 * p * steps + 3 * p,
+                                                 3 * p * steps, 0, 0))
+        workdir, secs, losses = (res["workdir"], res["step_seconds"],
+                                 res["losses"])
+        del res
+        if how == "pdb":
+            flags = ["--pdb", str(pdb), "--chain", "A", "--mask_info",
+                     SS_MASK_INFO]
+            cond = get_conditions_from_pdb(str(pdb), config, "A",
+                                           SS_MASK_INFO, batch_size=1)
+        else:
+            flags = ["--select_length", "--length_index",
+                     str(CAPTION_LENGTH_INDEX)]
+            cond = {"length": get_mask_all_lengths(config, batch_size=1)[
+                CAPTION_LENGTH_INDEX - 1]}
+        reset_launches()
+        t = time.perf_counter()
+        with BucketLog() as sampled_buckets:
+            s = sampling_6d.main([
+                str(path), str(workdir / "checkpoints" / "best_eval.pt"),
+                *flags, "--sampler", "pc", "--num_steps", str(pc_steps),
+                "--batch_size", str(CAPTION_BATCH), "--processed_dir",
+                str(records[c]), "--workdir_root",
+                str(WORK / "sampling_caption")])
+        cli_s = time.perf_counter() - t
+        sampled = read_launches()
+        if sampled != (pc_steps * 2 * 3 * p, 0, 0, 0):
+            raise AssertionError(f"{name} sampling launches {sampled}")
+        # one pickle per held-out id of the first full batch (the ids
+        # cycle to fill it)
+        ids = (workdir / "test_ids.txt").read_text().split()
+        n_pkl = check_pickles(s["workdir"], len(set(
+            (ids * CAPTION_BATCH)[:CAPTION_BATCH])), c, cond)
+        shutil.rmtree(workdir)
+        shutil.rmtree(s["workdir"])
+        fwd_launches += got[0] + sampled[0]
+        bwd_launches += got[1]
+        all_buckets |= set(buckets.widths) | set(sampled_buckets.widths)
+        log(f"caption family: {name} (C={c}, {config.model.condition}) "
+            f"{steps} train step(s) at batch {CAPTION_BATCH}: losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}, eval finite; step "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in secs)} ms; flash_fwd "
+            f"{got[0]} (= {5 * p} x {steps} + {3 * p} eval), flash_bwd "
+            f"{got[1]} (= {3 * p} x {steps}); buckets {buckets.widths}; "
+            f"sampling_6d {' '.join(flags[:1])} at {pc_steps} PC steps, batch "
+            f"{CAPTION_BATCH}: {n_pkl} pickles (1, {c}, 128, 128) finite, "
+            f"conditions clamped, last channel = length mask, flash_fwd "
+            f"{sampled[0]} (= {pc_steps} x 2 x {3 * p}), bucket "
+            f"{sampled_buckets.widths}, {cli_s:.2f}s with the restore; "
+            f"sampler {', '.join(f'{x:.3f}' for x in s['sample_seconds'])} s")
+        out[name] = dict(losses=losses, step_seconds=secs, launches=got,
+                         sampling_launches=sampled,
+                         sample_seconds=s["sample_seconds"],
+                         buckets=buckets.widths,
+                         sampling_buckets=sampled_buckets.widths)
+    return dict(out, fwd_launches=fwd_launches, bwd_launches=bwd_launches,
+                buckets=sorted(all_buckets))
+
+
+def phase_bench_bf16(torch):
+    """bench.py's default: bench_l128.yml with model.dtype bfloat16, a
+    Server at batch 16 over BENCH_BF16_STEPS PC steps, two batches: bf16
+    forward launches only (36 a PC step), maps checked; ms per PC step
+    from the second batch (a smoke line, not a benchmark)."""
+    import numpy as np
+
+    from text2protein_tpu_torch.cli.serve import Server
+    from text2protein_tpu_torch.config import load_config
+    from text2protein_tpu_torch.data.helix_records import CAPTIONS
+
+    config = load_config(BENCH_CONFIG)
+    config.model.dtype = "bfloat16"
+    p = attn_pairs(config)
+    server = Server(config, batch_size=BENCH_BF16_BATCH,
+                    num_steps=BENCH_BF16_STEPS, device="cuda",
+                    weight_seed=0)
+    rng = np.random.default_rng(5)
+    seconds, launches = [], 0
+    for i in range(2):
+        reqs = [{"caption": CAPTIONS[j % len(CAPTIONS)],
+                 "length": int(rng.integers(40, 129))}
+                for j in range(BENCH_BF16_BATCH)]
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with BucketLog() as buckets:
+            results = server.run_batch(reqs)
+        seconds.append(time.perf_counter() - t)
+        got = read_launches()
+        if got != (0, 0, 3 * p * 2 * BENCH_BF16_STEPS, 0):
+            raise AssertionError(f"bench_l128 bf16 launches {got}")
+        launches += got[2]
+        check_maps(results, reqs, 128)
+    ms = seconds[-1] / BENCH_BF16_STEPS * 1e3
+    log(f"bench bf16: bench_l128.yml in bf16 (bench.py's default), Server "
+        f"batch {BENCH_BF16_BATCH}, {BENCH_BF16_STEPS} PC steps a batch: "
+        f"{', '.join(f'{x:.3f}' for x in seconds)} s (the first with cuDNN's "
+        f"search); bf16 flash_fwd {3 * p * 2 * BENCH_BF16_STEPS} a batch, no "
+        f"f32 launch; maps finite (5, 128, 128), last channel = length "
+        f"mask; {ms:.2f} ms per PC step (a smoke line, not a benchmark)")
+    del server
+    torch.cuda.empty_cache()
+    return dict(batch_seconds=seconds, ms_per_pc_step=ms,
+                fwd_bf16_launches=launches, buckets=buckets.widths)
+
+
+def check_buckets(*widths):
+    """Every caption bucket from 64 to 512 keys was taken by a batch of
+    the reference configurations' paths (the captions past 512 tokens are
+    cut to it)."""
+    took = sorted({int(w) for ws in widths for w in ws})
+    log(f"caption buckets the reference configurations' batches took: "
+        f"{took}")
+    if not set(range(64, 513, 64)) <= set(took):
+        raise AssertionError(f"caption buckets {took}: not every bucket "
+                             f"from 64 to 512")
+    return took
+
+
 def main():
     import torch
 
@@ -3505,6 +4315,22 @@ def main():
     sequence = phase_sequence_parallel(torch, smi, records)
     sequence16 = phase_sequence_parallel_n256(torch, ptxas, smi, records16)
     http = phase_http(torch, smi, workdir, deploy["step"])
+    ref_kernels = phase_kernels_reference(torch, ptxas)
+    records_ref = WORK / "train_records_ref"
+    helix_records.write_records(
+        records_ref, REF_RECORDS, lengths=(128, 256), seed=3,
+        captions=helix_records.abstract_captions(REF_RECORDS, seed=3))
+    reference = phase_reference_config(torch, records_ref)
+    reference_cpu = phase_reference_config_cpu(torch, records_ref)
+    variants = phase_reference_variants(torch, records_ref)
+    caption_family = phase_caption_family(torch)
+    bench16 = phase_bench_bf16(torch)
+    buckets = check_buckets(
+        reference["train_buckets"], reference["sampling_buckets"],
+        [reference_cpu["caption_tokens"]],
+        variants["pod_config"]["buckets"],
+        variants["test_config_large"]["buckets"], caption_family["buckets"],
+        bench16["buckets"])
 
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
@@ -3555,7 +4381,9 @@ def main():
         + sampling["launches"] + training_ss["fwd_launches"]
         + sampling_ss["launches"] + realize["launches"]
         + distributed["fwd_launches"] + sequence["fwd_launches"]
-        + http["launches"], rows, f"PC step at batch {BATCH}")
+        + http["launches"] + reference["fwd_launches"]
+        + reference_cpu["score_launches"] + variants["fwd_launches"]
+        + caption_family["fwd_launches"], rows, f"PC step at batch {BATCH}")
     fwd_f32["deploy"] = dict(
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
         **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
@@ -3574,13 +4402,20 @@ def main():
                f"over a stacked group of {SP_MODEL}")
     fwd_f32["sequence_parallel"] = per_row_step(
         sequence["fwd_rows"], sp_what + " (forward calls)", PEAK_F32_S)
+    fwd_f32["reference_config"] = per_row_step(
+        ref_kernels["fwd_rows"], f"test_config PC step at batch {REF_BATCH}"
+        f" (the caption's {REF_TK}-key bucket)", PEAK_F32_S)
+    fwd_f32["reference_config_large_8x8"] = per_row_step(
+        ref_kernels["large_fwd_rows"], f"test_config_large's 8x8 calls of "
+        f"one evaluation at batch {REF_TRAIN_BATCH}", PEAK_F32_S)
 
     fwd_bf16 = kernel(
         "flash_fwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_fwd.cu",
         "text2protein_tpu/ops/flash.py:50",
         launches16 + training16["fwd_launches"] + hybrid16["launches"]
         + bf16_l128["fwd_launches"] + text["fwd_launches"]
-        + sequence16["fwd_launches"], fwd16_rows,
+        + sequence16["fwd_launches"] + variants["fwd_bf16_launches"]
+        + bench16["fwd_bf16_launches"], fwd16_rows,
         f"N=256 PC step at batch {N256_BATCH}", PEAK_BF16_S)
     fwd_bf16["l128"] = per_row_step(
         bf16_l128["fwd_rows"],
@@ -3592,6 +4427,12 @@ def main():
                  f"the grid's rows over a stacked group of {SP_MODEL}")
     fwd_bf16["sequence_parallel_n256"] = per_row_step(
         sequence16["fwd_rows"], sp16_what + " (forward calls)")
+    fwd_bf16["reference_config_large_bf16"] = per_row_step(
+        ref_kernels["large_bf16_fwd_rows"], "test_config_large's 8x8 calls "
+        "of one bf16 evaluation at batch 1")
+    fwd_bf16["bench_l128_bf16"] = per_row_step(
+        ref_kernels["bench_bf16_fwd_rows"], f"bench_l128 bf16 PC step at "
+        f"batch {BENCH_BF16_BATCH} (its cross-attention calls)")
     bwd_bf16 = kernel(
         "flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
@@ -3610,10 +4451,19 @@ def main():
         "flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
         training["bwd_launches"] + training_ss["bwd_launches"]
-        + distributed["bwd_launches"] + sequence["bwd_launches"],
+        + distributed["bwd_launches"] + sequence["bwd_launches"]
+        + reference["bwd_launches"] + reference_cpu["gpu_bwd_launches"]
+        + variants["bwd_launches"] + caption_family["bwd_launches"],
         bwd_rows, f"train step at batch {TRAIN_BATCH}")
     bwd_f32["sequence_parallel"] = per_row_step(sequence["bwd_rows"],
                                                 sp_what, PEAK_F32_S)
+    bwd_f32["reference_config"] = per_row_step(
+        ref_kernels["bwd_rows"], f"test_config train step at batch "
+        f"{REF_TRAIN_BATCH} (the caption's {REF_TK}-key bucket)",
+        PEAK_F32_S)
+    bwd_f32["reference_config_large_8x8"] = per_row_step(
+        ref_kernels["large_bwd_rows"], f"test_config_large's 8x8 calls of "
+        f"one train step at batch {REF_TRAIN_BATCH}", PEAK_F32_S)
     kernels = [
         # launches on the main paths: serving, training (+ its eval), the
         # deployment batches, the sampling CLI, SS training and sampling,
@@ -3646,7 +4496,11 @@ def main():
         "bf16_l128": bf16_l128, "text": text, "realize": realize,
         "distributed": distributed, "sequence_parallel": sequence,
         "sequence_parallel_n256": sequence16, "http": http,
-    }, indent=1))
+        "reference_kernels": ref_kernels, "reference_config": reference,
+        "reference_config_cpu": reference_cpu,
+        "reference_variants": variants, "caption_family": caption_family,
+        "bench_bf16": bench16, "caption_buckets": buckets,
+    }, indent=1, default=str))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

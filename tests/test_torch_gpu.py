@@ -39,6 +39,23 @@ SHAPES = [
     (8, 16, 64, 32, True),
     (2, 24, 40, 8, True),
     (1, 64, 72, 1024, False),
+] + [
+    # the reference configurations: test_config.yml's AttnBlock (D=512)
+    # and transformer (8 heads of 64) at 32x32, 16x16 and 8x8, its cross-
+    # attention over caption buckets of 64-512 keys; test_config_large's
+    # 8x8 level (D=1024, heads of 128); the caption configs' cross-
+    # attention at 16x16 and 4x4 (heads of 32) over 128-512 keys
+    (1, 1024, 1024, 512, False),
+    (8, 1024, 1024, 64, False),
+    (8, 1024, 512, 64, True),
+    (1, 256, 256, 512, False),
+    (8, 256, 192, 64, True),
+    (8, 64, 320, 64, True),
+    (1, 64, 64, 1024, False),
+    (8, 64, 64, 128, False),
+    (8, 64, 448, 128, True),
+    (8, 256, 384, 32, True),
+    (8, 16, 512, 32, True),
 ]
 
 
@@ -140,7 +157,7 @@ BWD_SHAPES = [
     (1, 24, 128, 8, True),
     (1, 64, 64, 1024, False),
     (2, 40, 128, 136, True),
-]
+] + SHAPES[-11:]  # the reference configurations' shapes
 
 
 def _bwd_case(cuda, b, h, tq, tk, d, masked, dead_row=False):
@@ -493,6 +510,15 @@ BF16_SHAPES = [
     (16, 1, 16, 16, 256, False),
     (16, 8, 16, 16, 32, False),
     (16, 8, 16, 16, 32, True),
+    # test_config_large.yml in bf16 (bench.py's dtype): the 8x8 AttnBlock
+    # at D=1024 (the mma.sync kernels) and the heads of 128, at batch 1
+    # and 2; bench_l128.yml in bf16 at batch 16: the cross-attention over
+    # the 64-key bucket at 16x16 and in the 4x4 mid block
+    (1, 1, 64, 64, 1024, False),
+    (1, 8, 64, 64, 128, False),
+    (2, 8, 64, 128, 128, True),
+    (16, 8, 256, 64, 32, True),
+    (16, 8, 16, 64, 32, True),
 ]
 
 

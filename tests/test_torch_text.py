@@ -137,7 +137,8 @@ def test_cached_encoder_matches_jax(tmp_path, ids):
 @pytest.mark.parametrize("layout", ["single", "sharded", "bin"])
 def test_hf_encoder_matches_jax(tiny_llama, tmp_path, layout):
     """`text.encoder: hf` on local files: the embeddings and the mask equal
-    the JAX package's, atol 0, in each checkpoint layout."""
+    the JAX package's, atol 0, in each checkpoint layout; `padded_width`
+    gives the width `encode` pads to."""
     d = _layout(tiny_llama, tmp_path, layout)
     cfg, jcfg = _configs(encoder="hf", model_name=str(d), max_tokens=16,
                          pad_to_bucket=8)
@@ -149,6 +150,7 @@ def test_hf_encoder_matches_jax(tiny_llama, tmp_path, layout):
         g_emb, g_mask = got.encode(batch)
         w_emb, w_mask = want.encode(batch)
         assert g_emb.dtype == np.float32 and g_emb.shape[1] % 8 == 0
+        assert got.padded_width(batch) == g_emb.shape[1]
         np.testing.assert_array_equal(g_emb, w_emb)
         np.testing.assert_array_equal(g_mask, w_mask)
     # the table is the checkpoint's embedding rows, read alone

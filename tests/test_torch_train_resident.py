@@ -32,7 +32,10 @@ from text2protein_tpu.text import build_text_encoder as j_build_text_encoder
 from text2protein_tpu_torch.cli import train as ttrain
 from text2protein_tpu_torch.config import load_config
 from text2protein_tpu_torch.data.dataset import ProteinProcessedDataset
-from text2protein_tpu_torch.data.helix_records import write_records
+from text2protein_tpu_torch.data.helix_records import (
+    abstract_captions,
+    write_records,
+)
 from text2protein_tpu_torch.data.loader import PrefetchLoader
 from text2protein_tpu_torch.text.encoder import build_text_encoder
 
@@ -244,6 +247,46 @@ def test_over_the_cap_prints_the_jax_line_and_ships_f32(tmp_path,
     assert res["table_steps"] == 0 and res["context_table"] is None
     _assert_encoded(build_text_encoder(load_config(cfg)), rec.train_batches,
                     rec.train_ctx)
+
+
+@pytest.mark.parametrize("over", [True, False], ids=["over", "at_cap"])
+def test_the_cap_is_checked_before_any_caption_is_encoded(tmp_path,
+                                                          monkeypatch,
+                                                          capsys, over):
+    """A deliberate difference from the JAX trainer, which encodes every
+    unique caption into the table and then compares its bytes with
+    `data.max_context_table_bytes` (text2protein_tpu/cli/train.py:286-299).
+    The port computes the same bytes from the captions' tokens alone
+    (`context_table_size`: unique x bucket x context_dim x 2) and, over
+    the cap, encodes nothing; the printed line and the choice are the JAX
+    trainer's. Abstract-length captions, so that the records span several
+    buckets; at a cap of exactly the table's bytes the table is built."""
+    captions = abstract_captions(7, seed=3, tokens=(40, 300))
+    write_records(tmp_path / "rec", 24, lengths=(9, N), captions=captions)
+    cfg, _ = _cfg(tmp_path)
+    j_table, _, _ = _jax_table(cfg, tmp_path / "rec")
+    assert j_table.shape[1] > 64  # the longest caption's bucket
+    cap = j_table.nbytes - 1 if over else j_table.nbytes
+    cfg["data"]["max_context_table_bytes"] = cap
+    config = load_config(cfg)
+    ds = ProteinProcessedDataset(tmp_path / "rec")
+    encoder = build_text_encoder(config)
+    assert ttrain.context_table_size(ds, encoder) == (7, j_table.nbytes)
+    encoded = []
+    real_encode = encoder.encode
+    monkeypatch.setattr(encoder, "encode", lambda c: encoded.append(
+        len(c)) or real_encode(c))
+    res = ttrain.resident_table(config, ds, encoder, torch.device("cpu"))
+    out = capsys.readouterr().out
+    if over:
+        assert res is None and encoded == []
+        assert out == (f"context table is {j_table.nbytes / 2**30:.1f} GiB "
+                       f"for 7 unique captions (> {cap / 2**30:.1f} cap); "
+                       f"using per-launch context shipping\n")
+    else:
+        assert encoded == [7] and res["bytes"] == j_table.nbytes
+        assert out == (f"resident context table: 7 unique captions, "
+                       f"{j_table.nbytes / 2**20:.1f} MiB\n")
 
 
 @pytest.mark.parametrize("start,budget,k,want", [

@@ -258,23 +258,36 @@ def build_context_table(dataset, encoder):
             torch.from_numpy(inv))
 
 
+def context_table_size(dataset, encoder):
+    """(unique captions, bytes) of the table `build_context_table` builds,
+    from the captions' tokens alone: U x T x D x 2 (bf16), T the bucket of
+    the longest caption, which is the widest chunk's."""
+    ucaps = list(dict.fromkeys(dataset.caption(i)
+                               for i in range(len(dataset))))
+    return len(ucaps), (len(ucaps) * encoder.padded_width(ucaps)
+                        * encoder.dim * 2)
+
+
 def resident_table(config, dataset, encoder, device):
     """The resident context table on `device`, or None: only with
     `data.featurize_on_device` and `training.steps_per_launch` > 1, and
     only when it fits in `data.max_context_table_bytes`; prints the JAX
-    trainer's line either way (text2protein_tpu/cli/train.py:286-299)."""
+    trainer's line either way (text2protein_tpu/cli/train.py:286-299).
+    The size is checked before any caption is encoded (the JAX trainer
+    builds the table first, so a corpus far over the cap can exhaust the
+    host before it falls back); the line and the choice are the same."""
     if not (config.data.get("featurize_on_device", False)
             and int(config.training.get("steps_per_launch", 1)) > 1):
         return None
     max_table = int(config.data.get("max_context_table_bytes", 1 << 30))
-    table, mask, inv = build_context_table(dataset, encoder)
-    nbytes = table.numel() * table.element_size()
+    unique, nbytes = context_table_size(dataset, encoder)
     if nbytes > max_table:
         print(f"context table is {nbytes / 2**30:.1f} GiB for "
-              f"{table.shape[0]} unique captions "
+              f"{unique} unique captions "
               f"(> {max_table / 2**30:.1f} cap); using per-launch "
               f"context shipping", flush=True)
         return None
+    table, mask, inv = build_context_table(dataset, encoder)
     print(f"resident context table: {table.shape[0]} unique captions, "
           f"{nbytes / 2**20:.1f} MiB", flush=True)
     return {"table": table.to(device), "mask": mask.to(device),

@@ -27,6 +27,50 @@ CAPTIONS = [
 ]
 
 
+# the words of the seeded abstract-length captions: a PDB abstract's
+# vocabulary; the hash encoder makes one token of each word and of each
+# punctuation mark
+ABSTRACT_WORDS = (
+    "the protein structure of domain helix helical strand sheet beta alpha "
+    "binding site active residues loop fold crystal resolution angstrom "
+    "complex with and in a an is are we report here determined by xray "
+    "cryoem analysis reveals conformational change ligand substrate "
+    "catalytic enzyme kinase receptor membrane transporter channel dimer "
+    "trimer tetramer interface hydrophobic core surface salt bridge "
+    "hydrogen bond mutation wildtype variant stability thermal activity "
+    "inhibitor affinity nanomolar family conserved motif terminal "
+    "nterminal cterminal subunit assembly zinc calcium magnesium ion "
+    "coordination disulfide glycine proline rich region flexible rigid "
+    "molecular dynamics simulations suggest mechanism function these "
+    "results provide insight into design novel de novo designed bundle "
+    "barrel coiled coil repeat antibody fragment antigen recognition"
+).split()
+
+
+def abstract_caption(rng, n_tokens):
+    """A seeded caption of exactly `n_tokens` hash-encoder tokens
+    (`text.encoder.HashTextEncoder`: a word or a punctuation mark each):
+    sentences of ABSTRACT_WORDS, each closed by a period. Not English."""
+    words = []
+    while len(words) < n_tokens:
+        sentence = list(rng.choice(ABSTRACT_WORDS,
+                                   size=int(rng.integers(8, 25))))
+        words += sentence[:max(0, n_tokens - len(words) - 1)] + ["."]
+    text = " ".join(words[:n_tokens])
+    return text.replace(" .", ".")
+
+
+def abstract_captions(n, seed=0, tokens=(40, 600)):
+    """n abstract-length captions (`abstract_caption`), their token counts
+    drawn uniformly from `tokens` (inclusive): with the hash encoder's
+    64-token buckets and 512-token cut, captions land in every bucket and
+    past the cut."""
+    rng = np.random.default_rng(seed)
+    return [abstract_caption(rng, int(rng.integers(tokens[0],
+                                                   tokens[1] + 1)))
+            for _ in range(n)]
+
+
 def _ideal_helix(length, rise=1.5):
     """(L, 3, 3) N/CA/C of an ideal helix along z, 100 degrees a residue."""
     i = np.arange(length)[:, None]

@@ -938,9 +938,10 @@ extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
 //   * The key mask is read once per tile (dq: a bit set per thread for the
 //     keys of its accumulator columns; dkdv: once per block, a bias per
 //     key row), not per score.
-// D > 512 (no shape of the model; the JAX rule admits up to 1024) keeps the
-// mma.sync kernels below: 16 rows a warp, column chunks (128 for dq, 64 for
-// dkdv) that each recompute S and dP, cp.async double buffering.
+// D > 512 (test_config_large.yml's 8x8 AttnBlock in bf16 is D = 1024, the
+// most the JAX rule admits) keeps the mma.sync kernels below: 16 rows a
+// warp, column chunks (128 for dq, 64 for dkdv) that each recompute S and
+// dP, cp.async double buffering.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
 // 6): ptxas reports no spill and no stack frame. Per call at B=8 (device

@@ -620,9 +620,10 @@ extern "C" int t2p_flash_fwd_plan(int B, int H, int Tq, int Tk, int D,
 //     SM leave.
 //   * The key mask is read once per tile into a bit set per thread (the
 //     2 BK / 8 keys its accumulator columns hold), not per score.
-// D > 512 (no shape of the model; the JAX rule admits up to 1024) keeps the
-// mma.sync kernel below: `mma.sync.m16n8k16`, 16 rows a warp, column chunks
-// of 128 that each recompute S, cp.async double buffering.
+// D > 512 (test_config_large.yml's 8x8 AttnBlock in bf16 is D = 1024, the
+// most the JAX rule admits) keeps the mma.sync kernel below:
+// `mma.sync.m16n8k16`, 16 rows a warp, column chunks of 128 that each
+// recompute S, cp.async double buffering.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
 // 6): ptxas reports no spill and no stack frame. Per call at B=4 (device

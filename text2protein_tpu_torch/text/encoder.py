@@ -37,6 +37,11 @@ class TextEncoder:
     def encode(self, captions):
         raise NotImplementedError
 
+    def padded_width(self, captions):
+        """The token width T that `encode(captions)` pads to, from the
+        tokens alone (nothing is embedded)."""
+        raise NotImplementedError
+
     def __call__(self, captions):
         return self.encode(captions)
 
@@ -77,6 +82,10 @@ class HashTextEncoder(TextEncoder):
             out[i] = rng.standard_normal(self.dim, dtype=np.float32) * (
                 self.dim**-0.5)
         return out
+
+    def padded_width(self, captions):
+        return _bucket(max(len(self._token_ids(c)) for c in captions),
+                       self.pad_to_bucket, self.max_tokens)
 
     def encode(self, captions):
         ids = [self._token_ids(c) for c in captions]
@@ -213,6 +222,13 @@ class HFEmbeddingEncoder(TextEncoder):
         self.embed = torch.nn.Embedding.from_pretrained(
             _load_embed_table(model_name), freeze=True)
         self.dim = self.embed.embedding_dim
+
+    def padded_width(self, captions):
+        ids = self.tokenizer(list(captions), add_special_tokens=False,
+                             max_length=self.max_tokens,
+                             truncation=True).input_ids
+        return _bucket(max(len(i) for i in ids), self.pad_to_bucket,
+                       self.max_tokens)
 
     def encode(self, captions):
         import torch
