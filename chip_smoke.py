@@ -8,12 +8,17 @@ Phases, each printing a flushed line with the seconds since start:
   3. kernels: holds each f32 kernel to its plain PyTorch version at every
      shape its L=128 path gives it (the forward at the serving shapes, the
      backward at the training shapes, with a fully masked row), prints each
-     launch's plan (tile, blocks, shared memory, blocks per SM), and times
-     kernel, plain version and the PyTorch library call that computes the
-     same function, beside two bounds: f32 on the CUDA cores, and 3xTF32 on
-     the tensor cores (the kernels' route); also each wrapper's host time
-     per call and the kernel's device time alone (calls replayed from a
-     CUDA graph).
+     launch's route and plan (TF32 wgmma or mma.sync, tile, stages, blocks,
+     cluster, shared memory, blocks per SM; a call with D <= 512 that does
+     not take the wgmma kernels fails, but the mid block's AttnBlock, Tq =
+     Tk = 16 at D = 256, which keeps mma.sync), and times kernel, plain
+     version and the PyTorch library call that computes the same function,
+     beside two bounds: f32 on the CUDA cores, and 3xTF32 on the tensor
+     cores (the kernels' route); also each wrapper's host time per call,
+     and the device time alone (calls replayed from a CUDA graph) of the
+     kernel and of the library call (SDPA's backward: its forward and
+     backward less its forward, both replayed). Then the f32
+     instantiations' registers.
   4. serving: a flagship-width L=128 Server with seeded random weights
      answers requests (different captions and lengths, one seeded) over a
      short PC trajectory; every map must be finite, (5, 128, 128), with the
@@ -811,6 +816,29 @@ def phase_build():
     return ptxas
 
 
+def f32_route(name, tq, tk, d, plan, *prefixes):
+    """The route of an f32 call from its launch plan ("wgmma": the TF32
+    wgmma kernels; "mma.sync": those of D > 512 and of the 4x4 mid block's
+    AttnBlock, Tq = Tk = 16 at D = 256, the route's one exception); fails
+    where a call takes another route than that rule's (every kernel of the
+    backward, by the plan's `prefixes`)."""
+    wgmma = all(plan[f"{p}wgmma"] == 1 for p in prefixes or ("",))
+    if wgmma != (d <= 512 and not (d > 128 and tq <= 16 and tk <= 16)):
+        raise AssertionError(f"{name}: D={d} took the "
+                             f"{'wgmma' if wgmma else 'mma.sync'} kernels: "
+                             f"plan {plan}")
+    return "wgmma" if wgmma else "mma.sync"
+
+
+def f32_register_report(ptxas):
+    """{instantiation: (registers, spill stores, spill loads)} of the f32
+    kernels: the TF32 wgmma ones and the mma.sync ones of D > 512."""
+    return {k: (r.get("registers"), r.get("spill_stores"),
+                r.get("spill_loads"))
+            for k, r in ptxas.items()
+            if "_bf16" not in k and "wgmma" not in k}
+
+
 def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH,
                   timed=True):
     """The f32 forward at `shapes` (batch b), a masked call's key lengths
@@ -843,13 +871,17 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH,
                                  f"{err:.3e} > {TOL:.0e}")
         if masked and 0 in lengths and not bool((out[0] == 0).all()):
             raise AssertionError(f"{name}: the fully masked row is not 0")
+        plan = flash.launch_plan("fwd", b, h, tq, tk, d)
+        route = f32_route(name, tq, tk, d, plan)
         if not timed:
             rows.append(dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
-                             masked=masked, max_abs_err=err))
+                             masked=masked, max_abs_err=err, route=route,
+                             plan=plan))
             log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} "
                 f"D={d} mask={masked}"
                 f"{' +dead row' if masked and 0 in lengths else ''}: "
-                f"max_abs_err {err:.2e} (tol {TOL:.0e})")
+                f"max_abs_err {err:.2e} (tol {TOL:.0e}) route {route} "
+                f"plan {plan}")
             continue
         attn_mask = None if mask is None else mask[:, None, None, :]
         kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd(
@@ -860,28 +892,31 @@ def phase_kernels(torch, shapes=PATH_SHAPES, lengths=(5, 12, 37), b=BATCH,
             q, k, v, scale, mask))
         plain_ms = cuda_ms(torch, lambda: flash.flash_attention_fwd_reference(
             q, k, v, scale, mask))
-        library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask, scale=scale))
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                  scale=scale)
+
+        library_ms = cuda_ms(torch, sdpa)
+        library_device = graph_us(torch, sdpa)
         nbytes = (4 * (2 * q.numel() + k.numel() + v.numel() + b * h * tq)
                   + (b * tk if masked else 0))
         flops = 4 * b * h * tq * tk * d
         bound_ms, bound_by = bound(nbytes, flops)
-        plan = flash.launch_plan("fwd", b, h, tq, tk, d)
         rows.append(dict(
             shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
             per_step=per_step, max_abs_err=err, ms=kernel_ms,
             host_us=host, device_ms=device / 1e3, plain_ms=plain_ms,
-            library_ms=library_ms,
+            library_ms=library_ms, library_device_ms=library_device / 1e3,
             bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
+            tc_bound_ms=tc_bound(nbytes, flops), route=route, plan=plan))
         log(f"kernel flash_fwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
             f"mask={masked}{' +dead row' if masked and 0 in lengths else ''}"
             f": max_abs_err {err:.2e} (tol {TOL:.0e}) "
             f"kernel_ms {kernel_ms:.4f} host_us {host:.1f} device_us "
             f"{device:.1f} plain_ms {plain_ms:.4f} library_ms(sdpa) "
-            f"{library_ms:.4f} bound_ms "
-            f"{bound_ms:.5f} (f32) {tc_bound(nbytes, flops):.5f} (3xTF32) "
-            f"plan {plan}")
+            f"{library_ms:.4f} library_device_us(sdpa) {library_device:.1f} "
+            f"bound_ms {bound_ms:.5f} (f32) {tc_bound(nbytes, flops):.5f} "
+            f"(3xTF32) route {route} plan {plan}")
     return rows
 
 
@@ -922,14 +957,17 @@ def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH,
             raise AssertionError(
                 f"{name}: backward kernel vs plain max abs error "
                 f"{err:.3e} > {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}")
+        plan = flash.launch_plan("bwd", b, h, tq, tk, d)
+        route = f32_route(name, tq, tk, d, plan, "dq_", "dkdv_")
         if not timed:
             rows.append(dict(shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d,
                              masked=masked, dead_row=masked,
-                             max_abs_err=err, grad_scale=ref_scale))
+                             max_abs_err=err, grad_scale=ref_scale,
+                             route=route, plan=plan))
             log(f"kernel flash_bwd {name} B={b} H={h} Tq={tq} Tk={tk} "
                 f"D={d} mask={masked}{' +dead row' if masked else ''}: "
                 f"max_abs_err {err:.2e} (tol {BWD_TOL:.0e} x "
-                f"{max(1.0, ref_scale):.3g})")
+                f"{max(1.0, ref_scale):.3g}) route {route} plan {plan}")
             continue
         kernel_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd(
             q, k, v, out, lse, g, scale, mask))
@@ -939,7 +977,8 @@ def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH,
             q, k, v, out, lse, g, scale, mask))
         plain_ms = cuda_ms(torch, lambda: flash.flash_attention_bwd_reference(
             q, k, v, out, lse, g, scale, mask))
-        # the library's backward: autograd of SDPA, fwd+bwd minus fwd
+        # the library's backward: autograd of SDPA, fwd+bwd minus fwd, back
+        # to back and by device time (CUDA-graph replay, as the kernel's)
         xs = [t.detach().requires_grad_() for t in (q, k, v)]
         attn_mask = None if mask is None else mask[:, None, None, :]
 
@@ -948,32 +987,36 @@ def phase_kernels_bwd(torch, shapes=TRAIN_SHAPES, b=TRAIN_BATCH,
                 return F.scaled_dot_product_attention(
                     *xs, attn_mask=attn_mask, scale=scale)
 
-        sdpa_fwd = cuda_ms(torch, sdpa)
-        sdpa_both = cuda_ms(torch, lambda: torch.autograd.grad(sdpa(), xs, g))
-        library_ms = sdpa_both - sdpa_fwd
+        def sdpa_both():
+            return torch.autograd.grad(sdpa(), xs, g)
+
+        library_ms = cuda_ms(torch, sdpa_both) - cuda_ms(torch, sdpa)
+        library_device = (graph_us(torch, sdpa_both)
+                          - graph_us(torch, lambda: sdpa().detach()))
         # bytes: q, k, v, out, dO, lse (and mask) read once, dq, dk, dv
         # written once; FLOPs: 10 B H Tq Tk D (the JAX cost estimate)
         nbytes = (4 * (2 * (q.numel() + k.numel() + v.numel()) + out.numel()
                        + g.numel() + b * h * tq) + (b * tk if masked else 0))
         flops = 10 * b * h * tq * tk * d
         bound_ms, bound_by = bound(nbytes, flops)
-        plan = flash.launch_plan("bwd", b, h, tq, tk, d)
         rows.append(dict(
             shape=name, B=b, H=h, Tq=tq, Tk=tk, D=d, masked=masked,
             dead_row=masked, per_step=per_step, max_abs_err=err,
             grad_scale=ref_scale, ms=kernel_ms, host_us=host,
             device_ms=device / 1e3,
-            plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_device_ms=library_device / 1e3, bytes=nbytes,
             flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-            tc_bound_ms=tc_bound(nbytes, flops), plan=plan))
+            tc_bound_ms=tc_bound(nbytes, flops), route=route, plan=plan))
         log(f"kernel flash_bwd {name} B={b} H={h} Tq={tq} Tk={tk} D={d} "
             f"mask={masked}{' +dead row' if masked else ''}: max_abs_err "
             f"{err:.2e} (tol {BWD_TOL:.0e} x {max(1.0, ref_scale):.3g}) "
             f"ms {kernel_ms:.4f} host_us {host:.1f} device_us {device:.1f} "
             f"plain_ms "
-            f"{plain_ms:.4f} library_ms(sdpa bwd) {library_ms:.4f} bound_ms "
+            f"{plain_ms:.4f} library_ms(sdpa bwd) {library_ms:.4f} "
+            f"library_device_us(sdpa bwd) {library_device:.1f} bound_ms "
             f"{bound_ms:.5f} (f32) {tc_bound(nbytes, flops):.5f} (3xTF32) "
-            f"plan {plan}")
+            f"route {route} plan {plan}")
     return rows
 
 
@@ -1661,9 +1704,12 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                     return flash.flash_attention_fwd_reference(
                         q, k, v, scale, mask)
 
-                library_ms = cuda_ms(
-                    torch, lambda: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=attn_mask, scale=scale))
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=attn_mask, scale=scale)
+
+                library_ms = cuda_ms(torch, sdpa)
+                library_device = graph_us(torch, sdpa)
                 nbytes = (2 * (2 * q.numel() + k.numel() + v.numel())
                           + 4 * b * h * tq + (b * tk if masked else 0))
                 flops = 4 * b * h * tq * tk * d
@@ -1700,8 +1746,12 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                         return F.scaled_dot_product_attention(
                             *xs, attn_mask=attn_mask, scale=scale)
 
-                library_ms = (cuda_ms(torch, lambda: torch.autograd.grad(
-                    sdpa(), xs, g)) - cuda_ms(torch, sdpa))
+                def sdpa_both():
+                    return torch.autograd.grad(sdpa(), xs, g)
+
+                library_ms = cuda_ms(torch, sdpa_both) - cuda_ms(torch, sdpa)
+                library_device = (graph_us(torch, sdpa_both)
+                                  - graph_us(torch, lambda: sdpa().detach()))
                 nbytes = (2 * (2 * (q.numel() + k.numel() + v.numel())
                                + out.numel() + g.numel()) + 4 * b * h * tq
                           + (b * tk if masked else 0))
@@ -1720,9 +1770,10 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                        masked=masked, per_step=per_step, max_abs_err=err,
                        tol=tol, ms=kernel_ms, host_us=host,
                        device_ms=device / 1e3, plain_ms=plain_ms,
-                       library_ms=library_ms, bytes=nbytes, flops=flops,
-                       mma_flops=mma, bound_ms=bound_ms, bound_by=bound_by,
-                       tc_bound_ms=mma_ms, plan=plan)
+                       library_ms=library_ms,
+                       library_device_ms=library_device / 1e3, bytes=nbytes,
+                       flops=flops, mma_flops=mma, bound_ms=bound_ms,
+                       bound_by=bound_by, tc_bound_ms=mma_ms, plan=plan)
             (fwd_rows if kind == "fwd" else bwd_rows).append(row)
             log(f"kernel flash_{kind}_bf16 {name} B={b} H={h} Tq={tq} "
                 f"Tk={tk} D={d} mask={masked}"
@@ -1730,6 +1781,7 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                 f"({what}) ms {kernel_ms:.4f} host_us {host:.1f} device_us "
                 f"{device:.1f} plain_ms {plain_ms:.4f} library_ms(sdpa"
                 f"{' bwd' if kind == 'bwd' else ''} bf16) {library_ms:.4f} "
+                f"library_device_us {library_device:.1f} "
                 f"bound_ms {bound_ms:.5f} ({bound_by}) mma_bound_ms "
                 f"{mma_ms:.5f} plan {plan}")
         log(f"kernels bf16 {kind}: ptxas registers/spill stores/spill loads "
@@ -4275,6 +4327,8 @@ def main():
     kind, smi = phase_device(torch)
     ptxas = phase_build()
     rows = phase_kernels(torch)
+    log(f"kernels f32: ptxas registers/spill stores/spill loads "
+        f"{f32_register_report(ptxas)}")
     deploy_rows = phase_kernels(torch, DEPLOY_SHAPES, lengths=(0, 3, 9))
     bwd_rows = phase_kernels_bwd(torch)
     server, launches, seconds = phase_serving(torch)
@@ -4356,6 +4410,9 @@ def main():
             "bound_ms": per_step(rs, "bound_ms"),
             "bound_by": bound_by(rs, peak),
             "library_ms": per_step(rs, "library_ms"),
+            # the library call's device time alone (CUDA-graph replay), the
+            # yardstick of `device_ms`
+            "library_device_ms": per_step(rs, "library_device_ms"),
             # the bound of the kernels' route: f32, 3xTF32 on the tensor
             # cores; bf16, the mma work they issue (bf16_mma_flops)
             "tc_bound_ms": per_step(rs, "tc_bound_ms"),
@@ -4388,14 +4445,14 @@ def main():
         per=f"evaluation of the deployment path at batch {DEPLOY_BATCH}",
         **{k: per_eval(k) for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "library_ms",
-                                    "tc_bound_ms")},
+                                    "library_device_ms", "tc_bound_ms")},
         max_abs_err=max(r["max_abs_err"] for r in deploy_rows))
     def per_row_step(rs, what, peak=PEAK_BF16_S):
         """A kernel's share of one step of another path (`what`)."""
         return dict(per=what, max_abs_err=max(r["max_abs_err"] for r in rs),
                     **{k: per_step(rs, k) for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
-                        "library_ms", "tc_bound_ms")},
+                        "library_ms", "library_device_ms", "tc_bound_ms")},
                     bound_by=bound_by(rs, peak))
 
     sp_what = (f"train step at batch {TRAIN_BATCH} with the grid's rows "

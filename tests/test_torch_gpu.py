@@ -186,6 +186,89 @@ def test_flash_bwd_kernel_matches_plain_version(cuda, h, tq, tk, d, masked):
         torch.testing.assert_close(x, w, atol=1e-4, rtol=1e-4)
 
 
+# The f32 TF32 wgmma route (D <= 512) at the widths and lengths of the
+# paths: each D of {32, 64, 256, 512} meets six (Tq, Tk) pairs that take
+# every Tq of {16, 64, 128, 256, 1024} and every Tk of {16, 64, 192, 320,
+# 512, 1024}; every other pair is a masked call with a fully masked batch
+# row (the backward where `supports_bwd_cuda` takes it: Tk % 64 == 0)
+TF32_TQ = (16, 64, 128, 256, 1024)
+TF32_TK = (16, 64, 192, 320, 512, 1024)
+TF32_SHAPES = [
+    (8 if d <= 64 else 1, TF32_TQ[(i + o) % len(TF32_TQ)], tk, d, i % 2 == 1)
+    for o, d in enumerate((32, 64, 256, 512))
+    for i, tk in enumerate(TF32_TK)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,tq,tk,d,masked", TF32_SHAPES)
+def test_tf32_route_matches_plain_versions(cuda, h, tq, tk, d, masked):
+    """Forward and backward on the TF32 wgmma kernels against their plain
+    versions: the forward at atol/rtol 1e-4, the backward within 1e-4 of
+    the gradient's scale (chip_smoke.py's bar: a dead row's gradients reach
+    ~100); a fully masked row gives 0."""
+    q, k, v, mask = _inputs(cuda, 2, h, tq, tk, d, masked)
+    if masked:
+        mask[-1] = False
+    assert tflash.launch_plan("fwd", 2, h, tq, tk, d)["wgmma"] == 1
+    got_o, got_l = tflash.flash_attention_fwd(q, k, v, kv_mask=mask)
+    want_o, want_l = tflash.flash_attention_fwd_reference(q, k, v,
+                                                          kv_mask=mask)
+    torch.testing.assert_close(got_o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_l, want_l, atol=1e-4, rtol=1e-4)
+    if masked:
+        assert torch.all(got_o[-1] == 0)
+    if not tflash.supports_bwd_cuda(q, k, v, masked):
+        assert masked and not tflash.supports_bwd(q, k, v)
+        return
+    plan = tflash.launch_plan("bwd", 2, h, tq, tk, d)
+    assert plan["dq_wgmma"] == plan["dkdv_wgmma"] == 1
+    g = torch.randn(q.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(9))
+    got = tflash.flash_attention_bwd(q, k, v, want_o, want_l, g,
+                                     kv_mask=mask)
+    want = tflash.flash_attention_bwd_reference(q, k, v, want_o, want_l, g,
+                                                kv_mask=mask)
+    scale = max(1.0, max(w.abs().max().item() for w in want))
+    for x, w in zip(got, want):
+        assert torch.isfinite(x).all()
+        assert (x - w).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_f32_launch_plan_reports_the_route(cuda):
+    """The f32 plans name the route: wgmma is 1 at every D <= 512 (the
+    forward, dq and dkdv) and 0 at D = 1024 (the mma.sync kernels) and at
+    the mid block's AttnBlock (Tq = Tk = 16 at D = 256, the route's one
+    exception); the backward's D = 256 and D = 512 run as clusters of
+    D / 128 blocks, each block holding its 128 columns of the resident
+    operands; the D = 512 forward runs two warpgroups a block and two
+    z-chunks of 256 columns."""
+    keys = set(tflash._PLAN_KEYS)
+    for d in (32, 64, 128, 256, 512):
+        fwd = tflash.launch_plan("fwd", 4, 1, 256, 256, d)
+        assert set(fwd) == keys
+        assert fwd["wgmma"] == 1 and fwd["cluster"] == 1
+        assert fwd["narrow"] == (d <= 64)
+        bwd = tflash.launch_plan("bwd", 2, 1, 256, 256, d)
+        assert set(bwd) == {f"{k}_{n}" for k in ("dq", "dkdv") for n in keys}
+        assert bwd["dq_wgmma"] == bwd["dkdv_wgmma"] == 1
+        cluster = d // 128 if d > 128 else 1
+        assert bwd["dq_cluster"] == bwd["dkdv_cluster"] == cluster
+        assert bwd["dq_per_sm"] >= 1 and bwd["dkdv_per_sm"] >= 1
+        if cluster > 1:
+            assert bwd["dq_max_clusters"] >= 1
+    big = tflash.launch_plan("fwd", 4, 1, 1024, 1024, 512)
+    assert big["threads"] == 256 and big["chunks"] == 2
+    for kind in ("fwd", "bwd"):
+        mid = tflash.launch_plan(kind, 16, 1, 16, 16, 256)
+        assert all(v == 0 for k, v in mid.items() if k.endswith("wgmma"))
+    assert tflash.launch_plan("fwd", 4, 8, 16, 16, 32)["wgmma"] == 1
+    wide = tflash.launch_plan("fwd", 2, 1, 64, 72, 1024)
+    assert wide["wgmma"] == 0
+    wide_bwd = tflash.launch_plan("bwd", 2, 1, 64, 72, 1024)
+    assert wide_bwd["dq_wgmma"] == wide_bwd["dkdv_wgmma"] == 0
+
+
 @pytest.mark.gpu
 def test_flash_bwd_kernel_fully_masked_row(cuda):
     """The dead row keeps the JAX kernel's numbers (P = 1 on every key)."""

@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a), float32 in and out.
 //
 // Replaces the Pallas TPU kernel `_flash_bwd_kernel` of
-// text2protein_tpu/ops/flash.py (reached through `flash_attention_bwd`).
+// text2protein_tpu/ops/flash.py:168 (reached through `flash_attention_bwd`).
 // Same function, per batch*head, from the forward's residuals (out, lse):
 //   S  = (q k^T) * scale + (mask - 1) * 1e30     (bias BEFORE the exp)
 //   P  = exp(S - lse)                             (no P *= mask afterwards)
@@ -11,52 +11,39 @@
 // A fully masked row has lse ~ -1e30 from the forward, so P = exp(0) = 1
 // on every key of that row, exactly as in the JAX kernel.
 //
-// What bounds it on the card: at the L=128 training shapes (B=16, T <= 256,
-// H*D = 256) one call moves at most 34 MB (10 us at 3.35 TB/s) and does at
-// most 10*B*H*Tq*Tk*D = 2.7 GFLOP: 40 us at the f32 CUDA-core rate
-// (67 TFLOP/s), 16 us as 3xTF32 on the tensor cores (3 x 2.7e9 at
-// 495 TFLOP/s). The first version of this kernel ran its products as
-// serial FMA chains on shared memory, one block of 8 warps per SM at the
-// AttnBlock shape, and took 1004.5 us there against SDPA's 170.2 us.
+// What bounds it on the card: 10 B H Tq Tk D FLOPs (the JAX cost estimate)
+// and the bytes of q, k, v, out, dO, lse read and dq, dk, dv written. At
+// test_config's AttnBlock 32x32 (B=2, H=1, T=1024, D=512) that is 10.7
+// GFLOP and 29 MB: 0.160 ms at the f32 CUDA-core rate, 0.065 ms as 3xTF32
+// on the tensor cores (3 x 10.7 GFLOP at 495 TFLOP/s), the bound of this
+// kernel's route.
 //
 // Design. Two kernels tile the (Tq, Tk) block FA2-style, recompute P from
 // lse inside each tile, and give every output element one owner, so the
-// sums run in a fixed order without atomics:
-//   * dq:   blocks over (batch*head, query rows, chunk of <= 256 of the D
-//     columns). It keeps q and dO in shared memory and dQ in registers,
-//     and loops over key tiles. Its prologue computes
-//     delta = rowsum(dO * out) for its rows and writes it for the next
-//     kernel (no PyTorch launch in the wrapper).
-//   * dkdv: blocks over (batch*head, key rows, column chunk). It keeps k
-//     and v in shared memory and dK, dV in registers, and loops over query
-//     tiles.
-// Each comes in two forms, chosen per call by plan_bwd:
-//   * Tensor cores at f32 accuracy in all: every product (S, dP,
-//     dV = P^T dO, dK = dS^T q, dQ = dS k) is an m16n8k8 TF32 `mma.sync` in
-//     3xTF32 form (mma_tf32x3.cuh); the scale and the mask bias are applied
-//     to the f32 accumulators afterwards. cp.async double-buffers the next
-//     q/dO tile (dkdv) or k/v tile (dq); the mask is read as bool bytes.
-//   * Narrow (D <= 64; the self- and cross-attention shapes, D = 32): each
-//     warp owns 16 rows, computes its S and dP slabs (16 x T) over all of D
-//     in registers, forms P and dS there, and feeds its own dQ or dK/dV
-//     products through slabs of shared memory only it touches; up to 4
-//     warps share each tile of the other side (two barriers per tile).
-//   * Wide (D > 64; the AttnBlock shapes, D = 256): a block of 8 warps owns
-//     16 rows. For S and dP of a tile each warp computes a 16 x 16 slab of
-//     one of the two over a share of D; the partial sums meet in shared
-//     memory, where one pass forms P and dS; for the dK/dV/dQ sums the
-//     warps split the output columns (dkdv: 4 warps dV, 4 warps dK), the
-//     sums in registers. Inner tiles of T = 8-32 rows, the largest with
-//     which two blocks fit an SM (T = 16 at D = 256: 113 KB, 256 blocks per
-//     kernel at the AttnBlock shape), or one block where shared memory does
-//     not allow two (D > 256; a single stage at D = 1024).
+// sums run in a fixed order without atomics: dq (blocks over query rows;
+// its prologue writes delta = rowsum(dO * out) for the next kernel) and
+// dkdv (blocks over key rows). D <= 512 (every f32 call of the paths but
+// test_config_large's D=1024): `flash_bwd_{dq,dkdv}_tf32_kernel` below,
+// after the bf16 kernels, on TF32 wgmma in 3xTF32 form (wgmma_tf32.cuh).
+// D > 512 keeps `flash_bwd_{dq,dkdv}_kernel` here: m16n8k8 TF32 `mma.sync`
+// in 3xTF32 form (mma_tf32x3.cuh), a block of 8 warps on 16 rows and a
+// chunk of at most 256 output columns (grid z); for S and dP of a tile each
+// warp computes a 16 x 16 slab of one of the two over a share of D, the
+// partial sums meet in shared memory, where one pass forms P and dS; for
+// the dK/dV/dQ sums the warps split the output columns (dkdv: 4 warps dV,
+// 4 warps dK), the sums in registers; cp.async double-buffers the inner
+// tiles. At test_config_large's 8x8 calls (D=1024) it took 2.368 ms per
+// train step against SDPA's backward 5.711 (chip_smoke.py, NVIDIA H100
+// 80GB HBM3, 700 W).
 //
-// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section 6):
-// ptxas reports no spills and no stack frame in any instantiation (the
-// narrow <4> kernels at D = 32: 168 registers, three blocks per SM; the
-// wide ones 89-108). Per launch at B = 16: AttnBlock 16x16 ~208 us (SDPA's
-// backward ~208 us), self 16x16 ~205 us (~187 us), cross 16x16 ~83 us
-// (~170 us); the first version took 1004.5, 609.3 and 224.3 us.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_f32_ab.py, device
+// time by CUDA-graph replay, against the mma.sync kernels these replace and
+// SDPA's backward, its forward and backward less its forward): the
+// AttnBlock 32x32 of test_config (B=2, D=512) 0.854 ms a call (mma.sync
+// 1.592, SDPA 1.082: the route's bound is 0.065), its 8 heads of 64 at
+// 32x32 0.385 (0.706, SDPA 0.351); per test_config train step 10.62 ms
+// (18.70, SDPA 11.80); per L=128 train step 2.13 ms (2.49, SDPA 2.23).
+// ptxas: no spill, no stack frame (up to 255 registers).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,6 +51,7 @@
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -71,13 +59,10 @@ using namespace t2p;
 
 constexpr int DCHUNK = 256;  // most output columns a block owns
 
-constexpr int NARROW_WARPS = 4;  // most warps a block of the narrow kernels
-
-// per-call choices of one kernel: narrow (D <= 64) or wide, inner tile
-// rows, pipeline stages, column chunks (grid z) of dc columns, the launch
-// shape and the index of the instantiation in its kernel table
+// per-call choices of one D > 512 kernel: inner tile rows, pipeline stages,
+// column chunks (grid z) of dc columns and the launch shape
 struct BwdPlan {
-  int narrow, t, stages, nchunk, dc, threads, idx;
+  int t, stages, nchunk, dc;
   dim3 grid;
   size_t smem;
 };
@@ -91,51 +76,17 @@ size_t bwd_smem(int D, int t, int stages) {
                           (size_t)2 * ROWS * ldp + ROWS);
 }
 
-// Shared bytes of a narrow kernel: 16 resident rows and one slab (dq) or
-// two slabs (dkdv) of shared memory a warp, two stages of t-row tiles.
-size_t narrow_smem(int D, int t, int warps, int slabs) {
-  return sizeof(float) * ((size_t)2 * warps * ROWS * pad_ld(D) +
-                          (size_t)2 * 2 * t * pad_ld(D) +
-                          (size_t)slabs * warps * ROWS * pad_ld(t));
-}
-
-// Accumulator n-tiles a warp holds in the wide kernels: dq splits dc <= 256
-// columns over 8 warps (1, 2 or 4), dkdv over 4 (1, 2, 4 or 8).
-inline int ntw(int dc, int warps) {
-  const int n = (dc / 8 + warps - 1) / warps;
-  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : 8;
-}
-
 // `rows` is the length the grid walks (Tq for dq, Tk for dkdv), `loop` the
-// length the block's inner loop walks (Tk for dq, Tq for dkdv).
-BwdPlan plan_bwd(int B, int H, int rows, int loop, int D, bool dkdv) {
+// length the block's inner loop walks (Tk for dq, Tq for dkdv). For
+// 512 < D <= 1024 the chunks are 3 or 4 of 176-256 columns: 22-32 n-tiles,
+// 4 a warp in dq (8 warps) and 8 in dkdv (4 warps a sum): the NTW of
+// DQ_KERNEL and DKDV_KERNEL.
+BwdPlan plan_bwd(int B, int H, int rows, int loop, int D) {
   BwdPlan p{};
-  int cap = 8;
-  if (D <= 64) {  // the narrow kernels: 16 rows a warp
-    // T = 64 where three blocks fit an SM, else the largest T with two
-    const int warps = min(NARROW_WARPS, (rows + ROWS - 1) / ROWS);
-    const int slabs = dkdv ? 2 : 1;
-    while (cap < 64 && cap < loop) cap *= 2;
-    if (cap == 64 && narrow_smem(D, 64, warps, slabs) > 75 * 1024) cap = 32;
-    while (cap > 8 && narrow_smem(D, cap, warps, slabs) > 113 * 1024)
-      cap /= 2;
-    p.narrow = 1;
-    p.t = cap;
-    p.stages = 2;
-    p.nchunk = 1;
-    p.dc = D;
-    p.threads = 32 * warps;
-    p.grid = dim3(B * H, (rows + ROWS * warps - 1) / (ROWS * warps), 1);
-    p.smem = narrow_smem(D, cap, warps, slabs);
-    p.idx = (dkdv ? 4 : 3) + D / 8 - 1;
-    return p;
-  }
   p.nchunk = (D + DCHUNK - 1) / DCHUNK;
   p.dc = ((D + p.nchunk - 1) / p.nchunk + 7) / 8 * 8;
-  p.threads = NT;
   p.grid = dim3(B * H, (rows + ROWS - 1) / ROWS, p.nchunk);
-  const int n = ntw(p.dc, dkdv ? 4 : NWARP);
-  p.idx = n == 1 ? 0 : n == 2 ? 1 : n == 4 ? 2 : 3;
+  int cap = 8;
   while (cap < 32 && cap < loop) cap *= 2;
   const size_t limits[2] = {113 * 1024, 227 * 1024};
   for (size_t limit : limits)
@@ -450,354 +401,19 @@ __global__ void __launch_bounds__(NT, 2) flash_bwd_dkdv_kernel(
   }
 }
 
-// The narrow kernels, for D <= 64: each warp owns 16 rows outright (FA2's
-// layout), computes its S and dP slabs (16 x T) over all of D in registers,
-// forms P and dS there, and passes them to its own dV/dK/dQ products
-// through slabs of shared memory that only it touches; the warps of a
-// block (up to 4) share the tiles of the other side, so a tile costs two
-// block barriers. Same signatures as the wide kernels (D, dc and stages
-// are fixed by ND and unused).
-template <int ND>
-__global__ void __launch_bounds__(NARROW_WARPS * 32, 3)
-    flash_bwd_dq_narrow_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ out, const float* __restrict__ lse,
-        float* __restrict__ delta, const unsigned char* __restrict__ mask,
-        float* __restrict__ dq, int H, int Tq, int Tk, int, int, int T, int,
-        float scale) {
-  constexpr int D = 8 * ND;
-  constexpr int ldd = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5;
-  const int rows = warps * ROWS;
-  const int ldp = pad_ld(T), nn = T >> 3;
-  const int stage_floats = 2 * T * ldd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float* sq = smem;                     // rows x ldd
-  float* sdo = sq + rows * ldd;         // rows x ldd
-  float* stage0 = sdo + rows * ldd;     // 2 stages x (k, v tiles)
-  float* spw = stage0 + 2 * stage_floats + warp * ROWS * ldp;  // dS slab
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * rows;
-  const size_t qoff = (size_t)bh * Tq * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
-  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
-  const int ntiles = (Tk + T - 1) / T;
-
-  auto load_kv = [&](int it, int s) {
-    float* sk = stage0 + s * stage_floats;
-    load_tile_async(sk, ldd, kb, D, it * T, T, Tk, 0, D);
-    load_tile_async(sk + T * ldd, ldd, vb, D, it * T, T, Tk, 0, D);
-  };
-  load_tile_async(sq, ldd, q + qoff, D, q0, rows, Tq, 0, D);
-  load_tile_async(sdo, ldd, dout + qoff, D, q0, rows, Tq, 0, D);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp; each
-  // lane of a quad sums every fourth column
-  const int row = q0 + warp * ROWS + g;
-  float delta_r[2], lse_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int i = row + 8 * r;
-    float d = 0.f;
-    if (i < Tq)
-      for (int c = t; c < D; c += 4)
-        d = fmaf(dout[qoff + (size_t)i * D + c], out[qoff + (size_t)i * D + c],
-                 d);
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    delta_r[r] = d;
-    lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] : 0.f;
-    if (t == 0 && i < Tq) delta[(size_t)bh * Tq + i] = d;
-  }
-
-  const float* sqw = sq + warp * ROWS * ldd;
-  const float* sdow = sdo + warp * ROWS * ldd;
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sk = stage0 + (it & 1) * stage_floats;
-    const float* sv = sk + T * ldd;
-
-    float sc[8][4], dp[8][4];  // S = q k^T and dP = dO v^T, 16 x T <= 64
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      float fa[4];
-      load_a(fa, sqw, ldd, kk * 8, lane);
-      const SplitA a = split_a(fa);
-      load_a(fa, sdow, ldd, kk * 8, lane);
-      const SplitA ad = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (n < nn) {
-          float fb[2];
-          load_bt(fb, sk, ldd, n * 8, kk * 8, lane);
-          mma_3xtf32(sc[n], a, fb);
-          load_bt(fb, sv, ldd, n * 8, kk * 8, lane);
-          mma_3xtf32(dp[n], ad, fb);
-        }
-    }
-    const int k0 = it * T;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const int r = i >> 1;
-        float ds = 0.f;
-        if (n < nn && key < Tk && row + 8 * r < Tq) {
-          const float bias = (mb && !mb[key]) ? -1e30f : 0.f;
-          const float p = expf(sc[n][i] * scale + bias - lse_r[r]);
-          ds = p * (dp[n][i] - delta_r[r]) * scale;
-        }
-        sc[n][i] = ds;
-      }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (n < nn) store_c(spw, ldp, n * 8, sc[n], lane);
-    __syncwarp();
-    // dQ (16 x D) += dS k
-    for (int kk = 0; kk < T; kk += 8) {
-      float fa[4];
-      load_a(fa, spw, ldp, kk, lane);
-      const SplitA a = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        float fb[2];
-        load_bn(fb, sk, ldd, n * 8, kk, lane);
-        mma_3xtf32(acc[n], a, fb);
-      }
-    }
-    __syncthreads();  // the stage is read; the next prefetch may refill it
-  }
-
-  float* dqb = dq + qoff;
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row < Tq)
-      *reinterpret_cast<float2*>(dqb + (size_t)row * D + col) =
-          make_float2(acc[n][0], acc[n][1]);
-    if (row + 8 < Tq)
-      *reinterpret_cast<float2*>(dqb + (size_t)(row + 8) * D + col) =
-          make_float2(acc[n][2], acc[n][3]);
-  }
-}
-
-template <int ND>
-__global__ void __launch_bounds__(NARROW_WARPS * 32, 3)
-    flash_bwd_dkdv_narrow_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        const unsigned char* __restrict__ mask, float* __restrict__ dk,
-        float* __restrict__ dv, int H, int Tq, int Tk, int, int, int T, int,
-        float scale) {
-  constexpr int D = 8 * ND;
-  constexpr int ldd = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5;
-  const int rows = warps * ROWS;
-  const int ldp = pad_ld(T), nn = T >> 3;
-  const int stage_floats = 2 * T * ldd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float* sk = smem;                     // rows x ldd
-  float* sv = sk + rows * ldd;          // rows x ldd
-  float* stage0 = sv + rows * ldd;      // 2 stages x (q, dO tiles)
-  float* spt = stage0 + 2 * stage_floats + warp * 2 * ROWS * ldp;  // P^T
-  float* sdst = spt + ROWS * ldp;                                    // dS^T
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * rows;
-  const size_t koff = (size_t)bh * Tk * D;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* dob = dout + (size_t)bh * Tq * D;
-  const float* lb = lse + (size_t)bh * Tq;
-  const float* db = delta + (size_t)bh * Tq;
-  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
-  const int ntiles = (Tq + T - 1) / T;
-
-  auto load_qdo = [&](int it, int s) {
-    float* sq = stage0 + s * stage_floats;
-    load_tile_async(sq, ldd, qb, D, it * T, T, Tq, 0, D);
-    load_tile_async(sq + T * ldd, ldd, dob, D, it * T, T, Tq, 0, D);
-  };
-  load_tile_async(sk, ldd, k + koff, D, k0, rows, Tk, 0, D);
-  load_tile_async(sv, ldd, v + koff, D, k0, rows, Tk, 0, D);
-  load_qdo(0, 0);
-  cp_async_commit();
-
-  // keys g and g + 8 of this warp: in range, and their mask bias
-  const int key = k0 + warp * ROWS + g;
-  bool key_in[2];
-  float bias[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    key_in[r] = key + 8 * r < Tk;
-    bias[r] = (key_in[r] && mb && !mb[key + 8 * r]) ? -1e30f : 0.f;
-  }
-
-  const float* skw = sk + warp * ROWS * ldd;
-  const float* svw = sv + warp * ROWS * ldd;
-  float acc_v[ND][4], acc_k[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_qdo(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sq = stage0 + (it & 1) * stage_floats;
-    const float* sdo = sq + T * ldd;
-
-    float sc[8][4], dp[8][4];  // S^T = k q^T and dP^T = v dO^T, 16 x T
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sc[n][i] = dp[n][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      float fa[4];
-      load_a(fa, skw, ldd, kk * 8, lane);
-      const SplitA a = split_a(fa);
-      load_a(fa, svw, ldd, kk * 8, lane);
-      const SplitA av = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (n < nn) {
-          float fb[2];
-          load_bt(fb, sq, ldd, n * 8, kk * 8, lane);
-          mma_3xtf32(sc[n], a, fb);
-          load_bt(fb, sdo, ldd, n * 8, kk * 8, lane);
-          mma_3xtf32(dp[n], av, fb);
-        }
-    }
-    const int q0 = it * T;
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + n * 8 + 2 * t + (i & 1);
-        const int r = i >> 1;
-        float p = 0.f, ds = 0.f;
-        if (n < nn && qi < Tq && key_in[r]) {
-          p = expf(sc[n][i] * scale + bias[r] - lb[qi]);
-          ds = p * (dp[n][i] - db[qi]) * scale;
-        }
-        sc[n][i] = p;
-        dp[n][i] = ds;
-      }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (n < nn) {
-        store_c(spt, ldp, n * 8, sc[n], lane);
-        store_c(sdst, ldp, n * 8, dp[n], lane);
-      }
-    __syncwarp();
-    // dV (16 x D) += P^T dO, dK += dS^T q
-    for (int kk = 0; kk < T; kk += 8) {
-      float fa[4];
-      load_a(fa, spt, ldp, kk, lane);
-      const SplitA ap = split_a(fa);
-      load_a(fa, sdst, ldp, kk, lane);
-      const SplitA as = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        float fb[2];
-        load_bn(fb, sdo, ldd, n * 8, kk, lane);
-        mma_3xtf32(acc_v[n], ap, fb);
-        load_bn(fb, sq, ldd, n * 8, kk, lane);
-        mma_3xtf32(acc_k[n], as, fb);
-      }
-    }
-    __syncthreads();  // the stage is read; the next prefetch may refill it
-  }
-
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      if (key_in[r]) {
-        const size_t o = koff + (size_t)(key + 8 * r) * D + col;
-        *reinterpret_cast<float2*>(dk + o) =
-            make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv + o) =
-            make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
-      }
-  }
-}
-
-using DqKernel = void (*)(const float*, const float*, const float*,
-                          const float*, const float*, const float*, float*,
-                          const unsigned char*, float*, int, int, int, int,
-                          int, int, int, float);
-using DkdvKernel = void (*)(const float*, const float*, const float*,
-                            const float*, const float*, const float*,
-                            const unsigned char*, float*, float*, int, int,
-                            int, int, int, int, int, float);
-
-// every instantiation: the wide kernels by accumulator n-tiles a warp, then
-// the narrow ones for D = 8, 16, ..., 64 (BwdPlan::idx)
-constexpr DqKernel DQ_KERNELS[] = {
-    flash_bwd_dq_kernel<1>,        flash_bwd_dq_kernel<2>,
-    flash_bwd_dq_kernel<4>,        flash_bwd_dq_narrow_kernel<1>,
-    flash_bwd_dq_narrow_kernel<2>, flash_bwd_dq_narrow_kernel<3>,
-    flash_bwd_dq_narrow_kernel<4>, flash_bwd_dq_narrow_kernel<5>,
-    flash_bwd_dq_narrow_kernel<6>, flash_bwd_dq_narrow_kernel<7>,
-    flash_bwd_dq_narrow_kernel<8>};
-constexpr DkdvKernel DKDV_KERNELS[] = {
-    flash_bwd_dkdv_kernel<1>,        flash_bwd_dkdv_kernel<2>,
-    flash_bwd_dkdv_kernel<4>,        flash_bwd_dkdv_kernel<8>,
-    flash_bwd_dkdv_narrow_kernel<1>, flash_bwd_dkdv_narrow_kernel<2>,
-    flash_bwd_dkdv_narrow_kernel<3>, flash_bwd_dkdv_narrow_kernel<4>,
-    flash_bwd_dkdv_narrow_kernel<5>, flash_bwd_dkdv_narrow_kernel<6>,
-    flash_bwd_dkdv_narrow_kernel<7>, flash_bwd_dkdv_narrow_kernel<8>};
-constexpr int NDQ = sizeof(DQ_KERNELS) / sizeof(DQ_KERNELS[0]);
-constexpr int NDKDV = sizeof(DKDV_KERNELS) / sizeof(DKDV_KERNELS[0]);
+constexpr auto DQ_KERNEL = flash_bwd_dq_kernel<4>;
+constexpr auto DKDV_KERNEL = flash_bwd_dkdv_kernel<8>;
 
 // Sets each kernel's shared-memory attributes on the current device once
 // and whenever a call needs more than before.
 cudaError_t prepare(const BwdPlan& pq, const BwdPlan& pkv) {
-  static size_t opted_q[MAX_DEVICES][NDQ] = {};
-  static size_t opted_kv[MAX_DEVICES][NDKDV] = {};
+  static size_t opted_q[MAX_DEVICES] = {};
+  static size_t opted_kv[MAX_DEVICES] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
-  cudaError_t err =
-      opt_in(DQ_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  cudaError_t err = opt_in(DQ_KERNEL, pq.smem, &opted_q[dev]);
   if (err != cudaSuccess) return err;
-  return opt_in(DKDV_KERNELS[pkv.idx], pkv.smem, &opted_kv[dev][pkv.idx]);
+  return opt_in(DKDV_KERNEL, pkv.smem, &opted_kv[dev]);
 }
 
 bool valid_shape(int B, int H, int Tq, int Tk, int D) {
@@ -806,79 +422,6 @@ bool valid_shape(int B, int H, int Tq, int Tk, int D) {
 }
 
 }  // namespace
-
-// q, dout, out, dq: (B,H,Tq,D); k, v, dk, dv: (B,H,Tk,D); lse, delta:
-// (B*H,Tq); all float32, contiguous, on the device, the tensors of D
-// columns 16-byte aligned; mask: (B,Tk) bool bytes (1 = attend) or null.
-// delta is scratch that the first kernel writes and the second reads. D is
-// a multiple of 8 and at most 1024. Launches the dq kernel (which writes
-// delta) and then the dkdv kernel on `stream`, and returns the first launch
-// error (0 = launched).
-extern "C" int t2p_flash_bwd_f32(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* out,
-                                 const void* lse, void* delta,
-                                 const void* mask, void* dq, void* dk,
-                                 void* dv, int B, int H, int Tq, int Tk,
-                                 int D, float scale, void* stream) {
-  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  if (!aligned16({q, k, v, dout, dq, dk, dv}))
-    return (int)cudaErrorMisalignedAddress;
-  const BwdPlan pq = plan_bwd(B, H, Tq, Tk, D, false);
-  const BwdPlan pkv = plan_bwd(B, H, Tk, Tq, D, true);
-  cudaError_t err = prepare(pq, pkv);
-  if (err != cudaSuccess) return (int)err;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const float* gf = static_cast<const float*>(dout);
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(delta);
-  const unsigned char* mf = static_cast<const unsigned char*>(mask);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  DQ_KERNELS[pq.idx]<<<pq.grid, pq.threads, pq.smem, s>>>(
-      qf, kf, vf, gf, static_cast<const float*>(out), lf, df, mf,
-      static_cast<float*>(dq), H, Tq, Tk, D, pq.dc, pq.t, pq.stages, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  DKDV_KERNELS[pkv.idx]<<<pkv.grid, pkv.threads, pkv.smem, s>>>(
-      qf, kf, vf, gf, lf, df, mf, static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Tq, Tk, D, pkv.dc, pkv.t, pkv.stages,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-// The launch plans of a call, for reports: out = {dq: inner tile rows,
-// stages, column chunks, blocks, dynamic shared bytes, blocks per SM,
-// threads per block, narrow (1) or wide (0); then the same eight for
-// dkdv}.
-extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
-                                  int* out) {
-  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  const BwdPlan plans[2] = {plan_bwd(B, H, Tq, Tk, D, false),
-                            plan_bwd(B, H, Tk, Tq, D, true)};
-  const bool ready = prepare(plans[0], plans[1]) == cudaSuccess;
-  for (int i = 0; i < 2; ++i) {
-    const BwdPlan& p = plans[i];
-    int per_sm = -1;
-    if (ready &&
-        (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, DQ_KERNELS[p.idx], p.threads, p.smem)
-                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, DKDV_KERNELS[p.idx], p.threads, p.smem)) !=
-            cudaSuccess)
-      per_sm = -1;
-    int* o = out + 8 * i;
-    o[0] = p.t;
-    o[1] = p.stages;
-    o[2] = p.nchunk;
-    o[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
-    o[4] = (int)p.smem;
-    o[5] = per_sm;
-    o[6] = p.threads;
-    o[7] = p.narrow;
-  }
-  return 0;
-}
 
 // ------------------------------------------------------------------ bf16
 //
@@ -1914,6 +1457,785 @@ extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
     o[7] = per_sm;
     o[8] = wgmma ? w[i].threads : 32 * p[i].warps;
     o[9] = wgmma;
+  }
+  return 0;
+}
+
+// ------------------------------------------------------- f32, TF32 wgmma
+//
+// The f32 backward for D <= 512: TF32 wgmma in 3xTF32 form, TMA tiles, the
+// transposes and lo tiles of the B operands made in shared memory
+// (wgmma_tf32.cuh says why the operands look as they do). The two kernels
+// of the split above, without atomics: every output element has one owner,
+// which sums its products in a fixed order.
+//
+// Design. A block is one warpgroup (128 threads) on 64 rows (dq: query
+// rows; dkdv: key rows). Its A operands (dq: Q and dO; dkdv: K and V) stay
+// in shared memory for the whole walk of the inner tiles (dq: key tiles of
+// BK; dkdv: query tiles of 32), so no A byte is read twice: 64 rows of both
+// at D = 128 are 64 KB, and above D = 128 (the AttnBlock, D = 256 and 512)
+// the blocks of a row tile form a thread block cluster of D / 128 blocks,
+// each holding its 128 columns of A (4 boxes), computing S and dP (or S^T
+// and dP^T) over them, and owning those columns of the outputs: the
+// partial sums meet in the backward's scratch in device memory
+// (`cluster_sum`, one cluster barrier an inner tile), so S and dP are
+// computed once per row tile. An inner tile is walked in steps, each one
+// stage of a TMA ring of two or three slots:
+//   * product steps, `kc` boxes of the block's D each: the block writes the
+//     lo tile of the B boxes, then RS wgmmas with A's fragments split in
+//     registers: dq: S = Q K^T, then dP = dO V^T; dkdv: S^T = K Q^T, then
+//     dP^T = V dO^T.
+//   * then P and dS in registers (P = exp2 of the score in log2 units, the
+//     -1e30 bias and lse scaled alike, so a fully masked row still has
+//     P = 1), split into hi and lo A fragments.
+//   * output steps, `vc` boxes of the block's outputs each, transposed with
+//     the keys (or queries) in k-slot order: dq: dQ += dS K; dkdv: dV +=
+//     P^T dO, then dK += dS^T Q.
+// The dq kernel's prologue writes delta = rowsum(dO * out) for the dkdv
+// kernel. Registers: dq's dQ boxes (2 at D <= 64, 4 above: 32 or 64) or
+// dkdv's dK and dV boxes (2 or 4 each: 64 or 128) with S, dP and the split
+// P, dS. Without a cluster, where the grid would leave SMs empty, the
+// blocks of a row tile split the output boxes (grid z), each computing S
+// and dP. The plan takes the largest steps that fit, then two blocks an
+// SM: every block of the paths fits two an SM, the clusters' too (A 64 KB,
+// 4-box steps, 112 KB), which lets 62 clusters of 4 run at once on an H100
+// (`max_clusters` of the plan): test_config's 32 row tiles at B=2 take one
+// wave (with the exchange in shared memory, 96 KB more, one block an SM
+// let 30 run, and the D = 512 backward took 1.49 ms against 0.85).
+// What holds it back at D = 512: each inner tile waits on a cluster
+// barrier, and every K, V (or q, dO) tile is converted by each block that
+// reads it.
+
+namespace {
+
+using namespace t2p;
+
+// Byte offsets of a TF32 backward kernel's shared memory from its 1024-byte
+// aligned base: the resident A tiles (two tiles of nba boxes of 64 rows: Q
+// and dO for dq, K and V for dkdv), `nst` slots of the step ring, the
+// conversion buffer (the lo tile of a product step, or the hi and lo of an
+// output step's transposed boxes), the mbarriers (resident, then slot
+// full x nst). The dynamic shared memory of a block with no
+// static shared memory starts 1024-byte aligned (at offset 1024, past the
+// block's reserved kilobyte), which the kernels check.
+struct TfBwdLayout {
+  uint32_t ring, slot, conv, bars, total;
+};
+
+__host__ __device__ inline TfBwdLayout tf_bwd_layout(int nba, int tile,
+                                                     int kc, int vc,
+                                                     int nst) {
+  TfBwdLayout l;
+  const uint32_t bstep = (uint32_t)(kc * tile * 128);
+  const uint32_t ostep = (uint32_t)(vc * tile * 128);
+  l.ring = 2u * (uint32_t)nba * 8192u;
+  l.slot = bstep > ostep ? bstep : ostep;
+  l.conv = l.ring + nst * l.slot;
+  l.bars = l.conv + (bstep > 2 * ostep ? bstep : 2 * ostep);
+  l.total = l.bars + 8 * (nst + 1);
+  return l;
+}
+
+// Thread 0's copies of step s, into a slot at dst completing on `full`.
+// Step r of an inner tile (a tile is `per` steps): r < 2 nks: product step
+// c = r % nks of the first (r < nks: B boxes from b1) or the second
+// product (b2), kc boxes of D from box0; then the output steps of the
+// tile, c of them (dq: K's boxes; dkdv: dO's, then q's): vc boxes from
+// ob0 + c vc of o1 (the first nds steps) or o2.
+__device__ __forceinline__ void bwd_step_load(
+    int s, int per, int nks, int nds, int kc, int vc, int tile, int box0,
+    int ob0, const CUtensorMap* b1, const CUtensorMap* b2,
+    const CUtensorMap* o1, const CUtensorMap* o2, uint32_t dst, uint32_t full,
+    int bh) {
+  const int it = s / per, r = s % per;
+  if (r < 2 * nks) {
+    const int which = r / nks, c = r % nks;
+    mbar_expect_tx(full, (uint32_t)(kc * tile * 128));
+    for (int b = 0; b < kc; ++b)
+      tma_load(dst + b * tile * 128, which ? b2 : b1, full,
+               (box0 + c * kc + b) * F32_BOX, it * tile, bh);
+  } else {
+    const int r2 = r - 2 * nks, which = r2 / nds, c = r2 % nds;
+    mbar_expect_tx(full, (uint32_t)(vc * tile * 128));
+    for (int b = 0; b < vc; ++b)
+      tma_load(dst + b * tile * 128, which ? o2 : o1, full,
+               (ob0 + c * vc + b) * F32_BOX, it * tile, bh);
+  }
+}
+
+// Thread 0's copy of the resident A tiles: nba boxes from box0 of a1 and
+// a2, 64 rows from row0, completing on `full`.
+__device__ __forceinline__ void bwd_load_a(const CUtensorMap* a1,
+                                           const CUtensorMap* a2,
+                                           uint32_t base, uint32_t full,
+                                           int nba, int box0, int row0,
+                                           int bh) {
+  mbar_expect_tx(full, (uint32_t)(2 * nba * 8192));
+  for (int b = 0; b < nba; ++b) {
+    tma_load(base + b * 8192, a1, full, (box0 + b) * F32_BOX, row0, bh);
+    tma_load(base + (nba + b) * 8192, a2, full, (box0 + b) * F32_BOX, row0,
+             bh);
+  }
+}
+
+// A product step of either kernel (step s in slot s % nst): the lo tile of
+// the B boxes, then x (64 x N) += A B^T over kc boxes of the resident A at
+// `a`; thread 0 then refills the slot with step s + nst.
+template <int N, class Load>
+__device__ __forceinline__ void bwd_product(float (&x)[N], int s, int nsteps,
+                                            int nst, uint32_t ring,
+                                            uint32_t slot, uint32_t conv,
+                                            uint32_t bar, uint32_t a, int kc,
+                                            int tile, int ct, int warp, int g,
+                                            int t, Load load) {
+  const uint32_t sl = ring + (s % nst) * slot;
+  mbar_wait(bar + 8 * (s % nst), (s / nst) & 1);
+  lo_tile(conv, sl, (uint32_t)(kc * tile * 128), ct);
+  fence_proxy_async();
+  __syncthreads();
+  issue_abt(x, a, sl, conv, kc, tile, warp, g, t);
+  __syncthreads();  // the slot and the lo tile are read
+  if (ct == 0 && s + nst < nsteps) load(s + nst);
+}
+
+// An output step (step s): the transpose of its vc boxes into the
+// conversion buffer (hi, then lo), then acc (the boxes of this step) += A B
+// with A the split fragments (a_hi, a_lo) of the inner tile.
+template <int NOB, int NK, class Load>
+__device__ __forceinline__ void bwd_output(
+    float (&acc)[NOB][16], uint32_t (&a_hi)[NK][4], uint32_t (&a_lo)[NK][4],
+    int s, int c, int nsteps, int nst, uint32_t ring, uint32_t slot,
+    uint32_t conv, uint32_t bar, int vc, int nob, int tile, int ct,
+    Load load) {
+  const uint32_t sl = ring + (s % nst) * slot;
+  const uint32_t lo = conv + (uint32_t)(vc * tile * 128);
+  mbar_wait(bar + 8 * (s % nst), (s / nst) & 1);
+  transpose_tile(conv, lo, sl, tile, vc, ct);
+  fence_proxy_async();
+  __syncthreads();
+  if (ct == 0 && s + nst < nsteps) load(s + nst);  // the slot is read
+#pragma unroll
+  for (int n = 0; n < NOB; ++n) fence_regs(acc[n]);
+  fence_a(a_hi);
+  fence_a(a_lo);
+  wgmma_fence();
+#pragma unroll
+  for (int n = 0; n < NOB; ++n) {
+    const int b = n - c * vc;  // this step's box b of the block's box n
+    if (b >= 0 && b < vc && n < nob) {
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        const uint32_t off =
+            (uint32_t)((((j >> 2) * vc) + b) * 4096 + (j & 3) * 32);
+        wgmma_3x(acc[n], a_hi[j], a_lo[j], sw128_desc(conv + off),
+                 sw128_desc(lo + off));
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int n = 0; n < NOB; ++n) fence_regs(acc[n]);
+  fence_a(a_hi);
+  fence_a(a_lo);
+  __syncthreads();  // the buffer is read: the next step may rewrite it
+}
+
+// Stores 64-row accumulators (boxes ob0 + n, n < nob) at rows row, row + 8
+// (< limit) of a (rows, D) f32 matrix.
+template <int NOB>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[NOB][16],
+                                           int row, int limit, int ob0,
+                                           int nob, int D, int t) {
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int col = (ob0 + n) * F32_BOX + 8 * (i >> 2) + 2 * t;
+        if (row + 8 * r < limit && col < D)
+          *reinterpret_cast<float2*>(dst + (size_t)(row + 8 * r) * D + col) =
+              make_float2(acc[n][i], acc[n][i + 1]);
+      }
+    }
+}
+
+// Where a block and its boxes lie: the batch*head, this block's rank in
+// its cluster of ncl (blockIdx.x = bh * ncl + rank), its boxes of D
+// (box0, nba of them for A and B) and of the outputs (ob0, nob).
+struct BwdPlace {
+  int bh, rank, box0, nba, ob0, nob;
+};
+
+__device__ __forceinline__ BwdPlace bwd_place(int ncl, int cb, int nbox) {
+  BwdPlace p;
+  p.rank = ncl > 1 ? cluster_rank() : 0;
+  p.bh = blockIdx.x / ncl;
+  if (ncl > 1) {  // 4 boxes a block, all of its outputs
+    p.box0 = 4 * p.rank;
+    p.nba = 4;
+    p.ob0 = p.box0;
+    p.nob = min(4, nbox - p.box0);
+  } else {  // all of D; the z-chunk cb of the outputs
+    p.box0 = 0;
+    p.nba = nbox;
+    p.ob0 = blockIdx.z * cb;
+    p.nob = min(cb, nbox - p.ob0);
+  }
+  return p;
+}
+
+// The backward's scratch (floats from `delta`): delta, (B*H, Tq), then the
+// clusters' exchange buffers (`cluster_sum`): for each cluster (a row tile
+// of a batch*head) two buffers (by inner tile) of ncl slots of the S and dP
+// partials, 2 x tile / 2 floats a thread; the dq kernel's clusters, then
+// dkdv's over the same floats (the kernels run one after the other).
+__host__ __device__ inline size_t bwd_xch_offset(int bh, int Tq) {
+  return ((size_t)bh * Tq + 31) / 32 * 32;  // 128-byte aligned
+}
+
+__host__ __device__ inline size_t bwd_xch_floats(int ncl, int tile) {
+  return ncl > 1 ? (size_t)2 * ncl * tile * 128 : 0;
+}
+
+template <int BK, int NOB>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dq_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ dout,
+    const float* __restrict__ out, const float* __restrict__ lse,
+    float* __restrict__ delta, const unsigned char* __restrict__ mask,
+    float* __restrict__ dq, int H, int Tq, int Tk, int D, int cb, int kc,
+    int vc, int nst, int ncl, float scale) {
+  constexpr int NS = BK / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = f32_boxes(D);
+  const BwdPlace P = bwd_place(ncl, cb, nbox);
+  const int nks = (P.nba + kc - 1) / kc, nba = nks * kc;
+  const TfBwdLayout L = tf_bwd_layout(nba, BK, kc, vc, nst);
+  const uint32_t base = smem_u32(smem_raw);
+  if (base & 1023u) __trap();  // the swizzled tiles need 1024-byte bases
+  const uint32_t ring = base + L.ring, conv = base + L.conv;
+  const uint32_t bar = base + L.bars + 8;  // slot full x nst
+  const uint32_t bar_a = base + L.bars;   // the resident A tiles
+  const int bh = P.bh, q0 = blockIdx.y * WG_ROWS;
+  const int nds = (P.nob + vc - 1) / vc;
+  const int per = 2 * nks + nds;
+  const int ntiles = (Tk + BK - 1) / BK, nsteps = ntiles * per;
+  const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto load = [&](int s) {
+    bwd_step_load(s, per, nks, nds, kc, vc, BK, P.box0, P.ob0, &tm_k, &tm_v,
+                  &tm_k, &tm_k, ring + (s % nst) * L.slot, bar + 8 * (s % nst),
+                  bh);
+  };
+  if (ct == 0) {
+    for (int i = 0; i <= nst; ++i) mbar_init(bar_a + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (ct == 0) {
+    bwd_load_a(&tm_q, &tm_do, base, bar_a, nba, P.box0, q0, bh);
+    for (int s = 0; s < nst && s < nsteps; ++s) load(s);
+  }
+  if (ncl > 1) cluster_sync();  // every peer runs before any reads its memory
+
+  // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp, over
+  // all of D; each lane of a quad sums every fourth column pair (the same
+  // count in each)
+  const size_t qoff = (size_t)bh * Tq * D;
+  const int row = q0 + 16 * warp + g;
+  float delta_r[2], lse_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = row + 8 * r;
+    float d = 0.f;
+    if (i < Tq) {
+      const float* go = dout + qoff + (size_t)i * D + 2 * t;
+      const float* oo = out + qoff + (size_t)i * D + 2 * t;
+      for (int c = 0; c < D / 8; ++c) {
+        const float2 a = *reinterpret_cast<const float2*>(go + 8 * c);
+        const float2 b = *reinterpret_cast<const float2*>(oo + 8 * c);
+        d = fmaf(a.x, b.x, d);
+        d = fmaf(a.y, b.y, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    delta_r[r] = d;
+    lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] * LOG2E : 0.f;
+    if (blockIdx.z == 0 && P.rank == 0 && t == 0 && i < Tq)
+      delta[(size_t)bh * Tq + i] = d;
+  }
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const float scale2 = scale * LOG2E;
+
+  float acc[NOB][16];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[n][i] = 0.f;
+  uint32_t dh[BK / 8][4], dl[BK / 8][4];
+
+  mbar_wait(bar_a, 0);
+  int s = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    float sc[NS], dp[NS];  // S = Q K^T, dP = dO V^T
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sc[i] = dp[i] = 0.f;
+    for (int c = 0; c < nks; ++c, ++s)
+      bwd_product(sc, s, nsteps, nst, ring, L.slot, conv, bar,
+                  base + c * kc * 8192, kc, BK, ct, warp, g, t, load);
+    for (int c = 0; c < nks; ++c, ++s)
+      bwd_product(dp, s, nsteps, nst, ring, L.slot, conv, bar,
+                  base + (nba + c * kc) * 8192, kc, BK, ct, warp, g, t, load);
+    if (ncl > 1)
+      cluster_sum(sc, dp,
+                  delta + bwd_xch_offset(gridDim.x / ncl, Tq) +
+                      (bh * gridDim.y + blockIdx.y) * bwd_xch_floats(ncl, BK) +
+                      (it & 1) * ncl * (2 * NS * 128),
+                  P.rank, ncl, ct);
+
+    // keys of this thread's columns in range (bit 2 j + e: column
+    // 8 j + 2 t + e) and unmasked
+    const int k0 = it * BK;
+    uint32_t in = ~0u, on = ~0u;
+    if (mb != nullptr || k0 + BK > Tk) {
+      in = on = 0;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = k0 + 8 * j + 2 * t + e;
+          if (key < Tk) {
+            in |= 1u << (2 * j + e);
+            if (mb == nullptr || mb[key]) on |= 1u << (2 * j + e);
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int bit = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+      float ds = 0.f;
+      if (((in >> bit) & 1u) && row + 8 * r < Tq) {
+        const float bias = ((on >> bit) & 1u) ? 0.f : BIAS2;
+        const float p = exp2f(fmaf(sc[i], scale2, bias) - lse_r[r]);
+        ds = p * (dp[i] - delta_r[r]) * scale;
+      }
+      sc[i] = ds;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) acc_to_a(sc, j, dh[j], dl[j]);
+
+    // dQ += dS K
+    for (int c = 0; c < nds; ++c, ++s)
+      bwd_output(acc, dh, dl, s, c, nsteps, nst, ring, L.slot, conv, bar, vc,
+                 P.nob, BK, ct, load);
+  }
+  store_rows(dq + qoff, acc, row, Tq, P.ob0, P.nob, D, t);
+  if (ncl > 1) cluster_sync();  // no block leaves while a peer may read it
+}
+
+template <int BQ, int NOB>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+    float* __restrict__ delta, const unsigned char* __restrict__ mask,
+    float* __restrict__ dk, float* __restrict__ dv, int H, int Tq, int Tk,
+    int D, int cb, int kc, int vc, int nst, int ncl, float scale) {
+  constexpr int NS = BQ / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = f32_boxes(D);
+  const BwdPlace P = bwd_place(ncl, cb, nbox);
+  const int nks = (P.nba + kc - 1) / kc, nba = nks * kc;
+  const TfBwdLayout L = tf_bwd_layout(nba, BQ, kc, vc, nst);
+  const uint32_t base = smem_u32(smem_raw);
+  if (base & 1023u) __trap();  // the swizzled tiles need 1024-byte bases
+  const uint32_t ring = base + L.ring, conv = base + L.conv;
+  const uint32_t bar = base + L.bars + 8;  // slot full x nst
+  const uint32_t bar_a = base + L.bars;   // the resident A tiles
+  const int bh = P.bh, k0 = blockIdx.y * WG_ROWS;
+  const int nds = (P.nob + vc - 1) / vc;
+  const int per = 2 * nks + 2 * nds;
+  const int ntiles = (Tq + BQ - 1) / BQ, nsteps = ntiles * per;
+  const int ct = threadIdx.x, lane = ct & 31, warp = ct >> 5;
+  const int g = lane >> 2, t = lane & 3;
+
+  // output steps: dV from dO's boxes, then dK from Q's
+  auto load = [&](int s) {
+    bwd_step_load(s, per, nks, nds, kc, vc, BQ, P.box0, P.ob0, &tm_q, &tm_do,
+                  &tm_do, &tm_q, ring + (s % nst) * L.slot, bar + 8 * (s % nst),
+                  bh);
+  };
+  if (ct == 0) {
+    for (int i = 0; i <= nst; ++i) mbar_init(bar_a + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (ct == 0) {
+    bwd_load_a(&tm_k, &tm_v, base, bar_a, nba, P.box0, k0, bh);
+    for (int s = 0; s < nst && s < nsteps; ++s) load(s);
+  }
+  if (ncl > 1) cluster_sync();  // every peer runs before any reads its memory
+
+  // key rows g and g + 8 of this warp: in range, and their mask bias
+  const int key = k0 + 16 * warp + g;
+  bool key_in[2];
+  float bias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    key_in[r] = key + 8 * r < Tk;
+    bias[r] = (key_in[r] && mask &&
+               !mask[(size_t)(bh / H) * Tk + key + 8 * r])
+                  ? BIAS2
+                  : 0.f;
+  }
+  const float* lb = lse + (size_t)bh * Tq;
+  const float* db = delta + (size_t)bh * Tq;
+  const float scale2 = scale * LOG2E;
+
+  float acc_v[NOB][16], acc_k[NOB][16];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
+  uint32_t ph[BQ / 8][4], pl[BQ / 8][4], sh[BQ / 8][4], sl[BQ / 8][4];
+
+  mbar_wait(bar_a, 0);
+  int s = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    float st[NS], dpt[NS];  // S^T = K Q^T, dP^T = V dO^T
+#pragma unroll
+    for (int i = 0; i < NS; ++i) st[i] = dpt[i] = 0.f;
+    for (int c = 0; c < nks; ++c, ++s)
+      bwd_product(st, s, nsteps, nst, ring, L.slot, conv, bar,
+                  base + c * kc * 8192, kc, BQ, ct, warp, g, t, load);
+    for (int c = 0; c < nks; ++c, ++s)
+      bwd_product(dpt, s, nsteps, nst, ring, L.slot, conv, bar,
+                  base + (nba + c * kc) * 8192, kc, BQ, ct, warp, g, t, load);
+    if (ncl > 1)
+      cluster_sum(st, dpt,
+                  delta + bwd_xch_offset(gridDim.x / ncl, Tq) +
+                      (bh * gridDim.y + blockIdx.y) * bwd_xch_floats(ncl, BQ) +
+                      (it & 1) * ncl * (2 * NS * 128),
+                  P.rank, ncl, ct);
+
+    // lse and delta of this thread's query columns (8 j + 2 t + e)
+    const int q0 = it * BQ;
+    float lq[BQ / 4], dl[BQ / 4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = q0 + 8 * j + 2 * t + e;
+        lq[2 * j + e] = qi < Tq ? lb[qi] * LOG2E : 0.f;
+        dl[2 * j + e] = qi < Tq ? db[qi] : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int c = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+      const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      float p = 0.f, ds = 0.f;
+      if (qi < Tq && key_in[r]) {
+        p = exp2f(fmaf(st[i], scale2, bias[r]) - lq[c]);
+        ds = p * (dpt[i] - dl[c]) * scale;
+      }
+      st[i] = p;
+      dpt[i] = ds;
+    }
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      acc_to_a(st, j, ph[j], pl[j]);
+      acc_to_a(dpt, j, sh[j], sl[j]);
+    }
+
+    // dV += P^T dO, then dK += dS^T Q
+    for (int c = 0; c < nds; ++c, ++s)
+      bwd_output(acc_v, ph, pl, s, c, nsteps, nst, ring, L.slot, conv, bar, vc,
+                 P.nob, BQ, ct, load);
+    for (int c = 0; c < nds; ++c, ++s)
+      bwd_output(acc_k, sh, sl, s, c, nsteps, nst, ring, L.slot, conv, bar, vc,
+                 P.nob, BQ, ct, load);
+  }
+  const size_t koff = (size_t)bh * Tk * D;
+  store_rows(dk + koff, acc_k, key, Tk, P.ob0, P.nob, D, t);
+  store_rows(dv + koff, acc_v, key, Tk, P.ob0, P.nob, D, t);
+  if (ncl > 1) cluster_sync();  // no block leaves while a peer may read it
+}
+
+using TfDqKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const CUtensorMap,
+                            const float*, const float*, const float*, float*,
+                            const unsigned char*, float*, int, int, int, int,
+                            int, int, int, int, int, float);
+using TfDkdvKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                              const CUtensorMap, const CUtensorMap,
+                              const float*, float*,
+                              const unsigned char*, float*, float*, int, int,
+                              int, int, int, int, int, int, int, float);
+
+// dq: D <= 64 (64-key tiles, 2 boxes of dQ), 64 < D <= 128 and the
+// clusters above (32-key tiles, 4 boxes); dkdv: D <= 64 (2 boxes each of
+// dK and dV), above (4 boxes each), 32-query tiles
+constexpr TfDqKernel TF_DQ_KERNELS[] = {flash_bwd_dq_tf32_kernel<64, 2>,
+                                        flash_bwd_dq_tf32_kernel<32, 4>};
+constexpr TfDkdvKernel TF_DKDV_KERNELS[] = {
+    flash_bwd_dkdv_tf32_kernel<32, 2>, flash_bwd_dkdv_tf32_kernel<32, 4>};
+
+struct TfBwdPlan {
+  int idx, tile, nob, ncl, cb, nz, kc, vc, nst;
+  dim3 grid;
+  size_t smem;
+};
+
+// The plan of one of the two kernels on the TF32 route (`rows` the length
+// the grid walks: Tq for dq, Tk for dkdv; `loop` the one its blocks walk):
+// the cluster (D / 128 blocks above D = 128), the instantiation, the output
+// boxes a block owns (cb) and, without a cluster, z-chunks where the grid
+// would leave SMs empty; then the largest steps (kc, vc), two blocks an SM
+// where they fit.
+bool plan_bwd_tf(TfBwdPlan& p, int B, int H, int rows, int loop, int D,
+                 bool dkdv) {
+  if (!tf32_route(rows, loop, D)) return false;
+  const int nbox = f32_boxes(D);
+  p.ncl = nbox > 4 ? (nbox + 3) / 4 : 1;
+  p.idx = nbox <= 2 ? 0 : 1;
+  p.tile = dkdv || p.idx == 1 ? 32 : 64;
+  p.nob = p.idx == 0 ? 2 : 4;
+  const int nba = p.ncl > 1 ? 4 : nbox;
+  const long blocks = (long)B * H * ((rows + WG_ROWS - 1) / WG_ROWS);
+  p.nz = 1;
+  p.cb = p.ncl > 1 ? 4 : nbox;
+  while (p.ncl == 1 && p.cb > 1 && blocks * 2 * p.nz <= sm_count()) {
+    p.nz *= 2;
+    p.cb = (nbox + p.nz - 1) / p.nz;
+  }
+  if (p.ncl == 1) p.nz = (nbox + p.cb - 1) / p.cb;
+  // the largest steps first (every step costs two barriers and a drain of
+  // the wgmma pipeline: at D = 256 and 512 one block an SM with 4-box steps
+  // was a third faster on an H100 than two with 2-box steps), then two
+  // blocks an SM, then a third ring slot
+  p.kc = p.vc = 1;
+  p.nst = 2;
+  bool found = false;
+  for (int kc : {4, 2, 1})
+    for (int vc : {2, 1})
+      for (const size_t limit : {(size_t)113 * 1024, (size_t)227 * 1024})
+        for (int nst : {3, 2})
+          if (!found && kc <= nba && vc <= p.cb &&
+              tf_bwd_layout((nba + kc - 1) / kc * kc, p.tile, kc, vc, nst)
+                      .total <= limit) {
+            p.kc = kc;
+            p.vc = vc;
+            p.nst = nst;
+            found = true;
+          }
+  p.smem = tf_bwd_layout((nba + p.kc - 1) / p.kc * p.kc, p.tile, p.kc, p.vc,
+                         p.nst)
+               .total;
+  p.grid = dim3(B * H * p.ncl, (rows + WG_ROWS - 1) / WG_ROWS, p.nz);
+  return true;
+}
+
+cudaError_t prepare_tf(const TfBwdPlan& pq, const TfBwdPlan& pkv) {
+  static size_t opted_q[MAX_DEVICES][2] = {};
+  static size_t opted_kv[MAX_DEVICES][2] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  cudaError_t err =
+      opt_in(TF_DQ_KERNELS[pq.idx], pq.smem, &opted_q[dev][pq.idx]);
+  if (err != cudaSuccess) return err;
+  return opt_in(TF_DKDV_KERNELS[pkv.idx], pkv.smem, &opted_kv[dev][pkv.idx]);
+}
+
+// Launches `kernel` on the plan's grid, a cluster of p.ncl blocks along x.
+template <class Kernel, class... Args>
+cudaError_t launch_tf(Kernel kernel, const TfBwdPlan& p, cudaStream_t s,
+                      Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = p.grid;
+  cfg.blockDim = dim3(128, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+}  // namespace
+
+// Floats of the scratch (`delta`) that t2p_flash_bwd_f32 takes for a
+// shape: delta, (B*H, Tq), and for the TF32 kernels' clusters their
+// exchange buffers.
+extern "C" long long t2p_flash_bwd_f32_scratch(int B, int H, int Tq, int Tk,
+                                               int D) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return -1;
+  TfBwdPlan wq{}, wkv{};
+  size_t xch = 0;
+  if (plan_bwd_tf(wq, B, H, Tq, Tk, D, false) &&
+      plan_bwd_tf(wkv, B, H, Tk, Tq, D, true)) {
+    const size_t q = (size_t)wq.grid.x / wq.ncl * wq.grid.y *
+                     bwd_xch_floats(wq.ncl, wq.tile);
+    const size_t kv = (size_t)wkv.grid.x / wkv.ncl * wkv.grid.y *
+                      bwd_xch_floats(wkv.ncl, wkv.tile);
+    xch = q > kv ? q : kv;
+  }
+  return (long long)(bwd_xch_offset(B * H, Tq) + xch);
+}
+
+// q, dout, out, dq: (B,H,Tq,D); k, v, dk, dv: (B,H,Tk,D); lse: (B*H,Tq);
+// all float32, contiguous, on the device, the tensors of D columns 16-byte
+// aligned; mask: (B,Tk) bool bytes (1 = attend) or null. delta is scratch
+// of t2p_flash_bwd_f32_scratch floats, 16-byte aligned: the dq kernel
+// writes delta = rowsum(dO * out) into its first (B*H, Tq) for the dkdv
+// kernel, and the kernels' clusters exchange partial sums in the rest. D is
+// a multiple of 8 and at most 1024. Launches the dq kernel and then the
+// dkdv kernel on `stream`, and returns the first launch error (0 =
+// launched).
+extern "C" int t2p_flash_bwd_f32(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* out,
+                                 const void* lse, void* delta,
+                                 const void* mask, void* dq, void* dk,
+                                 void* dv, int B, int H, int Tq, int Tk,
+                                 int D, float scale, void* stream) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!aligned16({q, k, v, dout, out, dq, dk, dv}))
+    return (int)cudaErrorMisalignedAddress;
+  const float* gf = static_cast<const float*>(dout);
+  const float* lf = static_cast<const float*>(lse);
+  float* df = static_cast<float*>(delta);
+  const unsigned char* mf = static_cast<const unsigned char*>(mask);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TfBwdPlan wq{}, wkv{};
+  if (plan_bwd_tf(wq, B, H, Tq, Tk, D, false) &&
+      plan_bwd_tf(wkv, B, H, Tk, Tq, D, true)) {
+    const int bh = B * H;
+    CUtensorMap mq, mdo, mk, mv, mq_t, mdo_t, mk_t, mv_t;
+    if (!tensor_map_f32(&mq, q, bh, Tq, D, WG_ROWS) ||
+        !tensor_map_f32(&mdo, dout, bh, Tq, D, WG_ROWS) ||
+        !tensor_map_f32(&mk_t, k, bh, Tk, D, wq.tile) ||
+        !tensor_map_f32(&mv_t, v, bh, Tk, D, wq.tile) ||
+        !tensor_map_f32(&mk, k, bh, Tk, D, WG_ROWS) ||
+        !tensor_map_f32(&mv, v, bh, Tk, D, WG_ROWS) ||
+        !tensor_map_f32(&mq_t, q, bh, Tq, D, wkv.tile) ||
+        !tensor_map_f32(&mdo_t, dout, bh, Tq, D, wkv.tile))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = prepare_tf(wq, wkv);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_tf(TF_DQ_KERNELS[wq.idx], wq, s, mq, mdo, mk_t, mv_t, gf,
+                    static_cast<const float*>(out), lf, df, mf,
+                    static_cast<float*>(dq), H, Tq, Tk, D, wq.cb, wq.kc,
+                    wq.vc, wq.nst, wq.ncl, scale);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_tf(TF_DKDV_KERNELS[wkv.idx], wkv, s, mk, mv, mq_t, mdo_t, lf,
+                    df, mf,
+                    static_cast<float*>(dk), static_cast<float*>(dv), H, Tq,
+                    Tk, D, wkv.cb, wkv.kc, wkv.vc, wkv.nst, wkv.ncl, scale);
+    return (int)err;
+  }
+  const BwdPlan pq = plan_bwd(B, H, Tq, Tk, D);
+  const BwdPlan pkv = plan_bwd(B, H, Tk, Tq, D);
+  cudaError_t err = prepare(pq, pkv);
+  if (err != cudaSuccess) return (int)err;
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  DQ_KERNEL<<<pq.grid, NT, pq.smem, s>>>(
+      qf, kf, vf, gf, static_cast<const float*>(out), lf, df, mf,
+      static_cast<float*>(dq), H, Tq, Tk, D, pq.dc, pq.t, pq.stages, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  DKDV_KERNEL<<<pkv.grid, NT, pkv.smem, s>>>(
+      qf, kf, vf, gf, lf, df, mf, static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, D, pkv.dc, pkv.t, pkv.stages,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// The launch plans of a call, for reports: out = {dq: inner tile rows,
+// stages, column chunks (blocks of a row tile, each computing S and dP),
+// blocks, dynamic shared bytes, blocks per SM, threads per block, narrow
+// (D <= 64), wgmma (1: TF32 wgmma; 0: the mma.sync kernels of D > 512), D
+// boxes a product step, blocks of a cluster, clusters the device holds at
+// once (-1 where not computed)}; then the same twelve for dkdv.
+extern "C" int t2p_flash_bwd_plan(int B, int H, int Tq, int Tk, int D,
+                                  int* out) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  TfBwdPlan w[2] = {};
+  if (plan_bwd_tf(w[0], B, H, Tq, Tk, D, false) &&
+      plan_bwd_tf(w[1], B, H, Tk, Tq, D, true)) {
+    const bool ready = prepare_tf(w[0], w[1]) == cudaSuccess;
+    for (int i = 0; i < 2; ++i) {
+      const TfBwdPlan& p = w[i];
+      int per_sm = -1, clusters = -1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = p.grid;
+      cfg.blockDim = dim3(128, 1, 1);
+      cfg.dynamicSmemBytes = p.smem;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = (unsigned)p.ncl;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      if (!ready ||
+          (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, TF_DQ_KERNELS[p.idx], 128, p.smem)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per_sm, TF_DKDV_KERNELS[p.idx], 128, p.smem)) !=
+              cudaSuccess)
+        per_sm = -1;
+      if (!ready ||
+          (i == 0 ? cudaOccupancyMaxActiveClusters(
+                        &clusters, TF_DQ_KERNELS[p.idx], &cfg)
+                  : cudaOccupancyMaxActiveClusters(
+                        &clusters, TF_DKDV_KERNELS[p.idx], &cfg)) !=
+              cudaSuccess)
+        clusters = -1;
+      const int v[12] = {p.tile,
+                         p.nst,
+                         p.nz * p.ncl,
+                         (int)(p.grid.x * p.grid.y * p.grid.z),
+                         (int)p.smem,
+                         per_sm,
+                         128,
+                         f32_boxes(D) <= 2,
+                         1,
+                         p.kc,
+                         p.ncl,
+                         clusters};
+      for (int j = 0; j < 12; ++j) out[12 * i + j] = v[j];
+    }
+    return 0;
+  }
+  const BwdPlan plans[2] = {plan_bwd(B, H, Tq, Tk, D),
+                            plan_bwd(B, H, Tk, Tq, D)};
+  const bool ready = prepare(plans[0], plans[1]) == cudaSuccess;
+  for (int i = 0; i < 2; ++i) {
+    const BwdPlan& p = plans[i];
+    int per_sm = -1;
+    if (!ready ||
+        (i == 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DQ_KERNEL, NT, p.smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &per_sm, DKDV_KERNEL, NT, p.smem)) != cudaSuccess)
+      per_sm = -1;
+    const int v[12] = {p.t, p.stages, p.nchunk,
+                       (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem,
+                       per_sm, NT, 0, 0, 0, 1, -1};
+    for (int j = 0; j < 12; ++j) out[12 * i + j] = v[j];
   }
   return 0;
 }

@@ -1,55 +1,39 @@
 // Flash-attention forward for Hopper (sm_90a), float32 in and out.
 //
 // Replaces the Pallas TPU kernel `_flash_kernel` of
-// text2protein_tpu/ops/flash.py (reached through `flash_attention_fwd`).
+// text2protein_tpu/ops/flash.py:50 (reached through `flash_attention_fwd`).
 // Same function: blockwise online-softmax attention over q (B,H,Tq,D) and
 // k, v (B,H,Tk,D) with an optional (B,Tk) key mask applied as a -1e30 bias
 // and p *= mask, so a fully masked row gives 0; accumulation in f32,
 // out /= max(l, 1e-30), and lse = m + log(max(l, 1e-30)) per row.
 //
-// What bounds it on the card: at the L=128 serving shapes (B=4, T <= 256,
-// H*D = 256) one call moves at most 4.2 MB (1.3 us at 3.35 TB/s) and does
-// at most 2.7e8 FLOPs: 4.0 us at the f32 CUDA-core rate (67 TFLOP/s), or
-// 1.6 us as 3xTF32 on the tensor cores (3 x 2.7e8 at 495 TFLOP/s). So the
-// least time is a few microseconds, below the launch latency and the
-// wrapper's host time, and what decides the kernel's time is how much of
-// the card it keeps busy. The first version of this kernel (CUDA-core FMA
-// chains on shared memory, 64 blocks at the AttnBlock shape) took 142.3 us
-// there against SDPA's 40.0 us.
+// What bounds it on the card: 4 B H Tq Tk D FLOPs and the bytes of q, k, v,
+// out and lse. At test_config's AttnBlock 32x32 (B=4, H=1, T=1024, D=512)
+// that is 8.6 GFLOP and 25 MB: 0.128 ms at the f32 CUDA-core rate (67
+// TFLOP/s), 0.052 ms as 3xTF32 on the tensor cores (3 x 8.6 GFLOP at 495
+// TFLOP/s), the bound of this kernel's route. At the L=128 serving shapes
+// (B=4, T <= 256) the bound is a few microseconds, below the launch latency
+// and the wrapper's host time.
 //
-// Design. Two kernels, chosen per call by plan_fwd:
-//   * Tensor cores at f32 accuracy in both: Q K^T and P V are m16n8k8 TF32
-//     `mma.sync` products in 3xTF32 form (mma_tf32x3.cuh). The scale and
-//     the -1e30 mask bias are applied to the f32 accumulator afterwards.
-//     cp.async double-buffers the k/v tiles (tile i+1 is in flight while
-//     tile i is multiplied), and the mask is read as the bool bytes it is.
-//   * Narrow (D <= 64; the self- and cross-attention shapes, D = 32): each
-//     warp owns 16 query rows (FA2's layout) and computes its S slab
-//     (16 x 64 keys) over all of D, the online softmax (m, l per row) and
-//     O (16 x D) in registers; P reaches its own P V product through a slab
-//     of shared memory only it touches. Up to 4 warps (64 rows) share each
-//     k/v tile: two block barriers per tile.
-//   * Wide (D > 64; the AttnBlock shapes, D = 256): a block of 8 warps owns
-//     16 query rows and, where the grid would otherwise hold fewer than two
-//     blocks per SM, one chunk of >= 64 of the D output columns (grid z):
-//     the AttnBlock shape (B*H = 4, Tq = 256) runs 4 x 16 x 4 = 256 blocks
-//     instead of 64, each recomputing the scores of its rows. For S over a
-//     key tile of BK keys each warp computes a 16 x 16 slab over a share of
-//     D (each A fragment split once for two products; the partial sums meet
-//     in shared memory); the warp owning a row keeps its (m, l) in
-//     registers and passes alpha and P through shared memory; for
-//     O += P V the warps split the output columns, O in registers.
-//   * Shared memory and tiles: two blocks per SM where it fits (the wide
-//     kernel at D = 256: 112 KB, BK = 32), three for the narrow one.
+// Design, D <= 512 (every f32 call of the paths but test_config_large's
+// D=1024): `flash_fwd_tf32_kernel` below, after the bf16 kernels, on TF32
+// wgmma in 3xTF32 form (wgmma_tf32.cuh). D > 512 keeps `flash_fwd_kernel`
+// here: m16n8k8 TF32 `mma.sync` in 3xTF32 form (mma_tf32x3.cuh), a block of
+// 8 warps on 16 query rows and, where the grid would otherwise hold fewer
+// than two blocks per SM, one chunk of >= 64 of the D output columns (grid
+// z), each recomputing the scores of its rows; cp.async double-buffers the
+// k/v tiles. At test_config_large's 8x8 calls (D=1024) it took 0.899 ms per
+// evaluation against SDPA's 1.191 (chip_smoke.py, NVIDIA H100 80GB HBM3,
+// 700 W).
 //
-// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section 6):
-// ptxas reports no spills and no stack frame in any instantiation (narrow
-// <4> at D = 32: 104 registers; wide <1>: 95). Per launch at B = 4 the
-// self 16x16 shape takes ~31 us (SDPA ~28 us) and the AttnBlock 16x16
-// ~56 us (SDPA ~40 us): the wide kernel's 16-row blocks are latency-bound
-// (8 key tiles x 4 barriers per block) and its TF32 splits cost ~4
-// instructions per mma. The 4x4 shapes are paced by the wrapper's host
-// time (16-24 us a call on that machine's host).
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_f32_ab.py, device
+// time by CUDA-graph replay, against the mma.sync kernels these replace and
+// SDPA): the AttnBlock 32x32 of test_config (B=4, D=512) 0.396 ms a call
+// (mma.sync 1.244, SDPA 0.274: the route's bound is 0.052), its 8 heads of
+// 64 at 32x32 0.190 (0.381, SDPA 0.326); per test_config PC step 9.14 ms
+// (23.40, SDPA 10.66); per L=128 PC step 0.653 ms (1.015, SDPA 0.868), the
+// AttnBlock 16x16 there 35.6 us (55.1, SDPA 38.6). ptxas: no spill, no
+// stack frame (128-228 registers).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,17 +41,16 @@
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace t2p;
 
-constexpr int NARROW_WARPS = 4;  // most warps a block of the narrow kernel
-
-// per-call choices: which kernel, key tile rows, pipeline stages, output
-// column chunks, and the launch shape
+// per-call choices of the D > 512 kernel: key tile rows, pipeline stages,
+// output column chunks, and the launch shape
 struct FwdPlan {
-  int narrow, bk, stages, nchunk, dc, ntw, threads;
+  int bk, stages, nchunk, dc, ntw;
   dim3 grid;
   size_t smem;
 };
@@ -80,41 +63,8 @@ size_t fwd_smem(int D, int dc, int bk, int stages) {
           (size_t)(kp + 1) * ROWS * pad_ld(bk) + 2 * ROWS);
 }
 
-// SMs of the current device, cached per device
-int sm_count() {
-  static int cached[MAX_DEVICES] = {};
-  const int slot = current_device();
-  int sms = slot < 0 ? 0 : cached[slot];
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess ||
-        sms <= 0)
-      sms = 132;
-    if (slot >= 0) cached[slot] = sms;
-  }
-  return sms;
-}
-
 FwdPlan plan_fwd(int B, int H, int Tq, int Tk, int D) {
   FwdPlan p{};
-  if (D <= 64) {  // the narrow kernel: 16 query rows a warp
-    const int warps = min(NARROW_WARPS, (Tq + ROWS - 1) / ROWS);
-    p.narrow = 1;
-    p.bk = 8;
-    while (p.bk < 64 && p.bk < Tk) p.bk *= 2;
-    p.stages = 2;
-    p.nchunk = 1;
-    p.dc = D;
-    p.threads = 32 * warps;
-    p.grid = dim3(B * H, (Tq + ROWS * warps - 1) / (ROWS * warps), 1);
-    p.smem = sizeof(float) * ((size_t)warps * ROWS * pad_ld(D) +
-                              (size_t)2 * 2 * p.bk * pad_ld(D) +
-                              (size_t)warps * ROWS * pad_ld(p.bk));
-    return p;
-  }
-  p.threads = NT;
   const long blocks = (long)B * H * ((Tq + ROWS - 1) / ROWS);
   p.nchunk = 1;
   while (blocks * p.nchunk < 2L * sm_count() && D % (16 * p.nchunk) == 0 &&
@@ -314,187 +264,19 @@ __global__ void __launch_bounds__(NT, NTW <= 4 ? 2 : 1) flash_fwd_kernel(
   }
 }
 
-// The narrow kernel, for D <= 64: each warp owns 16 query rows outright
-// (FA2's layout). It computes its S slab (16 x BK) over all of D, keeps the
-// online-softmax state and O (16 x D) in registers, and passes P to its own
-// P V product through a slab of shared memory that only it touches; the
-// warps of a block (up to 4, 64 rows) share the k/v tiles, so a key tile
-// costs two block barriers. Same signature as the wide kernel (D, dc and
-// stages are fixed by ND and unused).
-template <int ND>
-__global__ void __launch_bounds__(NARROW_WARPS * 32, 3) flash_fwd_narrow_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const unsigned char* __restrict__ mask,
-    float* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
-    int, int, int bk, int, float scale) {
-  constexpr int D = 8 * ND;
-  constexpr int ldd = D + 4;
-  extern __shared__ __align__(16) float smem[];
-  const int warps = blockDim.x >> 5;
-  const int rows = warps * ROWS;
-  const int ldp = pad_ld(bk), nn = bk >> 3;
-  const int stage_floats = 2 * bk * ldd;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  float* sq = smem;                          // rows x ldd
-  float* stage0 = sq + rows * ldd;           // 2 stages x (k, v tiles)
-  float* spw = stage0 + 2 * stage_floats + warp * ROWS * ldp;  // this warp's P
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * rows;
-  const float* qb = q + (size_t)bh * Tq * D;
-  const float* kb = k + (size_t)bh * Tk * D;
-  const float* vb = v + (size_t)bh * Tk * D;
-  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
-  const int ntiles = (Tk + bk - 1) / bk;
-
-  auto load_kv = [&](int it, int s) {
-    float* sk = stage0 + s * stage_floats;
-    load_tile_async(sk, ldd, kb, D, it * bk, bk, Tk, 0, D);
-    load_tile_async(sk + bk * ldd, ldd, vb, D, it * bk, bk, Tk, 0, D);
-  };
-  load_tile_async(sq, ldd, qb, D, q0, rows, Tq, 0, D);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const float* sqw = sq + warp * ROWS * ldd;
-  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
-  float o[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sk = stage0 + (it & 1) * stage_floats;
-    const float* sv = sk + bk * ldd;
-
-    float sc[8][4];  // S (16 x bk <= 64) as 8 accumulator fragments
-#pragma unroll
-    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < ND; ++kk) {
-      float fa[4];
-      load_a(fa, sqw, ldd, kk * 8, lane);
-      const SplitA a = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (n < nn) {
-          float fb[2];
-          load_bt(fb, sk, ldd, n * 8, kk * 8, lane);
-          mma_3xtf32(sc[n], a, fb);
-        }
-    }
-
-    // scale and mask bias, then the online softmax of rows g and g + 8
-    const int k0 = it * bk;
-    float mx[2] = {-1e30f, -1e30f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
-        sc[n][i] = sc[n][i] * scale + (live ? 0.f : -1e30f);
-        mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
-      }
-    float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_new[r] = fmaxf(m_r[r], mx[r]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
-        const float p = live ? expf(sc[n][i] - m_new[i >> 1]) : 0.f;
-        sc[n][i] = p;
-        sum[i >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      alpha[r] = expf(m_r[r] - m_new[r]);
-      l_r[r] = l_r[r] * alpha[r] + sum[r];
-      m_r[r] = m_new[r];
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, P through this warp's slab of shared memory
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (n < nn) store_c(spw, ldp, n * 8, sc[n], lane);
-    __syncwarp();
-    for (int kk = 0; kk < bk; kk += 8) {
-      float fa[4];
-      load_a(fa, spw, ldp, kk, lane);
-      const SplitA a = split_a(fa);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        float fb[2];
-        load_bn(fb, sv, ldd, n * 8, kk, lane);
-        mma_3xtf32(o[n], a, fb);
-      }
-    }
-    __syncthreads();  // the stage is read; the next prefetch may refill it
-  }
-
-  float* ob = out + (size_t)bh * Tq * D;
-  const int row = q0 + warp * ROWS + g;
-  const float l_top = fmaxf(l_r[0], 1e-30f), l_bot = fmaxf(l_r[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row < Tq)
-      *reinterpret_cast<float2*>(ob + (size_t)row * D + col) =
-          make_float2(o[n][0] / l_top, o[n][1] / l_top);
-    if (row + 8 < Tq)
-      *reinterpret_cast<float2*>(ob + (size_t)(row + 8) * D + col) =
-          make_float2(o[n][2] / l_bot, o[n][3] / l_bot);
-  }
-  if (t == 0) {
-    if (row < Tq) lse[(size_t)bh * Tq + row] = m_r[0] + logf(l_top);
-    if (row + 8 < Tq) lse[(size_t)bh * Tq + row + 8] = m_r[1] + logf(l_bot);
-  }
-}
 
 using FwdKernel = void (*)(const float*, const float*, const float*,
                            const unsigned char*, float*, float*, int, int,
                            int, int, int, int, int, float);
 
-// every instantiation: the wide kernel for NTW = 1, 2, 4, 8, 16, then the
-// narrow one for D = 8, 16, ..., 64
-constexpr FwdKernel KERNELS[] = {
-    flash_fwd_kernel<1>,        flash_fwd_kernel<2>,
-    flash_fwd_kernel<4>,        flash_fwd_kernel<8>,
-    flash_fwd_kernel<16>,       flash_fwd_narrow_kernel<1>,
-    flash_fwd_narrow_kernel<2>, flash_fwd_narrow_kernel<3>,
-    flash_fwd_narrow_kernel<4>, flash_fwd_narrow_kernel<5>,
-    flash_fwd_narrow_kernel<6>, flash_fwd_narrow_kernel<7>,
-    flash_fwd_narrow_kernel<8>};
+// every instantiation of the D > 512 kernel, by NTW = 1, 2, 4, 8, 16
+constexpr FwdKernel KERNELS[] = {flash_fwd_kernel<1>, flash_fwd_kernel<2>,
+                                 flash_fwd_kernel<4>, flash_fwd_kernel<8>,
+                                 flash_fwd_kernel<16>};
 constexpr int NKERNELS = sizeof(KERNELS) / sizeof(KERNELS[0]);
 
 // index into KERNELS of a plan
-int kernel_index(const FwdPlan& p, int D) {
-  if (p.narrow) return 5 + D / 8 - 1;
+int kernel_index(const FwdPlan& p) {
   return p.ntw <= 1 ? 0 : p.ntw <= 2 ? 1 : p.ntw <= 4 ? 2 : p.ntw <= 8 ? 3 : 4;
 }
 
@@ -513,53 +295,6 @@ bool valid_shape(int B, int H, int Tq, int Tk, int D) {
 }
 
 }  // namespace
-
-// q: (B,H,Tq,D), k, v: (B,H,Tk,D), out: (B,H,Tq,D), lse: (B*H,Tq) float32,
-// all contiguous on the device and 16-byte aligned; mask: (B,Tk) bool bytes
-// (1 = attend) or null. D is a multiple of 8 and at most 1024. Launches on
-// `stream` and returns the launch's error code (0 = launched).
-extern "C" int t2p_flash_fwd_f32(const void* q, const void* k, const void* v,
-                                 const void* mask, void* out, void* lse, int B,
-                                 int H, int Tq, int Tk, int D, float scale,
-                                 void* stream) {
-  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  if (!aligned16({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
-  const FwdPlan p = plan_fwd(B, H, Tq, Tk, D);
-  const int idx = kernel_index(p, D);
-  cudaError_t err = prepare(idx, p.smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  KERNELS[idx]<<<p.grid, p.threads, p.smem, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
-      static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, D, p.dc,
-      p.bk, p.stages, scale);
-  return (int)cudaGetLastError();
-}
-
-// The launch plan of a call, for reports: out = {key tile rows, pipeline
-// stages, column chunks, blocks, dynamic shared bytes, blocks per SM,
-// threads per block, narrow (1) or wide (0) kernel}.
-extern "C" int t2p_flash_fwd_plan(int B, int H, int Tq, int Tk, int D,
-                                  int* out) {
-  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  const FwdPlan p = plan_fwd(B, H, Tq, Tk, D);
-  const int idx = kernel_index(p, D);
-  int per_sm = -1;
-  if (prepare(idx, p.smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, KERNELS[idx], p.threads, p.smem) != cudaSuccess)
-    per_sm = -1;
-  out[0] = p.bk;
-  out[1] = p.stages;
-  out[2] = p.nchunk;
-  out[3] = (int)(p.grid.x * p.grid.y * p.grid.z);
-  out[4] = (int)p.smem;
-  out[5] = per_sm;
-  out[6] = p.threads;
-  out[7] = p.narrow;
-  return 0;
-}
 
 // ------------------------------------------------------------------ bf16
 //
@@ -1292,5 +1027,463 @@ extern "C" int t2p_flash_fwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
   out[7] = per_sm;
   out[8] = wgmma ? w.threads : 32 * p.warps;
   out[9] = wgmma;
+  return 0;
+}
+
+// ------------------------------------------------------- f32, TF32 wgmma
+//
+// The f32 forward for D <= 512: TF32 wgmma in 3xTF32 form, TMA tiles, the
+// transposes and lo tiles of the B operands made in shared memory
+// (wgmma_tf32.cuh says why the operands look as they do).
+//
+// Design. A block owns 64 query rows and a chunk of up to NOB 32-column
+// boxes of O (grid z; 8 boxes, 256 columns, are 128 f32 registers a
+// thread); Q stays in shared memory for the whole walk of the keys (all of
+// D). Up to D = 128 the block is one warpgroup; above, two warpgroups split
+// the key tiles (tiles w, w + 2, ...), each with its own TMA rings, online
+// softmax state and O, sharing Q, and the first merges the second's
+// (m, l, O) at the end in a fixed order: 8 warps an SM where one block of
+// 4 left the tensor cores idle through each step's barriers and
+// conversions (on an H100 it cut the AttnBlock 16x16 at L=128, D = 256,
+// by about 40%). A warpgroup walks its key tiles in steps, each one stage
+// of one of two TMA rings:
+//   * K steps: `kc` boxes of the K tile. The warpgroup writes their lo
+//     tile, then S (64 x BK) += Q K^T over those boxes as RS wgmmas: Q's A
+//     fragments are read from the resident tile and split in registers a
+//     box at a time, K read as it arrived (hi) and from the lo tile.
+//   * the online softmax of S (log2 units, one exp2f a score; the key mask
+//     read once a tile into a bit set per thread), P split into hi and lo
+//     A fragments in registers.
+//   * V steps: `vc` boxes of the V tile, transposed into Vt hi and lo tiles
+//     (keys in k-slot order), then O (those boxes) += P V as RS wgmmas.
+// A slot is refilled by the warpgroup's thread 0 `nst` (2 or 3) steps
+// ahead, as soon as the warpgroup is done with it.
+// Sizes: BK = 64 keys a tile for D <= 64 (a block then holds 2 boxes of O),
+// 32 above. The plan takes the largest steps that fit (every step costs
+// two barriers and a drain of the wgmma pipeline), then a third slot: 80
+// KB at D = 32 (kc 1, vc 1, three slots), 96 KB at D = 64 (kc 2, vc 1),
+// 112 KB at D = 128 (kc 4, vc 2): two blocks an SM; one block of two
+// warpgroups at D = 256 (224 KB, kc 4, vc 2) and at D = 512 (208 KB, kc 2,
+// vc 1: Q alone is 128 KB). Where the grid would leave SMs empty, the
+// blocks of a row tile split O's boxes (grid z), each computing S: the
+// AttnBlock 16x16 at L=128 (16 row tiles) runs 128 blocks of one box. At
+// D = 512 the two z-chunks of 256 columns each compute S: S twice per
+// 64-row tile (the old kernel: per 16 rows, twice).
+// What holds it back at D = 512: every K and V tile is converted (lo
+// tile, transpose) by each block that reads it, with a barrier a step; a
+// converted copy made once in device memory needs a scratch buffer that
+// this entry point does not take.
+
+namespace {
+
+using namespace t2p;
+
+// Byte offsets of the forward's shared memory from its 1024-byte aligned
+// base: Q (nbq boxes of 64 rows), then per warpgroup nst K slots of kc
+// boxes, the K lo tile, nst V slots of vc boxes, Vt hi and Vt lo (`wg`
+// bytes a warpgroup), then the mbarriers (Q; K full x nst and V full x nst
+// a warpgroup). The dynamic shared memory of a block with no static shared
+// memory starts 1024-byte aligned (at offset 1024, past the block's
+// reserved kilobyte), which the kernel checks.
+struct TfFwdLayout {
+  uint32_t kraw, klo, vraw, vthi, vtlo, wg, bars, total;
+};
+
+__host__ __device__ inline TfFwdLayout tf_fwd_layout(int nbq, int bk, int kc,
+                                                     int vc, int nst,
+                                                     int nwg) {
+  TfFwdLayout l;
+  const uint32_t kslot = (uint32_t)(kc * bk * 128);
+  const uint32_t vslot = (uint32_t)(vc * bk * 128);
+  l.kraw = (uint32_t)(nbq * WG_ROWS * 128);
+  l.klo = l.kraw + nst * kslot;
+  l.vraw = l.klo + kslot;
+  l.vthi = l.vraw + nst * vslot;
+  l.vtlo = l.vthi + vslot;
+  l.wg = (nst + 1) * kslot + (nst + 2) * vslot;
+  l.bars = l.kraw + nwg * l.wg;
+  l.total = l.bars + 8 * (1 + 2 * nst * nwg);
+  return l;
+}
+
+// The live keys of tile `it` (BK keys) among this thread's accumulator
+// columns: bit 2 j + e is column 8 j + 2 t + e.
+template <int BK>
+__device__ __forceinline__ uint32_t live_bits(const unsigned char* mb, int it,
+                                              int Tk, int t) {
+  if (mb == nullptr && (it + 1) * BK <= Tk) return ~0u;
+  uint32_t live = 0;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = it * BK + 8 * j + 2 * t + e;
+      if (key < Tk && (mb == nullptr || mb[key])) live |= 1u << (2 * j + e);
+    }
+  return live;
+}
+
+// NWG warpgroups of a block split the key tiles (warpgroup w takes tiles
+// w, w + NWG, ...), each with its own online-softmax state, O and TMA
+// rings, and share the resident Q; at the end the first merges the
+// others' (m, l, O) into its own, in a fixed order.
+template <int BK, int NOB, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1) flash_fwd_tf32_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const unsigned char* __restrict__ mask, float* __restrict__ out,
+    float* __restrict__ lse, int H, int Tq, int Tk, int D, int cb, int kc,
+    int vc, int nst, float scale) {
+  constexpr int NS = BK / 2;  // S accumulator floats a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nbox = f32_boxes(D);
+  const int nks = (nbox + kc - 1) / kc, nbq = nks * kc;
+  const TfFwdLayout L = tf_fwd_layout(nbq, BK, kc, vc, nst, NWG);
+  const uint32_t base = smem_u32(smem_raw);
+  if (base & 1023u) __trap();  // the swizzled tiles need 1024-byte bases
+  const uint32_t kslot = (uint32_t)(kc * BK * 128);
+  const uint32_t vslot = (uint32_t)(vc * BK * 128);
+  const int bh = blockIdx.x, q0 = blockIdx.y * WG_ROWS;
+  const int ob0 = blockIdx.z * cb, nob = min(cb, nbox - ob0);
+  const int nvs = (nob + vc - 1) / vc;  // V steps a tile
+  const int ntiles = (Tk + BK - 1) / BK;
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it
+  // uniform across the warp (a wgmma under a branch it cannot prove uniform
+  // is serialized)
+  const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+  const int ct = threadIdx.x & 127, lane = ct & 31, warp = ct >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mytiles = (ntiles - wg + NWG - 1) / NWG;  // tiles wg, wg + NWG..
+  const int nk_steps = mytiles * nks, nv_steps = mytiles * nvs;
+  const uint32_t my = base + wg * L.wg;  // this warpgroup's buffers - kraw
+  // K full x nst, then V full x nst, of this warpgroup
+  const uint32_t bar_q = base + L.bars, bar = bar_q + 8 + 16 * nst * wg;
+  const uint32_t vbar = bar + 8 * nst;
+
+  // thread 0 of the warpgroup issues its copies: K step s (its tile s / nks,
+  // boxes of chunk s % nks) into K slot s % nst; V step s likewise
+  auto load_k = [&](int s) {
+    const int it = wg + NWG * (s / nks), c = s % nks;
+    const uint32_t full = bar + 8 * (s % nst);
+    const uint32_t dst = my + L.kraw + (s % nst) * kslot;
+    mbar_expect_tx(full, kslot);
+    for (int b = 0; b < kc; ++b)
+      tma_load(dst + b * BK * 128, &tm_k, full, (c * kc + b) * F32_BOX,
+               it * BK, bh);
+  };
+  auto load_v = [&](int s) {
+    const int it = wg + NWG * (s / nvs), c = s % nvs;
+    const uint32_t full = vbar + 8 * (s % nst);
+    const uint32_t dst = my + L.vraw + (s % nst) * vslot;
+    mbar_expect_tx(full, vslot);
+    for (int b = 0; b < vc; ++b)
+      tma_load(dst + b * BK * 128, &tm_v, full,
+               (ob0 + c * vc + b) * F32_BOX, it * BK, bh);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + 2 * nst * NWG; ++i) mbar_init(bar_q + 8 * i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, (uint32_t)(nbq * WG_ROWS * 128));
+    for (int b = 0; b < nbq; ++b)
+      tma_load(base + b * WG_ROWS * 128, &tm_q, bar_q, b * F32_BOX, q0, bh);
+  }
+  if (ct == 0) {
+    for (int s = 0; s < nst && s < nk_steps; ++s) load_k(s);
+    for (int s = 0; s < nst && s < nv_steps; ++s) load_v(s);
+  }
+
+  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
+  const float scale2 = scale * LOG2E;
+  float o[NOB][16];
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[n][i] = 0.f;
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];
+
+  mbar_wait(bar_q, 0);
+  for (int i = 0; i < mytiles; ++i) {
+    const int it = wg + NWG * i;
+    float sc[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) sc[j] = 0.f;
+    for (int c = 0; c < nks; ++c) {
+      const int s = i * nks + c;
+      const uint32_t kr = my + L.kraw + (s % nst) * kslot;
+      mbar_wait(bar + 8 * (s % nst), (s / nst) & 1);
+      lo_tile(my + L.klo, kr, kslot, ct);
+      fence_proxy_async();
+      wg_sync(wg);
+      issue_abt(sc, base + c * kc * WG_ROWS * 128, kr, my + L.klo, kc, BK,
+                warp, g, t);
+      wg_sync(wg);  // the slot and the lo tile are read
+      if (ct == 0 && s + nst < nk_steps) load_k(s + nst);
+    }
+
+    float m_new[2], sum[2], alpha[2];
+    softmax_tile(sc, live_bits<BK>(mb, it, Tk, t), scale2, m_r, m_new, sum);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      alpha[r] = exp2f(m_r[r] - m_new[r]);
+      l_r[r] = l_r[r] * alpha[r] + sum[r];
+      m_r[r] = m_new[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NOB; ++n)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) o[n][j] *= alpha[(j >> 1) & 1];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) acc_to_a(sc, j, ph[j], pl[j]);
+
+    for (int c = 0; c < nvs; ++c) {
+      const int s = i * nvs + c;
+      const uint32_t vr = my + L.vraw + (s % nst) * vslot;
+      mbar_wait(vbar + 8 * (s % nst), (s / nst) & 1);
+      transpose_tile(my + L.vthi, my + L.vtlo, vr, BK, vc, ct);
+      fence_proxy_async();
+      wg_sync(wg);
+      if (ct == 0 && s + nst < nv_steps) load_v(s + nst);  // the slot is read
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_a(ph);
+      fence_a(pl);
+      wgmma_fence();
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) {
+        const int b = n - c * vc;  // this step's box b of the chunk's n
+        if (b >= 0 && b < vc && n < nob) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+            const uint32_t off =
+                (uint32_t)((((j >> 2) * vc) + b) * 4096 + (j & 3) * 32);
+            wgmma_3x(o[n], ph[j], pl[j], sw128_desc(my + L.vthi + off),
+                     sw128_desc(my + L.vtlo + off));
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
+      fence_a(ph);
+      fence_a(pl);
+      wg_sync(wg);  // Vt is read: the next step may rewrite it
+    }
+  }
+
+  if (NWG > 1) {
+    // the other warpgroups' (m, l, O), thread by thread (the same rows and
+    // columns in every warpgroup), through their own buffers, which every
+    // warpgroup is done with after the block barrier
+    __syncthreads();
+    constexpr int NV = 4 + 16 * NOB;
+    float* xs = reinterpret_cast<float*>(smem_raw + L.kraw);
+    if (wg > 0) {
+      float* mine = xs + (size_t)(wg - 1) * NV * 128;
+      mine[0 * 128 + ct] = m_r[0];
+      mine[1 * 128 + ct] = m_r[1];
+      mine[2 * 128 + ct] = l_r[0];
+      mine[3 * 128 + ct] = l_r[1];
+#pragma unroll
+      for (int n = 0; n < NOB; ++n)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          mine[(4 + 16 * n + j) * 128 + ct] = o[n][j];
+    }
+    __syncthreads();
+    if (wg > 0) return;
+    for (int w = 1; w < NWG; ++w) {
+      const float* other = xs + (size_t)(w - 1) * NV * 128;
+      float a_me[2], a_ot[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_ot = other[r * 128 + ct];
+        const float m = fmaxf(m_r[r], m_ot);
+        a_me[r] = exp2f(m_r[r] - m);
+        a_ot[r] = exp2f(m_ot - m);
+        l_r[r] = l_r[r] * a_me[r] + other[(2 + r) * 128 + ct] * a_ot[r];
+        m_r[r] = m;
+      }
+#pragma unroll
+      for (int n = 0; n < NOB; ++n)
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          o[n][j] = o[n][j] * a_me[(j >> 1) & 1] +
+                    other[(4 + 16 * n + j) * 128 + ct] * a_ot[(j >> 1) & 1];
+    }
+  }
+
+  float* ob = out + (size_t)bh * Tq * D;
+  const int row = q0 + 16 * warp + g;
+  const float l_div[2] = {fmaxf(l_r[0], 1e-30f), fmaxf(l_r[1], 1e-30f)};
+#pragma unroll
+  for (int n = 0; n < NOB; ++n)
+    if (n < nob) {
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int r = (i >> 1) & 1;
+        const int col = (ob0 + n) * F32_BOX + 8 * (i >> 2) + 2 * t;
+        if (row + 8 * r < Tq && col < D)
+          *reinterpret_cast<float2*>(ob + (size_t)(row + 8 * r) * D + col) =
+              make_float2(o[n][i] / l_div[r], o[n][i + 1] / l_div[r]);
+      }
+    }
+  // lse = m + log(l) in natural units; a fully masked row keeps the JAX
+  // kernel's m = -1e30 exactly (its log2-unit maximum never left -1e30)
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row + 8 * r < Tq)
+        lse[(size_t)bh * Tq + row + 8 * r] =
+            (m_r[r] <= -1e30f ? -1e30f : m_r[r] * LN2) + logf(l_div[r]);
+  }
+}
+
+using TfFwdKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                             const CUtensorMap, const unsigned char*, float*,
+                             float*, int, int, int, int, int, int, int, int,
+                             float);
+
+// D <= 64 (64-key tiles, 2 boxes of O), D <= 128 (32-key tiles, 4 boxes),
+// D <= 256 (32-key tiles, 8 boxes), D <= 512 (the same, two warpgroups)
+constexpr TfFwdKernel TF_KERNELS[] = {
+    flash_fwd_tf32_kernel<64, 2, 1>, flash_fwd_tf32_kernel<32, 4, 1>,
+    flash_fwd_tf32_kernel<32, 8, 1>, flash_fwd_tf32_kernel<32, 8, 2>};
+constexpr int TF_NWG[] = {1, 1, 1, 2};
+
+struct TfPlan {
+  int idx, bk, nob, nwg, cb, nz, kc, vc, nst;
+  dim3 grid;
+  size_t smem;
+};
+
+// The plan of a call on the TF32 route: the instantiation (two warpgroups
+// splitting the key tiles above D = 128), the boxes a block owns (cb) and
+// z-chunks, then the largest steps (kc, vc): two blocks an SM up to
+// D = 128, one above (Q alone takes 64-128 KB).
+bool plan_fwd_tf(TfPlan& p, int B, int H, int Tq, int Tk, int D) {
+  if (!tf32_route(Tq, Tk, D)) return false;
+  const int nbox = f32_boxes(D);
+  p.idx = nbox <= 2 ? 0 : nbox <= 4 ? 1 : 3;
+  p.bk = p.idx == 0 ? 64 : 32;
+  p.nob = p.idx == 0 ? 2 : p.idx == 1 ? 4 : 8;
+  p.nwg = TF_NWG[p.idx];
+  const long rows = (long)B * H * ((Tq + WG_ROWS - 1) / WG_ROWS);
+  p.nz = (nbox + p.nob - 1) / p.nob;
+  p.cb = (nbox + p.nz - 1) / p.nz;
+  while (p.cb > 1 && rows * 2 * p.nz <= sm_count()) {
+    p.nz *= 2;
+    p.cb = (nbox + p.nz - 1) / p.nz;
+  }
+  p.nz = (nbox + p.cb - 1) / p.cb;
+  // the largest steps first (every step costs two barriers and a drain of
+  // the wgmma pipeline), then a third ring slot where it fits
+  const size_t limit = nbox > 4 ? 227 * 1024 : 113 * 1024;
+  p.kc = p.vc = 1;
+  p.nst = 2;
+  bool found = false;
+  for (int kc : {4, 2, 1})
+    for (int vc : {2, 1})
+      for (int nst : {3, 2})
+        if (!found && kc <= nbox && vc <= p.cb &&
+            tf_fwd_layout((nbox + kc - 1) / kc * kc, p.bk, kc, vc, nst, p.nwg)
+                    .total <= limit) {
+          p.kc = kc;
+          p.vc = vc;
+          p.nst = nst;
+          found = true;
+        }
+  p.smem = tf_fwd_layout((nbox + p.kc - 1) / p.kc * p.kc, p.bk, p.kc, p.vc,
+                         p.nst, p.nwg)
+               .total;
+  p.grid = dim3(B * H, (Tq + WG_ROWS - 1) / WG_ROWS, p.nz);
+  return true;
+}
+
+cudaError_t prepare_tf(int idx, size_t smem) {
+  static size_t opted[MAX_DEVICES][4] = {};
+  const int dev = current_device();
+  if (dev < 0) return cudaErrorInvalidDevice;
+  return opt_in(TF_KERNELS[idx], smem, &opted[dev][idx]);
+}
+
+}  // namespace
+
+// q: (B,H,Tq,D), k, v: (B,H,Tk,D), out: (B,H,Tq,D), lse: (B*H,Tq) float32,
+// all contiguous on the device and 16-byte aligned; mask: (B,Tk) bool bytes
+// (1 = attend) or null. D is a multiple of 8 and at most 1024. Launches on
+// `stream` and returns the launch's error code (0 = launched).
+extern "C" int t2p_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                 const void* mask, void* out, void* lse, int B,
+                                 int H, int Tq, int Tk, int D, float scale,
+                                 void* stream) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  if (!aligned16({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  TfPlan w{};
+  if (plan_fwd_tf(w, B, H, Tq, Tk, D)) {
+    CUtensorMap mq, mk, mv;
+    if (!tensor_map_f32(&mq, q, B * H, Tq, D, WG_ROWS) ||
+        !tensor_map_f32(&mk, k, B * H, Tk, D, w.bk) ||
+        !tensor_map_f32(&mv, v, B * H, Tk, D, w.bk))
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = prepare_tf(w.idx, w.smem);
+    if (err != cudaSuccess) return (int)err;
+    TF_KERNELS[w.idx]<<<w.grid, 128 * w.nwg, w.smem, s>>>(
+        mq, mk, mv, static_cast<const unsigned char*>(mask),
+        static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, D,
+        w.cb, w.kc, w.vc, w.nst, scale);
+    return (int)cudaGetLastError();
+  }
+  const FwdPlan p = plan_fwd(B, H, Tq, Tk, D);
+  const int idx = kernel_index(p);
+  cudaError_t err = prepare(idx, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  KERNELS[idx]<<<p.grid, NT, p.smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const unsigned char*>(mask),
+      static_cast<float*>(out), static_cast<float*>(lse), H, Tq, Tk, D, p.dc,
+      p.bk, p.stages, scale);
+  return (int)cudaGetLastError();
+}
+
+// The launch plan of a call, for reports: out = {key tile rows, pipeline
+// stages, column chunks (blocks of a row tile, each computing S), blocks,
+// dynamic shared bytes, blocks per SM, threads per block, narrow (D <= 64,
+// 64-key tiles), wgmma (1: TF32 wgmma; 0: the mma.sync kernel of D > 512),
+// K boxes a step, blocks of a cluster (1), clusters held at once (-1: no
+// cluster)}.
+extern "C" int t2p_flash_fwd_plan(int B, int H, int Tq, int Tk, int D,
+                                  int* out) {
+  if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
+  TfPlan w{};
+  int per_sm = -1;
+  if (plan_fwd_tf(w, B, H, Tq, Tk, D)) {
+    if (prepare_tf(w.idx, w.smem) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, TF_KERNELS[w.idx], 128 * w.nwg, w.smem) != cudaSuccess)
+      per_sm = -1;
+    const int v[12] = {w.bk, w.nst, w.nz,
+                       (int)(w.grid.x * w.grid.y * w.grid.z),
+                       (int)w.smem, per_sm, 128 * w.nwg, w.idx == 0, 1, w.kc,
+                       1, -1};
+    for (int i = 0; i < 12; ++i) out[i] = v[i];
+    return 0;
+  }
+  const FwdPlan p = plan_fwd(B, H, Tq, Tk, D);
+  const int idx = kernel_index(p);
+  if (prepare(idx, p.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, KERNELS[idx], NT, p.smem) != cudaSuccess)
+    per_sm = -1;
+  const int v[12] = {p.bk, p.stages, p.nchunk,
+                     (int)(p.grid.x * p.grid.y * p.grid.z), (int)p.smem,
+                     per_sm, NT, 0, 0, 0, 1, -1};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }

@@ -1,6 +1,11 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
-// for Hopper (sm_90a): f32 products on the tensor cores in 3xTF32 form,
-// cp.async tile copies, and the tile loops both kernels share.
+// for Hopper (sm_90a): f32 products on the tensor cores in 3xTF32 form as
+// `mma.sync`, cp.async tile copies, and the tile loops both kernels share.
+// Which calls use it: the f32 kernels of D > 512 (`flash_fwd_kernel`,
+// `flash_bwd_{dq,dkdv}_kernel`: test_config_large's D = 1024 AttnBlock);
+// every f32 call with D <= 512 takes the TF32 wgmma kernels of
+// wgmma_tf32.cuh, which share this header's host helpers (current_device,
+// opt_in, aligned16) and nothing of its device code.
 //
 // 3xTF32. `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32` multiplies
 // TF32 operands (10 explicit mantissa bits) into an f32 accumulator. Each

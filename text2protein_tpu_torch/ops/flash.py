@@ -38,6 +38,7 @@ _BWD_FUNCTIONS = {
     "t2p_flash_bwd_bf16": _BWD_ARGS,
     "t2p_flash_bwd_plan": _PLAN_ARGS,
     "t2p_flash_bwd_bf16_plan": _PLAN_ARGS,
+    "t2p_flash_bwd_f32_scratch": (ctypes.c_longlong, [ctypes.c_int] * 5),
 }
 # the C entries' suffix by dtype
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -73,8 +74,13 @@ def _call(fn, device, *args):
 def launch_plan(kind, b, h, tq, tk, d, dtype=torch.float32):
     """The kernel's launch plan for a call of this shape, for reports.
 
-    float32: {key tile, stages, column chunks, blocks, shared bytes, blocks
-    per SM, threads per block, narrow kernel}. bfloat16: {warpgroups (0
+    float32: {inner tile, stages, column chunks (the blocks of one row
+    tile), blocks, shared bytes, blocks per SM, threads per block, narrow
+    (D <= 64), wgmma (1: the TF32 wgmma kernels of D <= 512; 0: the
+    mma.sync ones of D > 512 and of the 4x4 mid block's AttnBlock, Tq =
+    Tk = 16 at D = 256), D boxes of 32 columns a pipeline step,
+    blocks of a cluster, clusters the device holds at once (-1 where no
+    cluster)}. bfloat16: {warpgroups (0
     for the mma.sync kernel of D > 512), column chunks (the
     blocks of one row tile, each computing S), pipeline stages, inner tile
     rows, rows a block owns, blocks, shared bytes, blocks per SM, threads
@@ -98,7 +104,8 @@ def launch_plan(kind, b, h, tq, tk, d, dtype=torch.float32):
 
 
 _PLAN_KEYS = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
-              "threads", "narrow")
+              "threads", "narrow", "wgmma", "step_boxes", "cluster",
+              "max_clusters")
 _BF16_PLAN_KEYS = ("warpgroups", "chunks", "stages", "tile", "rows",
                    "blocks", "smem", "per_sm", "threads", "wgmma")
 
@@ -329,9 +336,13 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None, kv_mask=None):
     if scale is None:
         scale = d**-0.5
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # delta = rowsum(dO * out) in f32: written by the dq kernel, read by dkdv
-    delta = q.new_empty((b * h, tq), dtype=torch.float32)
     suffix = _SUFFIX[q.dtype]
+    # scratch: delta = rowsum(dO * out) in f32, written by the dq kernel and
+    # read by dkdv, and (f32) the exchange buffers of the kernels' clusters
+    floats = b * h * tq
+    if suffix == "f32":
+        floats = _bwd_scratch_floats(b, h, tq, k.shape[2], d)
+    delta = q.new_empty((floats,), dtype=torch.float32)
     _call(_kernel(_BWD_SOURCE, _BWD_FUNCTIONS, "t2p_flash_bwd_" + suffix),
           dev, qp, kp, vp, gp, op, lp, delta.data_ptr(), mp,
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, tq, k.shape[2],
@@ -341,6 +352,14 @@ def flash_attention_bwd(q, k, v, out, lse, g, scale=None, kv_mask=None):
     else:
         flash_attention_bwd.launches_bf16 += 1
     return dq, dk, dv
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_scratch_floats(b, h, tq, tk, d):
+    """Floats of the f32 backward's scratch for a shape (its C entry's
+    count), cached: the wrapper's host time paces the small calls."""
+    return _kernel(_BWD_SOURCE, _BWD_FUNCTIONS,
+                   "t2p_flash_bwd_f32_scratch")(b, h, tq, tk, d)
 
 
 # kernel launches by dtype, read by chip_smoke.py
