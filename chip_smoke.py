@@ -43,7 +43,8 @@ Phases, each printing a flushed line with the seconds since start:
      serving batch 4, the backward at training batch 8), timed as in 3,
      with bounds at the bf16 tensor-core rate: the function's, and that of
      the mma work the kernels issue (S recomputed per column chunk, the
-     split products twice).
+     split products twice); every forward and every backward up to D=512
+     on the wgmma kernels.
   9. serving N=256: a Server with quality_n256.yml's widths (bf16, seeded
      random weights) at batch 4 answers two batches of requests over 10 PC
      steps: maps finite, (5, 256, 256), the length mask as the last
@@ -58,7 +59,7 @@ Phases, each printing a flushed line with the seconds since start:
      beside the bf16-against-f32 gap.
  12. training N=256: `cli/train.main --config configs/quality_n256.yml` as
      written (bf16, remat, featurization on the device, batch 8) on seeded
-     helix records of lengths 128-256, 1 warm-up and 3 timed steps: losses
+     helix records of lengths 128-256, 1 warm-up and 2 timed steps: losses
      finite, weights and EMA moved, exactly 80 bf16 forward (48 + the 32 of
      the transformer blocks' recompute) and 32 bf16 backward launches per
      step (the 16 masked cross-attention calls over the 16-token caption
@@ -79,7 +80,7 @@ Phases, each printing a flushed line with the seconds since start:
      held-out ids from phase 6's records: one pickle per held-out id of
      the first full batch, (1, 5, 128, 128), finite, the length-100 mask
      as the last channel.
- 15. hybrid reference: a short hybrid (3 Heun + 3 PC steps, CFG 2.0) at
+ 15. hybrid reference: a short hybrid (2 Heun + 2 PC steps, CFG 2.0) at
      B=1 at the deployment widths, seeded random weights and injected
      draws: the card with its kernels against the CPU with the plain
      versions, within a tolerance derived from phase 5's per-evaluation
@@ -154,7 +155,7 @@ Phases, each printing a flushed line with the seconds since start:
      pickles (the depth cut to keep the script inside its limit), its
      score.txt files read back by `eval.tm_sweeps.reu_stats`.
  23. distributed: min(cards, 4) ranks (2 of 3), one per card, NCCL, by
-     `parallel.launch.spawn`: 3 train steps of bench_l128_config() at
+     `parallel.launch.spawn`: 2 train steps of bench_l128_config() at
      batch 16 on phase 6's first batches under FSDP2 (mesh.model 1),
      held to the plain one-device steps on rank 0's card (phase 6's bars:
      loss 1e-4, the last step's gradients and the parameters 5e-3 of their
@@ -171,7 +172,7 @@ Phases, each printing a flushed line with the seconds since start:
      every shape of the bench_l128 train step with the pair grid's rows
      split over 2 ranks (batch 16 x 2 stacked ranks: 128 query rows against
      256 gathered keys at 16x16, 8 against 16 and the 64-token caption in
-     the 4x4 mid block), timed as in 3; then 3 train steps of
+     the 4x4 mid block), timed as in 3; then 2 train steps of
      bench_l128_config() at batch 16 (dropout 0.1) with the rows split over
      a `parallel.sequence.StackedRowGroup` of 2 (the `model` ranks stacked
      on the batch axis of one process, which needs only one card) against
@@ -185,7 +186,7 @@ Phases, each printing a flushed line with the seconds since start:
      pair grid's rows split over 2 ranks (batch 8 x 2 stacked ranks: 512,
      128 or 32 query rows against 1024, 256 or 64 gathered keys, or the
      16-token caption), the forward at all 9, the backward at the 6
-     unmasked, timed as in 8; then 3 train steps of quality_n256_config()
+     unmasked, timed as in 8; then 2 train steps of quality_n256_config()
      as written (bf16, remat, featurization on the device, batch 8,
      dropout 0.1) with the rows over a `StackedRowGroup` of 2 against the
      plain steps from the same weights on phase 12's first batches:
@@ -217,9 +218,11 @@ Phases, each printing a flushed line with the seconds since start:
      test_config_large's 8x8 level (batch 2: the AttnBlock at D=1024, heads
      of 128) and at the caption configs' cross-attention (batch 8, heads
      of 32, every bucket from 128 to 512 keys, held only); the bf16
-     forward at test_config_large's 8x8 shapes at batch 1 (D=1024 on the
-     mma.sync kernel) and at bench_l128's cross-attention over 64 keys at
-     batch 16, timed as in 8. Every masked call has a fully masked row.
+     forward at test_config_large's 8x8 shapes at batch 1 (D=1024 on a
+     cluster of two blocks), its backward at batch 2 (D=1024 on the
+     mma.sync kernels) and the forward at every call of bench_l128's bf16
+     PC step at batch 16, timed as in 8. Every masked call has a fully
+     masked row.
  28. reference config: `cli/train.main` on configs/test_config.yml as
      written (f32, N=256, no condition, the 4096-wide caption hashed to
      64-token buckets, batch 2) on 24 N=256 helix records with
@@ -332,7 +335,7 @@ N256_STEPS = 10
 N256_BATCH = 4
 N256_TRAIN_BATCH = 8
 N256_WARMUP = 1
-N256_TIMED = 3
+N256_TIMED = 2
 N256_RECORDS = 72
 N256_MEM_BATCH = 2   # the remat / no-remat peak-memory step
 # a bf16 kernel against its plain version: both round one f32 result to
@@ -427,7 +430,7 @@ SAMPLING_STEPS = 10  # PC steps of the sampling CLI phase
 # the N=256 hybrid: 4 Heun + 6 PC steps, quality_n256.yml has no CFG
 N256_HYBRID = (4, 6)
 N256_HYBRID_NFE = 2 * N256_HYBRID[0] + 2 * N256_HYBRID[1]  # 20
-HYBRID_REF_STEPS = (3, 3)  # the hybrid reference's Heun and PC steps
+HYBRID_REF_STEPS = (2, 2)  # the hybrid reference's Heun and PC steps
 WORK = ROOT / "build" / "chip_smoke"  # training workdirs, samples
 
 # configs/quality_ss.yml (C=8, length + ss + inpainting, f32, batch 16) and
@@ -503,7 +506,7 @@ TEXT_FWD_PER_PC_STEP = sum(s[6] for s in TEXT_PC_SHAPES)  # 36
 # transformer blocks' recompute included); the backward takes one call per
 # attention, every one the kernel (`supports_bwd_cuda`)
 SP_MODEL = 2
-SP_STEPS = 3
+SP_STEPS = 2
 SP_BATCH = TRAIN_BATCH * SP_MODEL
 SP_SHAPES = [
     ("sp_attnblock_16x16", 1, 128, 256, 256, False, 5),
@@ -654,14 +657,14 @@ CAPTION_FAMILY = [
 ]
 CAPTION_RECORDS = {5: 24, 8: 24}   # L=128 records (lengths 64-128) a set
 CAPTION_LENGTH_INDEX = 61          # --select_length: length 100
-# bench.py's default: bench_l128.yml in bf16 at batch 16 (its cross-
-# attention over the 64-key bucket at D=32 had not run in bf16)
+# bench.py's default: bench_l128.yml in bf16 at batch 16, every forward
+# call of its PC step: the flagship's attention over the 64-key caption
+# bucket, the f32 serving path's shapes
 BENCH_BF16_BATCH = 16
 BENCH_BF16_STEPS = 10
-BENCH_BF16_SHAPES = [("cross_16x16", 8, 256, 64, 32, True, 10),
-                     ("cross_mid_4x4", 8, 16, 64, 32, True, 2)]
-# test_config_large in bf16 (bench.py's dtype): its 8x8 calls at batch 1,
-# the AttnBlock at D=1024 on the mma.sync kernels
+BENCH_BF16_SHAPES = PATH_SHAPES
+# test_config_large in bf16 (bench.py's dtype): its 8x8 calls (the
+# AttnBlock at D=1024, heads of 128, the caption's 128-key bucket)
 REF_LARGE_BF16_SHAPES = attn_shapes(((8, 8),), 1024, 128, lambda k, p: p)
 
 
@@ -1634,12 +1637,13 @@ def bf16_mma_flops(kind, b, h, tq, tk, d, plan):
     """The mma work (FLOPs) the bf16 wgmma kernels issue for one call, from
     their launch plan: blocks of `rows` rows and inner tiles of `tile` rows
     (ragged ends padded), S and dP over D rounded to 16 once per column
-    chunk, the products with P and dS (split in two) over D's 64-column
-    boxes."""
+    chunk, the products with P and dS (split in two) over D's boxes (of
+    the plan's `box` columns, 64 where it names none)."""
     def up(x, m):
         return -(-x // m) * m
 
-    d16, dbox = up(d, 16), up(d, 64)
+    box = plan.get("box") or plan.get("dq_box") or 64
+    d16, dbox = up(d, 16), up(d, box)
     if kind == "fwd":
         return 2 * b * h * up(tq, plan["rows"]) * up(tk, plan["tile"]) * (
             d16 * plan["chunks"] + 2 * dbox)
@@ -1649,6 +1653,25 @@ def bf16_mma_flops(kind, b, h, tq, tk, d, plan):
             * up(tq, plan["dkdv_tile"])
             * (2 * d16 * plan["dkdv_chunks"] + 4 * dbox))
     return dq + dkdv
+
+
+def bf16_route(kind, name, d, plan):
+    """The route of a bf16 call from its launch plan: every forward and
+    every backward up to D = 512 on the wgmma kernels (a forward above
+    D = 512 on a cluster of two blocks), the backward above on mma.sync;
+    fails on any other."""
+    if kind == "fwd":
+        want = {"wgmma": 1, "cluster": 2 if d > 512 else 1}
+    else:
+        w = int(d <= 512)
+        want = {"dq_wgmma": w, "dkdv_wgmma": w}
+    got = {k: plan[k] for k in want}
+    if got != want:
+        raise AssertionError(f"bf16 {kind} {name}: D={d} plan {plan}, "
+                             f"expected {want}")
+    if kind == "bwd" and d > 512:
+        return "mma.sync"
+    return "wgmma" + (" cluster 2" if kind == "fwd" and d > 512 else "")
 
 
 N256_BF16_RUNS = (("fwd", N256_SHAPES, N256_BATCH),
@@ -1681,6 +1704,7 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
             scale = d**-0.5
             out, lse = flash.flash_attention_fwd(q, k, v, scale, mask)
             plan = flash.launch_plan(kind, b, h, tq, tk, d, torch.bfloat16)
+            route = bf16_route(kind, name, d, plan)
             attn_mask = None if mask is None else mask[:, None, None, :]
             if kind == "fwd":
                 torch.cuda.synchronize()
@@ -1773,7 +1797,8 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                        library_ms=library_ms,
                        library_device_ms=library_device / 1e3, bytes=nbytes,
                        flops=flops, mma_flops=mma, bound_ms=bound_ms,
-                       bound_by=bound_by, tc_bound_ms=mma_ms, plan=plan)
+                       bound_by=bound_by, tc_bound_ms=mma_ms, route=route,
+                       plan=plan)
             (fwd_rows if kind == "fwd" else bwd_rows).append(row)
             log(f"kernel flash_{kind}_bf16 {name} B={b} H={h} Tq={tq} "
                 f"Tk={tk} D={d} mask={masked}"
@@ -1783,7 +1808,7 @@ def phase_kernels_bf16(torch, ptxas, runs=N256_BF16_RUNS, seed=3):
                 f"{' bwd' if kind == 'bwd' else ''} bf16) {library_ms:.4f} "
                 f"library_device_us {library_device:.1f} "
                 f"bound_ms {bound_ms:.5f} ({bound_by}) mma_bound_ms "
-                f"{mma_ms:.5f} plan {plan}")
+                f"{mma_ms:.5f} route {route} plan {plan}")
         log(f"kernels bf16 {kind}: ptxas registers/spill stores/spill loads "
             f"{register_report(ptxas, kind)}")
     return fwd_rows, bwd_rows
@@ -3064,7 +3089,7 @@ def phase_realize(torch, smi, sampled_dir):
 # phase 23: bench_l128 at batch 16 on a mesh of ranks, one per card (NCCL),
 # against the plain one-device steps on rank 0's card; each layout is one
 # `parallel.launch.spawn` of its ranks
-DIST_STEPS = 3       # train steps of each run (the first warms cuDNN up)
+DIST_STEPS = 2       # train steps of each run (the first warms cuDNN up)
 DIST_GROUP_S = 600   # every collective's time limit (rank 0 runs the plain
 #                      steps while the others wait in their first one)
 DIST_LOSS_TOL = TRAIN_LOSS_TOL   # phase 6's card bars: loss 1e-4,
@@ -3797,8 +3822,9 @@ def phase_kernels_reference(torch, ptxas):
     test_config_large at batch 2 (the AttnBlock at D=1024, heads of 128),
     the caption configs' cross-attention at batch 8 over every bucket from
     128 to 512; the bf16 forward at test_config_large's 8x8 shapes at
-    batch 1 (D=1024 on the mma.sync kernel) and at bench_l128's
-    cross-attention at batch 16."""
+    batch 1 (D=1024 on a cluster of two blocks) and its backward at batch
+    2 (D=1024 on the mma.sync kernels), and the bf16 forward at every
+    call of bench_l128's PC step at batch 16."""
     def other_buckets(shapes, buckets):
         return [(f"{n}_tk{tk}", h, tq, tk, d, m, c)
                 for n, h, tq, _, d, m, c in shapes if m
@@ -3826,8 +3852,10 @@ def phase_kernels_reference(torch, ptxas):
                                 b=CAPTION_BATCH, timed=False)
     caption_bwd = phase_kernels_bwd(torch, CAPTION_SHAPES, b=CAPTION_BATCH,
                                     timed=False)
-    large16_fwd, _ = phase_kernels_bf16(
-        torch, ptxas, runs=(("fwd", REF_LARGE_BF16_SHAPES, 1),), seed=7)
+    large16_fwd, large16_bwd = phase_kernels_bf16(
+        torch, ptxas, runs=(("fwd", REF_LARGE_BF16_SHAPES, 1),
+                            ("bwd", REF_LARGE_BF16_SHAPES, REF_TRAIN_BATCH)),
+        seed=7)
     bench16_fwd, _ = phase_kernels_bf16(
         torch, ptxas, runs=(("fwd", BENCH_BF16_SHAPES, BENCH_BF16_BATCH),),
         seed=9)
@@ -3835,6 +3863,7 @@ def phase_kernels_reference(torch, ptxas):
                 large_bwd_rows=large_bwd, checked=checked,
                 caption_fwd=caption_fwd, caption_bwd=caption_bwd,
                 large_bf16_fwd_rows=large16_fwd,
+                large_bf16_bwd_rows=large16_bwd,
                 bench_bf16_fwd_rows=bench16_fwd)
 
 
@@ -3999,8 +4028,8 @@ def phase_reference_variants(torch, records):
     runs each step; the trainer's checkpoint slots would be 2 x 8 GB and
     2 x 14 GB) on a batch of the records; then test_config_large in bf16
     (bench.py's dtype): one forward at batch 1 with the same weights, the
-    AttnBlock at D=1024 on the bf16 mma.sync kernel, against the same
-    forward with the plain attention."""
+    AttnBlock at D=1024 on the bf16 forward's 2-block clusters, against
+    the same forward with the plain attention."""
     import numpy as np
 
     from text2protein_tpu_torch.cli.serve import Server
@@ -4117,8 +4146,8 @@ def phase_reference_variants(torch, records):
     gap = ((got16 - plain16).abs().max() / plain16.abs().max()).item()
     log(f"reference variants: test_config_large.yml in bf16 (bench.py's "
         f"dtype), one forward at batch 1: {launched[2]} bf16 flash_fwd "
-        f"launches (= 3 x {p}; the 8x8 AttnBlock at D=1024 on the mma.sync "
-        f"kernel), finite; against the same forward with the plain "
+        f"launches (= 3 x {p}; the 8x8 AttnBlock at D=1024 on 2-block "
+        f"clusters), finite; against the same forward with the plain "
         f"attention: rel max diff {gap:.2e} (reported)")
     del model
     torch.cuda.empty_cache()
@@ -4320,12 +4349,17 @@ def check_buckets(*widths):
 
 
 def main():
-    import torch
+    from concurrent.futures import ThreadPoolExecutor
 
-    from text2protein_tpu_torch.data import helix_records
+    # the kernels' nvcc builds run while torch starts on the card
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(phase_build)
+        import torch
 
-    kind, smi = phase_device(torch)
-    ptxas = phase_build()
+        from text2protein_tpu_torch.data import helix_records
+
+        kind, smi = phase_device(torch)
+        ptxas = build.result()
     rows = phase_kernels(torch)
     log(f"kernels f32: ptxas registers/spill stores/spill loads "
         f"{f32_register_report(ptxas)}")
@@ -4389,6 +4423,11 @@ def main():
     def per_step(rs, key):
         return sum(r[key] * r["per_step"] for r in rs)
 
+    def host_per_call(rs):
+        """The wrapper's host microseconds per call, averaged over a
+        step's calls."""
+        return per_step(rs, "host_us") / sum(r["per_step"] for r in rs)
+
     def bound_by(rs, peak=PEAK_F32_S):
         bytes_ms = sum(r["bytes"] / PEAK_BYTES_S * r["per_step"] for r in rs)
         ops_ms = sum(r["flops"] / peak * r["per_step"] for r in rs)
@@ -4419,6 +4458,7 @@ def main():
             # the kernels' device time alone (CUDA graph replay): `ms`
             # less what the wrapper's host time adds to back-to-back calls
             "device_ms": per_step(rs, "device_ms"),
+            "host_us": host_per_call(rs),
             "per": what,
         }
 
@@ -4453,7 +4493,7 @@ def main():
                     **{k: per_step(rs, k) for k in (
                         "ms", "device_ms", "plain_ms", "bound_ms",
                         "library_ms", "library_device_ms", "tc_bound_ms")},
-                    bound_by=bound_by(rs, peak))
+                    host_us=host_per_call(rs), bound_by=bound_by(rs, peak))
 
     sp_what = (f"train step at batch {TRAIN_BATCH} with the grid's rows "
                f"over a stacked group of {SP_MODEL}")
@@ -4489,7 +4529,7 @@ def main():
         "of one bf16 evaluation at batch 1")
     fwd_bf16["bench_l128_bf16"] = per_row_step(
         ref_kernels["bench_bf16_fwd_rows"], f"bench_l128 bf16 PC step at "
-        f"batch {BENCH_BF16_BATCH} (its cross-attention calls)")
+        f"batch {BENCH_BF16_BATCH} (its forward calls)")
     bwd_bf16 = kernel(
         "flash_bwd_bf16", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",
@@ -4504,6 +4544,9 @@ def main():
         f"{SS_BATCH}")
     bwd_bf16["sequence_parallel_n256"] = per_row_step(sequence16["bwd_rows"],
                                                       sp16_what)
+    bwd_bf16["reference_config_large_bf16"] = per_row_step(
+        ref_kernels["large_bf16_bwd_rows"], f"test_config_large's 8x8 calls "
+        f"of one bf16 train step at batch {REF_TRAIN_BATCH}")
     bwd_f32 = kernel(
         "flash_bwd_f32", "text2protein_tpu_torch/ops/csrc/flash_bwd.cu",
         "text2protein_tpu/ops/flash.py:168",

@@ -584,9 +584,9 @@ BF16_SHAPES = [
     (1, 1, 64, 64, 512, False),
     (1, 1, 64, 64, 64, False),
     # configs/quality_ss_vp.yml's train step at L=128, batch 16: the
-    # AttnBlock at D=256 (two warpgroups split D), the transformer's 8 heads
-    # of 32 (padded to 64 by TMA zeros), the caption's 16 keys, the 4x4 mid
-    # block (Tq = 16 in a 64-row block)
+    # AttnBlock at D=256 (the backward's output boxes over grid z), the
+    # transformer's 8 heads of 32 (32-column boxes), the caption's 16 keys,
+    # the 4x4 mid block (Tq = 16 in a 64-row block)
     (16, 1, 256, 256, 256, False),
     (16, 8, 256, 256, 32, False),
     (16, 8, 256, 16, 32, True),
@@ -602,6 +602,24 @@ BF16_SHAPES = [
     (2, 8, 64, 128, 128, True),
     (16, 8, 256, 64, 32, True),
     (16, 8, 16, 64, 32, True),
+    # every width's instantiation on the wgmma route, ragged Tq and Tk and
+    # (masked) a dead row: D <= 32 on 32-column boxes; 64 < D <= 256, the
+    # backward's output boxes split over grid z (one and two chunks of dQ,
+    # up to four of dK and dV); D > 512 forward on a cluster of two blocks
+    # splitting D (an uneven split at D = 576 and 1000)
+    (2, 3, 72, 136, 32, True),
+    (3, 2, 100, 70, 32, False),
+    (2, 2, 100, 130, 96, True),
+    (2, 2, 72, 136, 96, False),
+    (2, 3, 130, 72, 128, False),
+    (2, 2, 64, 128, 128, True),
+    (2, 1, 72, 136, 192, False),
+    (3, 1, 130, 200, 256, False),
+    (2, 1, 72, 128, 256, True),
+    (2, 1, 64, 64, 576, False),
+    (1, 1, 72, 136, 1024, False),
+    (2, 1, 64, 128, 1024, True),
+    (2, 1, 130, 70, 1000, False),
 ]
 
 
@@ -676,18 +694,23 @@ def test_bf16_bwd_kernel_matches_plain_version(cuda, b, h, tq, tk, d,
 
 @pytest.mark.gpu
 def test_bf16_launch_plan_reports_the_wgmma_design(cuda):
-    """The bf16 plans name the route, warpgroups, column chunks, stages and
-    tiles; at the N=256 AttnBlock 32x32 the forward and the dq kernel
-    compute S once per 64-row tile (one column chunk), dkdv twice; the
-    D <= 64 forward gives each of two warpgroups its own 64 rows and the
-    backward runs one; D > 512 keeps the mma.sync kernels."""
+    """The bf16 plans name the route, warpgroups, column chunks, stages,
+    tiles, box columns and cluster; at the N=256 AttnBlock 32x32 (64 row
+    tiles at B=4) the forward splits O over two column chunks, each
+    computing S, and at B=8 computes S once; the dq kernel computes S and
+    dP once per 64-row tile, dkdv twice; the D <= 64 forward gives each of
+    two warpgroups its own 64 rows and the backward runs one; D > 512 runs
+    the forward on a cluster of two blocks and keeps the backward's
+    mma.sync kernels."""
     keys = {"warpgroups", "chunks", "stages", "tile", "rows", "blocks",
-            "smem", "per_sm", "threads", "wgmma"}
+            "smem", "per_sm", "threads", "wgmma", "box", "cluster"}
     fwd = tflash.launch_plan("fwd", 4, 1, 1024, 1024, 512, torch.bfloat16)
     assert set(fwd) == keys
     assert fwd["wgmma"] == 1 and fwd["warpgroups"] == 2
-    assert fwd["rows"] == 64 and fwd["chunks"] == 1
-    assert fwd["blocks"] == 4 * 1024 // 64
+    assert fwd["rows"] == 64 and fwd["chunks"] == 2
+    assert fwd["blocks"] == 2 * 4 * 1024 // 64
+    fwd8 = tflash.launch_plan("fwd", 8, 1, 1024, 1024, 512, torch.bfloat16)
+    assert fwd8["chunks"] == 1 and fwd8["blocks"] == 8 * 1024 // 64
     assert fwd["stages"] >= 2 and fwd["per_sm"] >= 1
     assert fwd["threads"] == 2 * 128
     bwd = tflash.launch_plan("bwd", 8, 1, 1024, 1024, 512, torch.bfloat16)
@@ -698,14 +721,61 @@ def test_bf16_launch_plan_reports_the_wgmma_design(cuda):
     narrow = tflash.launch_plan("fwd", 4, 8, 1024, 1024, 64, torch.bfloat16)
     assert narrow["wgmma"] == 1 and narrow["warpgroups"] == 2
     assert narrow["rows"] == 128 and narrow["chunks"] == 1
-    assert narrow["blocks"] == 32 * 1024 // 128
+    assert narrow["blocks"] == 32 * 1024 // 128 and narrow["tile"] == 64
+    # the 16-token caption: 32-key tiles
+    cross = tflash.launch_plan("fwd", 4, 8, 1024, 16, 64, torch.bfloat16)
+    assert cross["tile"] == 32 and cross["rows"] == 128
     narrow_bwd = tflash.launch_plan("bwd", 8, 8, 1024, 1024, 64,
                                     torch.bfloat16)
     assert narrow_bwd["dq_warpgroups"] == narrow_bwd["dkdv_warpgroups"] == 1
     wide = tflash.launch_plan("fwd", 1, 1, 64, 72, 1024, torch.bfloat16)
-    assert wide["wgmma"] == 0 and wide["warpgroups"] == 0
+    assert wide["wgmma"] == 1 and wide["cluster"] == 2
+    assert wide["blocks"] == 2
+    wide_bwd = tflash.launch_plan("bwd", 2, 1, 64, 64, 1024, torch.bfloat16)
+    assert wide_bwd["dq_wgmma"] == wide_bwd["dkdv_wgmma"] == 0
     # the f32 plans keep their keys
     assert "narrow" in tflash.launch_plan("fwd", 4, 1, 256, 256, 256)
+
+
+# (D, forward: box columns, cluster, column chunks, least blocks an SM;
+# backward: warpgroups, box columns, dq and dkdv column chunks, least dq and
+# dkdv blocks an SM) of each width's instantiation, at B=16, H=1, T=256
+# (the L=128 AttnBlock's shape: 64 row tiles, so the D-split forward's
+# boxes go over two chunks)
+BF16_WIDTHS = [
+    (32, (32, 1, 1, 2), (1, 32, 1, 1, 2, 2)),
+    (64, (64, 1, 1, 2), (1, 64, 1, 1, 2, 2)),
+    (96, (64, 1, 1, 1), (1, 64, 1, 1, 1, 1)),
+    (128, (64, 1, 1, 1), (1, 64, 1, 1, 1, 1)),
+    (256, (64, 1, 2, 1), (1, 64, 2, 2, 1, 1)),
+    (512, (64, 1, 2, 1), (2, 64, 1, 2, 1, 1)),
+    (1024, (64, 2, 1, 1), None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,fwd,bwd", BF16_WIDTHS)
+def test_bf16_launch_plan_per_width(cuda, d, fwd, bwd):
+    """Each width's route (every bf16 forward on wgmma; the backward on
+    wgmma up to D = 512), its box columns, cluster, warpgroups, column
+    chunks and the blocks an SM holds."""
+    f = tflash.launch_plan("fwd", 16, 1, 256, 256, d, torch.bfloat16)
+    assert f["wgmma"] == 1
+    assert (f["box"], f["cluster"], f["chunks"]) == fwd[:3]
+    assert f["per_sm"] >= fwd[3]
+    assert f["blocks"] == (16 * -(-256 // f["rows"]) * f["cluster"]
+                           * f["chunks"])
+    b = tflash.launch_plan("bwd", 16, 1, 256, 256, d, torch.bfloat16)
+    if bwd is None:
+        assert b["dq_wgmma"] == b["dkdv_wgmma"] == 0
+        return
+    nwg, box, qc, kvc, q_sm, kv_sm = bwd
+    assert b["dq_wgmma"] == b["dkdv_wgmma"] == 1
+    assert b["dq_warpgroups"] == b["dkdv_warpgroups"] == nwg
+    assert b["dq_box"] == b["dkdv_box"] == box
+    assert (b["dq_chunks"], b["dkdv_chunks"]) == (qc, kvc)
+    assert b["dq_blocks"] == 16 * 4 * qc and b["dkdv_blocks"] == 16 * 4 * kvc
+    assert b["dq_per_sm"] >= q_sm and b["dkdv_per_sm"] >= kv_sm
 
 
 @pytest.mark.gpu

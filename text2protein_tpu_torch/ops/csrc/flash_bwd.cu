@@ -36,7 +36,7 @@
 // train step against SDPA's backward 5.711 (chip_smoke.py, NVIDIA H100
 // 80GB HBM3, 700 W).
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_f32_ab.py, device
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_ab.py, device
 // time by CUDA-graph replay, against the mma.sync kernels these replace and
 // SDPA's backward, its forward and backward less its forward): the
 // AttnBlock 32x32 of test_config (B=2, D=512) 0.854 ms a call (mma.sync
@@ -444,9 +444,10 @@ bool valid_shape(int B, int H, int Tq, int Tk, int D) {
 //
 // Design (D <= 512), the two-kernel split without atomics of the f32
 // kernels, each block a 64-row tile (one wgmma M) whose warpgroups run
-// wgmma while TMA keeps the inner tiles in flight (two stages, full/empty
-// mbarriers, one thread issuing every copy as in the forward; zero fill
-// for ragged tiles and D's padding):
+// wgmma while TMA keeps the inner tiles in flight (full/empty mbarriers,
+// one thread issuing every copy as in the forward; zero fill for ragged
+// tiles and D's padding). Every output element has one owner and every
+// sum runs in one fixed order:
 //   * dq: a block owns 64 query rows; Q and dO stay in shared memory, K and
 //     V tiles stream. S = Q K^T and dP = dO V^T are SS wgmmas; P and dS
 //     are formed in the accumulators' registers and dQ += dS K is an RS
@@ -454,43 +455,52 @@ bool valid_shape(int B, int H, int Tq, int Tk, int D) {
 //     the dkdv kernel.
 //   * dkdv: a block owns 64 key rows; K and V stay, Q and dO tiles stream.
 //     S^T = K Q^T and dP^T = V dO^T (SS), then dV += P^T dO and dK += dS^T Q
-//     (RS, Q and dO read MN-major).
-//   * P = exp2 of the score in log2 units (the -1e30 bias and lse scaled by
-//     log2(e) alike, so a dead row still has P = 1 exactly).
-//   * D > 64 (the AttnBlock, D = 512): two warpgroups, each computing S and
-//     dP (or S^T and dP^T) over its half of the D steps; the partial sums
-//     meet in shared memory, so each is computed once per block. dq: each
-//     warpgroup owns half of dQ's column boxes (256 columns, 128 f32
-//     registers a thread), so S and dP are computed once per 64-row tile.
-//     dkdv: dK and dV of 64 rows at D = 512 are 256 KB of f32, the whole
-//     register file, so a block owns a chunk of 256 of their columns (each
-//     warpgroup 128: dK 64 + dV 64 registers) and the two chunks (grid z)
-//     each compute S^T and dP^T: twice per 64-key tile (PR 7: 8 times).
-//     Shared memory at D = 512, 16-row inner tiles: the two resident tiles
-//     2 x 64 KB + 2 stages x (2 x 16 KB) + the S and dP exchange (2
-//     parities x 2 warpgroups x 16 floats x 128 threads, 32 KB) = 224 KB,
-//     + 1 KB of alignment and the mbarriers: 230,472 of 232,448 bytes, one
-//     block of 256 threads an SM. Registers (ptxas): dq 185, dkdv 190 of
-//     the 255 that 256 threads may hold (dq: dQ 128 + S 8 + dP 8 + dS 8;
-//     dkdv: 128 + 8 + 8 + 16). Grid at the AttnBlock 32x32 (B=8): dq
-//     8 x 16 = 128 blocks, dkdv 8 x 16 x 2 = 256.
-//   * D <= 64 (self-attention, D = 64): one warpgroup, 64-row inner tiles,
-//     50,248 bytes of shared memory; dq 132 registers (3 blocks an SM),
-//     dkdv 207 (2 blocks an SM: S^T, dP^T and the four split halves of P^T
-//     and dS^T are live together).
-//   * The key mask is read once per tile (dq: a bit set per thread for the
-//     keys of its accumulator columns; dkdv: once per block, a bias per
-//     key row), not per score.
+//     (RS, Q and dO read MN-major); the tile's lse and delta are loaded
+//     while its SS products run.
+//   * P = exp2 of the score in log2 units, one `ex2.approx.ftz` (the -1e30
+//     bias and lse scaled by log2(e) alike, so a dead row still has P = 1
+//     exactly); a tile whose scores are all live skips the mask's tests.
+//   The instantiation follows the width (`plans_wg`):
+//   * D <= 32 (the L=128 transformer's heads of 32): one warpgroup,
+//     32-column boxes (64-byte swizzle: half the k-steps of S and dP, and
+//     dQ, dK, dV as N = 32 products), 64-row (dq) and 32-row (dkdv: 113
+//     registers, four blocks an SM) inner tiles, four stages.
+//   * D <= 64 (N=256's heads of 64): one warpgroup, one 64-column box,
+//     64-row inner tiles, three (dq) and four (dkdv) stages.
+//   * 64 < D <= 256 (the L=128 AttnBlock 16x16 at D = 256, test_config_
+//     large's heads of 128): one warpgroup, S and dP over all of D, the
+//     outputs' boxes split over grid z, each block recomputing S and dP:
+//     dq two boxes of dQ a block on 64-row inner tiles, dkdv two boxes
+//     each of dK and dV on 32-row inner tiles: at the L=128 AttnBlock
+//     (B=16: 64 row tiles) 128 blocks of each kernel.
+//   * D > 256 (the N=256 AttnBlocks, D = 512), and 64 < D <= 256 where Tq
+//     and Tk are at most 16 (the L=128 4x4 mid block: one inner tile,
+//     whose latency splitting D halves): two warpgroups, each computing S
+//     and dP (or S^T and dP^T) over its half of the D steps; the partial
+//     sums meet in shared memory, so each is computed once per block. dq:
+//     each warpgroup owns half of dQ's column boxes (256 columns, 128 f32
+//     registers a thread). dkdv: dK and dV of 64 rows at D = 512 are 256
+//     KB of f32, the whole register file, so a block owns a chunk of 256
+//     of their columns (each warpgroup 128: dK 64 + dV 64 registers) and
+//     the two chunks (grid z) each compute S^T and dP^T. Shared memory at
+//     D = 512, 16-row inner tiles: the two resident tiles 2 x 64 KB + 2
+//     stages x (2 x 16 KB) + the S and dP exchange (2 parities x 2
+//     warpgroups x 16 floats x 128 threads, 32 KB) = 224 KB, + 1 KB of
+//     alignment and the mbarriers: 230,472 of 232,448 bytes, one block of
+//     256 threads an SM.
+//   (Software-pipelining the one-warpgroup loops as the forward's, the SS
+//   products of tile it + 1 issued before the RS products of tile it, was
+//   slower on an H100 at every width: 51.6 -> 60.0 us at the L=128
+//   self-attention's D = 32, its registers costing blocks an SM.)
 // D > 512 (test_config_large.yml's 8x8 AttnBlock in bf16 is D = 1024, the
 // most the JAX rule admits) keeps the mma.sync kernels below: 16 rows a
 // warp, column chunks (128 for dq, 64 for dkdv) that each recompute S and
-// dP, cp.async double buffering.
+// dP, cp.async double buffering. At B=2 they take 0.208 ms a call, SDPA's
+// backward 0.215 (device time, scripts/flash_ab.py --dtype bf16).
 //
-// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
-// 6): ptxas reports no spill and no stack frame. Per call at B=8 (device
-// time): AttnBlock 32x32 0.567 ms (the mma.sync kernels: 6.58; SDPA's
-// backward 2.31), self 32x32 0.405 ms (1.02; SDPA's 0.14-0.20); 5.95 ms
-// per N=256 train step over its 32 calls (41.32).
+// Measured against the previous design and SDPA's backward on an H100
+// (device time per step of each bf16 path, scripts/flash_ab.py --dtype
+// bf16): PERF.md section 6. ptxas: no spill, no stack frame.
 
 namespace {
 
@@ -501,105 +511,129 @@ using namespace t2p;
 // (lse = -1e30) still gets BIAS2 - BIAS2 = 0 and P = 1 exactly
 constexpr float BIAS2 = -1e30f * LOG2E;
 
-// The resident tiles' and every stage's mbarriers: full[s] at bar + 8 s,
-// empty[s] at bar + 8 (STAGES + s), the resident tiles' at bar + 16 STAGES.
+// The resident tiles' and every stage's mbarriers (ST stages): full[s] at
+// bar + 8 s, empty[s] at bar + 8 (ST + s), the resident tiles' at
+// bar + 16 ST.
+template <int ST>
 __device__ __forceinline__ void init_bars(uint32_t bar, int warps) {
-  for (int s = 0; s < WG_STAGES; ++s) {
+  for (int s = 0; s < ST; ++s) {
     mbar_init(bar + 8 * s, 1);
-    mbar_init(bar + 8 * (WG_STAGES + s), warps);
+    mbar_init(bar + 8 * (ST + s), warps);
   }
-  mbar_init(bar + 16 * WG_STAGES, 1);
+  mbar_init(bar + 16 * ST, 1);
   mbar_fence_init();
 }
 
 // The copies of both kernels, issued by thread 0: the resident pair (a, b)
 // of 64 rows from row r0, and the inner pair (c, d) of `tile` rows of inner
-// tile `it` into its stage.
+// tile `it` into its stage; `nbox` boxes of `bc` columns each.
+template <int ST>
 __device__ __forceinline__ void load_resident(const CUtensorMap* a,
                                               const CUtensorMap* b,
                                               uint32_t base, uint32_t bar,
-                                              int nbox, int r0, int bh) {
-  const uint32_t res = WG_ROWS * BOX_ROW_BYTES;
-  const uint32_t bar_r = bar + 16 * WG_STAGES;
+                                              int nbox, int bc, int r0,
+                                              int bh) {
+  const uint32_t res = WG_ROWS * 2 * bc;
+  const uint32_t bar_r = bar + 16 * ST;
   mbar_expect_tx(bar_r, 2 * nbox * res);
   for (int x = 0; x < nbox; ++x) {
-    tma_load(base + x * res, a, bar_r, x * BOX_COLS, r0, bh);
-    tma_load(base + (nbox + x) * res, b, bar_r, x * BOX_COLS, r0, bh);
+    tma_load(base + x * res, a, bar_r, x * bc, r0, bh);
+    tma_load(base + (nbox + x) * res, b, bar_r, x * bc, r0, bh);
   }
 }
 
+template <int ST>
 __device__ __forceinline__ void load_inner(const CUtensorMap* c,
                                            const CUtensorMap* d,
                                            uint32_t base, uint32_t bar,
                                            const WgLayout& L, int nbox,
-                                           int tile, int it, int bh) {
-  const int s = it % WG_STAGES;
-  const uint32_t box = tile * BOX_ROW_BYTES, full = bar + 8 * s;
+                                           int bc, int tile, int it,
+                                           int bh) {
+  const int s = it % ST;
+  const uint32_t box = tile * 2 * bc, full = bar + 8 * s;
   const uint32_t st = base + L.stage0 + s * L.stage;
   mbar_expect_tx(full, L.stage);
   for (int x = 0; x < nbox; ++x) {
-    tma_load(st + x * box, c, full, x * BOX_COLS, it * tile, bh);
-    tma_load(st + (nbox + x) * box, d, full, x * BOX_COLS, it * tile, bh);
+    tma_load(st + x * box, c, full, x * bc, it * tile, bh);
+    tma_load(st + (nbox + x) * box, d, full, x * bc, it * tile, bh);
   }
 }
 
 // Thread 0 sets up the barriers and, after the block barrier, issues the
 // resident pair (a, b) and the first stages of the inner pair (c, d).
+template <int ST>
 __device__ __forceinline__ void start_copies(
     const CUtensorMap* a, const CUtensorMap* b, const CUtensorMap* c,
     const CUtensorMap* d, uint32_t base, uint32_t bar, const WgLayout& L,
-    int nbox, int tile, int r0, int ntiles, int bh, int warps) {
-  if (threadIdx.x == 0) init_bars(bar, warps);
+    int nbox, int bc, int tile, int r0, int ntiles, int bh, int warps) {
+  if (threadIdx.x == 0) init_bars<ST>(bar, warps);
   __syncthreads();
   if (threadIdx.x == 0) {
-    load_resident(a, b, base, bar, nbox, r0, bh);
-    for (int i = 0; i < WG_STAGES && i < ntiles; ++i)
-      load_inner(c, d, base, bar, L, nbox, tile, i, bh);
+    load_resident<ST>(a, b, base, bar, nbox, bc, r0, bh);
+    for (int i = 0; i < ST && i < ntiles; ++i)
+      load_inner<ST>(c, d, base, bar, L, nbox, bc, tile, i, bh);
   }
 }
 
 // A warp's release of the stage of inner tile `it`; thread 0 then refills
-// it with tile it + STAGES once every warp has released it.
+// it with tile it + ST once every warp has released it.
+template <int ST>
 __device__ __forceinline__ void release_stage(
     const CUtensorMap* c, const CUtensorMap* d, uint32_t base, uint32_t bar,
-    const WgLayout& L, int nbox, int tile, int it, int ntiles, int bh) {
-  const uint32_t empty = bar + 8 * (WG_STAGES + it % WG_STAGES);
+    const WgLayout& L, int nbox, int bc, int tile, int it, int ntiles,
+    int bh) {
+  const uint32_t empty = bar + 8 * (ST + it % ST);
   __syncwarp();
   if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
-  if (threadIdx.x == 0 && it + WG_STAGES < ntiles) {
-    mbar_wait(empty, (it / WG_STAGES) & 1);
-    load_inner(c, d, base, bar, L, nbox, tile, it + WG_STAGES, bh);
+  if (threadIdx.x == 0 && it + ST < ntiles) {
+    mbar_wait(empty, (it / ST) & 1);
+    load_inner<ST>(c, d, base, bar, L, nbox, bc, tile, it + ST, bh);
   }
 }
 
-// Two SS products over this warpgroup's 16-column steps of D, x += A1 B1^T
-// and y += A2 B2^T, A* resident tiles of 64 rows at a1, a2, B* inner tiles
-// of `tile` rows at b1, b2 (every operand K-major): with one warpgroup the
-// whole 64-column box (the columns past D are TMA's zeros), with two the
-// steps [ks0, ks1) of its half.
-template <int NWG, int N>
+// Two SS products over this warpgroup's 16-column steps of D, x = A1 B1^T
+// and y = A2 B2^T, A* resident tiles of 64 rows at a1, a2, B* inner tiles
+// of `tile` rows at b1, b2 (every operand K-major, boxes of BC columns):
+// with one warpgroup every step of the `nbox` boxes (the columns past D
+// are TMA's zeros), with two the steps [ks0, ks1) of its half.
+template <int NWG, int BC, int N>
 __device__ __forceinline__ void two_products(float (&x)[N], float (&y)[N],
                                              uint32_t a1, uint32_t b1,
                                              uint32_t a2, uint32_t b2,
-                                             int ks0, int ks1, int tile) {
+                                             int ks0, int ks1, int tile,
+                                             int nbox) {
+  constexpr int SPB = BC / 16;            // 16-column steps of a box
+  constexpr int SHIFT = BC == 64 ? 2 : 1;  // log2(SPB)
+  constexpr uint32_t ROWB = 2 * BC;
 #pragma unroll
   for (int i = 0; i < N; ++i) x[i] = y[i] = 0.f;
   fence_regs(x);  // zeroed before the fence, not sunk past it
   fence_regs(y);
   wgmma_fence();
-  if (NWG == 1) {
+  if (NWG == 1 && nbox == 1) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      wgmma_ss(x, sw128_desc(a1 + kk * 32), sw128_desc(b1 + kk * 32));
-      wgmma_ss(y, sw128_desc(a2 + kk * 32), sw128_desc(b2 + kk * 32));
+    for (int kk = 0; kk < SPB; ++kk) {
+      wgmma_ss(x, sw_desc<BC>(a1 + kk * 32), sw_desc<BC>(b1 + kk * 32));
+      wgmma_ss(y, sw_desc<BC>(a2 + kk * 32), sw_desc<BC>(b2 + kk * 32));
+    }
+  } else if (NWG == 1) {
+    for (int b = 0; b < nbox; ++b) {
+      const uint32_t ao = b * WG_ROWS * ROWB, bo = b * tile * ROWB;
+#pragma unroll
+      for (int kk = 0; kk < SPB; ++kk) {
+        wgmma_ss(x, sw_desc<BC>(a1 + ao + kk * 32),
+                 sw_desc<BC>(b1 + bo + kk * 32));
+        wgmma_ss(y, sw_desc<BC>(a2 + ao + kk * 32),
+                 sw_desc<BC>(b2 + bo + kk * 32));
+      }
     }
   } else {
     for (int kk = ks0; kk < ks1; ++kk) {
       const uint32_t ao =
-          (kk >> 2) * WG_ROWS * BOX_ROW_BYTES + (kk & 3) * 32;
-      const uint32_t bo = (kk >> 2) * tile * BOX_ROW_BYTES + (kk & 3) * 32;
-      wgmma_ss(x, sw128_desc(a1 + ao), sw128_desc(b1 + bo));
-      wgmma_ss(y, sw128_desc(a2 + ao), sw128_desc(b2 + bo));
+          (kk >> SHIFT) * WG_ROWS * ROWB + (kk & (SPB - 1)) * 32;
+      const uint32_t bo = (kk >> SHIFT) * tile * ROWB + (kk & (SPB - 1)) * 32;
+      wgmma_ss(x, sw_desc<BC>(a1 + ao), sw_desc<BC>(b1 + bo));
+      wgmma_ss(y, sw_desc<BC>(a2 + ao), sw_desc<BC>(b2 + bo));
     }
   }
   wgmma_commit();
@@ -626,7 +660,19 @@ __device__ __forceinline__ void exchange(float (&x)[N], float (&y)[N],
   }
 }
 
-template <int NWG, int BK, int NOB>
+// This block's boxes of the outputs (grid z: chunks of NWG x NOB boxes) and
+// this warpgroup's share of them: first box ob0, nob boxes.
+template <int NWG, int NOB>
+__device__ __forceinline__ void output_boxes(int nbox, int wg, int& ob0,
+                                             int& nob) {
+  const int cb0 = blockIdx.z * NWG * NOB;
+  const int nbc = min(NWG * NOB, nbox - cb0);
+  const int oper = (nbc + NWG - 1) / NWG;
+  ob0 = cb0 + wg * oper;
+  nob = min(oper, nbc - wg * oper);
+}
+
+template <int NWG, int BK, int NOB, int BC, int ST>
 __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                               const __grid_constant__ CUtensorMap tm_do,
@@ -640,19 +686,21 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
                               bf16* __restrict__ dq, int H, int Tq, int Tk,
                               int D, float scale) {
   constexpr int NS = BK / 2;
+  constexpr int NA = BC / 2;  // accumulator floats of one box of dQ
+  constexpr uint32_t ROWB = 2 * BC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nbox = nboxes(D);
-  const WgLayout L = wg_layout(2, nbox, BK, WG_STAGES, NWG, 2 * NS);
+  const int nbox = nboxes(D, BC);
+  const WgLayout L = wg_layout(2, nbox, BK, ST, NWG, 2 * NS, ROWB);
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u, bar = base + L.bars;
-  const uint32_t sq = base, sdo = base + nbox * WG_ROWS * BOX_ROW_BYTES;
+  const uint32_t sq = base, sdo = base + nbox * WG_ROWS * ROWB;
   float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
   const int bh = blockIdx.x, q0 = blockIdx.y * WG_ROWS;
   const int ntiles = (Tk + BK - 1) / BK;
-  const uint32_t ktile = BK * BOX_ROW_BYTES;
+  const uint32_t ktile = BK * ROWB;
 
-  start_copies(&tm_q, &tm_do, &tm_k, &tm_v, base, bar, L, nbox, BK, q0,
-               ntiles, bh, 4 * NWG);
+  start_copies<ST>(&tm_q, &tm_do, &tm_k, &tm_v, base, bar, L, nbox, BC, BK,
+                   q0, ntiles, bh, 4 * NWG);
   // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
   // the k-step bounds and box counts drawn from it) uniform across the
   // warp: wgmma in a branch it cannot prove uniform is serialized
@@ -662,14 +710,15 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
   const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
   const int nks = (D + 15) >> 4, kper = (nks + NWG - 1) / NWG;
   const int ks0 = wg * kper, ks1 = min(nks, ks0 + kper);
-  const int oper = (nbox + NWG - 1) / NWG, ob0 = wg * oper;
-  const int nob = min(oper, nbox - ob0);
+  int ob0, nob;
+  output_boxes<NWG, NOB>(nbox, wg, ob0, nob);
   const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
   const size_t qoff = (size_t)bh * Tq * D;
   const float scale2 = scale * LOG2E;
 
   // delta = rowsum(dO * out) and lse of rows g and g + 8 of this warp;
-  // each lane of a quad sums every fourth column pair
+  // each lane of a quad sums every fourth column pair; the first column
+  // chunk writes delta for the dkdv kernel
   const int row = q0 + 16 * warp + g;
   float delta_r[2], lse_r[2];
 #pragma unroll
@@ -692,24 +741,25 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     d += __shfl_xor_sync(0xffffffffu, d, 2);
     delta_r[r] = d;
     lse_r[r] = i < Tq ? lse[(size_t)bh * Tq + i] * LOG2E : 0.f;
-    if (wg == 0 && t == 0 && i < Tq) delta[(size_t)bh * Tq + i] = d;
+    if (wg == 0 && t == 0 && i < Tq && blockIdx.z == 0)
+      delta[(size_t)bh * Tq + i] = d;
   }
 
-  float acc[NOB][32];
+  float acc[NOB][NA];
 #pragma unroll
   for (int n = 0; n < NOB; ++n)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[n][i] = 0.f;
+    for (int i = 0; i < NA; ++i) acc[n][i] = 0.f;
 
-  mbar_wait(bar + 16 * WG_STAGES, 0);
+  mbar_wait(bar + 16 * ST, 0);
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it % WG_STAGES;
-    mbar_wait(bar + 8 * s, (it / WG_STAGES) & 1);
+    const int s = it % ST;
+    mbar_wait(bar + 8 * s, (it / ST) & 1);
     const uint32_t sk = base + L.stage0 + s * L.stage;
     const uint32_t sv = sk + nbox * ktile;
 
     float sc[NS], dp[NS];  // S = Q K^T, dP = dO V^T
-    two_products<NWG>(sc, dp, sq, sk, sdo, sv, ks0, ks1, BK);
+    two_products<NWG, BC>(sc, dp, sq, sk, sdo, sv, ks0, ks1, BK, nbox);
     exchange<NWG>(sc, dp, xch, it, wg, ct);
 
     // keys of this thread's columns in range (bit 2 j + e: column
@@ -729,16 +779,26 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
           }
         }
     }
+    // dS = P (dP - delta) scale in place of S
+    if (in == ~0u && on == ~0u && row + 8 < Tq) {  // every score live
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int bit = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
-      float ds = 0.f;
-      if (((in >> bit) & 1u) && row + 8 * r < Tq) {
-        const float bias = ((on >> bit) & 1u) ? 0.f : BIAS2;
-        const float p = exp2f(fmaf(sc[i], scale2, bias) - lse_r[r]);
-        ds = p * (dp[i] - delta_r[r]) * scale;
+      for (int i = 0; i < NS; ++i) {
+        const int r = (i >> 1) & 1;
+        const float p = exp2_ftz(fmaf(sc[i], scale2, -lse_r[r]));
+        sc[i] = p * (dp[i] - delta_r[r]) * scale;
       }
-      sc[i] = ds;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int bit = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+        float ds = 0.f;
+        if (((in >> bit) & 1u) && row + 8 * r < Tq) {
+          const float bias = ((on >> bit) & 1u) ? 0.f : BIAS2;
+          const float p = exp2_ftz(fmaf(sc[i], scale2, bias) - lse_r[r]);
+          ds = p * (dp[i] - delta_r[r]) * scale;
+        }
+        sc[i] = ds;
+      }
     }
 
     // dQ += dS K: dS as hi + lo A fragments, K MN-major
@@ -755,7 +815,7 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j) {
           const uint64_t db =
-              sw128_desc(sk + (ob0 + n) * ktile + j * 16 * BOX_ROW_BYTES);
+              sw_desc<BC>(sk + (ob0 + n) * ktile + j * 16 * ROWB);
           wgmma_rs(acc[n], sl[j], db);
           wgmma_rs(acc[n], sh[j], db);
         }
@@ -766,7 +826,8 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     for (int n = 0; n < NOB; ++n) fence_regs(acc[n]);
     fence_regs(sh);
     fence_regs(sl);
-    release_stage(&tm_k, &tm_v, base, bar, L, nbox, BK, it, ntiles, bh);
+    release_stage<ST>(&tm_k, &tm_v, base, bar, L, nbox, BC, BK, it, ntiles,
+                      bh);
   }
 
   bf16* dqb = dq + qoff;
@@ -774,9 +835,9 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
   for (int n = 0; n < NOB; ++n)
     if (n < nob) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
+      for (int i = 0; i < NA; i += 2) {
         const int r = (i >> 1) & 1;
-        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        const int col = (ob0 + n) * BC + 8 * (i >> 2) + 2 * t;
         if (row + 8 * r < Tq && col < D)
           *reinterpret_cast<uint32_t*>(dqb + (size_t)(row + 8 * r) * D +
                                        col) =
@@ -785,7 +846,7 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     }
 }
 
-template <int NWG, int BQ, int NOB>
+template <int NWG, int BQ, int NOB, int BC, int ST>
 __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
                                 const __grid_constant__ CUtensorMap tm_v,
@@ -797,19 +858,21 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
                                 bf16* __restrict__ dk, bf16* __restrict__ dv,
                                 int H, int Tq, int Tk, int D, float scale) {
   constexpr int NS = BQ / 2;
+  constexpr int NA = BC / 2;  // accumulator floats of one box of dK or dV
+  constexpr uint32_t ROWB = 2 * BC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nbox = nboxes(D);
-  const WgLayout L = wg_layout(2, nbox, BQ, WG_STAGES, NWG, 2 * NS);
+  const int nbox = nboxes(D, BC);
+  const WgLayout L = wg_layout(2, nbox, BQ, ST, NWG, 2 * NS, ROWB);
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u, bar = base + L.bars;
-  const uint32_t sk = base, sv = base + nbox * WG_ROWS * BOX_ROW_BYTES;
+  const uint32_t sk = base, sv = base + nbox * WG_ROWS * ROWB;
   float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
   const int bh = blockIdx.x, k0 = blockIdx.y * WG_ROWS;
   const int ntiles = (Tq + BQ - 1) / BQ;
-  const uint32_t qtile = BQ * BOX_ROW_BYTES;
+  const uint32_t qtile = BQ * ROWB;
 
-  start_copies(&tm_k, &tm_v, &tm_q, &tm_do, base, bar, L, nbox, BQ, k0,
-               ntiles, bh, 4 * NWG);
+  start_copies<ST>(&tm_k, &tm_v, &tm_q, &tm_do, base, bar, L, nbox, BC, BQ,
+                   k0, ntiles, bh, 4 * NWG);
   // the warpgroup, broadcast from lane 0 so that the compiler sees it (and
   // the k-step bounds and box counts drawn from it) uniform across the
   // warp: wgmma in a branch it cannot prove uniform is serialized
@@ -819,11 +882,8 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
   const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
   const int nks = (D + 15) >> 4, kper = (nks + NWG - 1) / NWG;
   const int ks0 = wg * kper, ks1 = min(nks, ks0 + kper);
-  // this block's chunk of dK/dV boxes, and this warpgroup's share of it
-  const int cb0 = blockIdx.z * NWG * NOB;
-  const int nbc = min(NWG * NOB, nbox - cb0);
-  const int oper = (nbc + NWG - 1) / NWG, ob0 = cb0 + wg * oper;
-  const int nob = min(oper, nbc - wg * oper);
+  int ob0, nob;
+  output_boxes<NWG, NOB>(nbox, wg, ob0, nob);
   const float* lb = lse + (size_t)bh * Tq;
   const float* db = delta + (size_t)bh * Tq;
   const float scale2 = scale * LOG2E;
@@ -841,24 +901,16 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
                   : 0.f;
   }
 
-  float acc_v[NOB][32], acc_k[NOB][32];
+  float acc_v[NOB][NA], acc_k[NOB][NA];
 #pragma unroll
   for (int n = 0; n < NOB; ++n)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
+    for (int i = 0; i < NA; ++i) acc_v[n][i] = acc_k[n][i] = 0.f;
 
-  mbar_wait(bar + 16 * WG_STAGES, 0);
+  mbar_wait(bar + 16 * ST, 0);
   for (int it = 0; it < ntiles; ++it) {
-    const int s = it % WG_STAGES;
-    mbar_wait(bar + 8 * s, (it / WG_STAGES) & 1);
-    const uint32_t sq = base + L.stage0 + s * L.stage;
-    const uint32_t sdo = sq + nbox * qtile;
-
-    float sc[NS], dp[NS];  // S^T = K Q^T, dP^T = V dO^T
-    two_products<NWG>(sc, dp, sk, sq, sv, sdo, ks0, ks1, BQ);
-    exchange<NWG>(sc, dp, xch, it, wg, ct);
-
-    // lse and delta of this thread's query columns (8 j + 2 t + e)
+    // lse and delta of this thread's query columns (8 j + 2 t + e), in
+    // flight during the SS products
     const int q0 = it * BQ;
     float lq[BQ / 4], dl[BQ / 4];
 #pragma unroll
@@ -869,17 +921,38 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
         lq[2 * j + e] = qi < Tq ? lb[qi] * LOG2E : 0.f;
         dl[2 * j + e] = qi < Tq ? db[qi] : 0.f;
       }
+    const int s = it % ST;
+    mbar_wait(bar + 8 * s, (it / ST) & 1);
+    const uint32_t sq = base + L.stage0 + s * L.stage;
+    const uint32_t sdo = sq + nbox * qtile;
+
+    float sc[NS], dp[NS];  // S^T = K Q^T, dP^T = V dO^T
+    two_products<NWG, BC>(sc, dp, sk, sq, sv, sdo, ks0, ks1, BQ, nbox);
+    exchange<NWG>(sc, dp, xch, it, wg, ct);
+
+    // P^T and dS^T in place of S^T and dP^T
+    if (q0 + BQ <= Tq && key_in[1] && bias[0] == 0.f &&
+        bias[1] == 0.f) {  // every score live
 #pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      const int c = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
-      const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
-      float p = 0.f, ds = 0.f;
-      if (qi < Tq && key_in[r]) {
-        p = exp2f(fmaf(sc[i], scale2, bias[r]) - lq[c]);
-        ds = p * (dp[i] - dl[c]) * scale;
+      for (int i = 0; i < NS; ++i) {
+        const int c = 2 * (i >> 2) + (i & 1);
+        const float p = exp2_ftz(fmaf(sc[i], scale2, -lq[c]));
+        sc[i] = p;
+        dp[i] = p * (dp[i] - dl[c]) * scale;
       }
-      sc[i] = p;
-      dp[i] = ds;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int c = 2 * (i >> 2) + (i & 1), r = (i >> 1) & 1;
+        const int qi = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        float p = 0.f, ds = 0.f;
+        if (qi < Tq && key_in[r]) {
+          p = exp2_ftz(fmaf(sc[i], scale2, bias[r]) - lq[c]);
+          ds = p * (dp[i] - dl[c]) * scale;
+        }
+        sc[i] = p;
+        dp[i] = ds;
+      }
     }
 
     // dV += P^T dO, dK += dS^T Q: P^T and dS^T as hi + lo A fragments,
@@ -902,9 +975,9 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
       if (n < nob) {
 #pragma unroll
         for (int j = 0; j < BQ / 16; ++j) {
-          const uint32_t off = (ob0 + n) * qtile + j * 16 * BOX_ROW_BYTES;
-          const uint64_t ddo = sw128_desc(sdo + off);
-          const uint64_t dqd = sw128_desc(sq + off);
+          const uint32_t off = (ob0 + n) * qtile + j * 16 * ROWB;
+          const uint64_t ddo = sw_desc<BC>(sdo + off);
+          const uint64_t dqd = sw_desc<BC>(sq + off);
           wgmma_rs(acc_v[n], pl[j], ddo);
           wgmma_rs(acc_v[n], ph[j], ddo);
           wgmma_rs(acc_k[n], sl[j], dqd);
@@ -922,7 +995,8 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
     fence_regs(pl);
     fence_regs(sh);
     fence_regs(sl);
-    release_stage(&tm_q, &tm_do, base, bar, L, nbox, BQ, it, ntiles, bh);
+    release_stage<ST>(&tm_q, &tm_do, base, bar, L, nbox, BC, BQ, it, ntiles,
+                      bh);
   }
 
   const size_t koff = (size_t)bh * Tk * D;
@@ -930,9 +1004,9 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 1 ? 2 : 1)
   for (int n = 0; n < NOB; ++n)
     if (n < nob) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
+      for (int i = 0; i < NA; i += 2) {
         const int r = (i >> 1) & 1;
-        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        const int col = (ob0 + n) * BC + 8 * (i >> 2) + 2 * t;
         if (key_in[r] && col < D) {
           const size_t o = koff + (size_t)(key + 8 * r) * D + col;
           *reinterpret_cast<uint32_t*>(dk + o) =
@@ -955,17 +1029,34 @@ using DkdvWgKernel = void (*)(const CUtensorMap, const CUtensorMap,
                               const unsigned char*, bf16*, bf16*, int, int,
                               int, int, float);
 
-// D <= 64 (one warpgroup, 64-row inner tiles), then 64 < D <= 512 (two
-// warpgroups, 16-row inner tiles; dq up to 4 boxes of dQ a warpgroup,
-// dkdv up to 2 boxes each of dK and dV)
-constexpr DqWgKernel DQ_WG_KERNELS[] = {flash_bwd_dq_wgmma_kernel<1, 64, 1>,
-                                        flash_bwd_dq_wgmma_kernel<2, 16, 4>};
+// One warpgroup and 64-row inner tiles up to D = 256: D <= 32 on 32-column
+// boxes and D <= 64 on one 64-column box, with 3 or 4 stages of the inner
+// tiles in flight; 64 < D <= 256 with the outputs' boxes split over grid
+// z (dq two boxes a block, dkdv one), each block computing S and dP over
+// all of D, two stages (the resident tiles and a stage take 64 KB each at
+// D = 256); then 256 < D <= 512, and 64 < D <= 256 where Tq and Tk are at
+// most 16 (the 4x4 mid block: one inner tile, whose latency the split
+// halves): two warpgroups splitting D's steps, 16-row inner tiles (dq up
+// to 4 boxes of dQ a warpgroup, dkdv up to 2 boxes each of dK and dV)
+constexpr DqWgKernel DQ_WG_KERNELS[] = {
+    flash_bwd_dq_wgmma_kernel<1, 64, 1, 32, 4>,
+    flash_bwd_dq_wgmma_kernel<1, 64, 1, 64, 3>,
+    flash_bwd_dq_wgmma_kernel<1, 64, 2, 64, 2>,
+    flash_bwd_dq_wgmma_kernel<2, 16, 4, 64, 2>};
 constexpr DkdvWgKernel DKDV_WG_KERNELS[] = {
-    flash_bwd_dkdv_wgmma_kernel<1, 64, 1>,
-    flash_bwd_dkdv_wgmma_kernel<2, 16, 2>};
+    flash_bwd_dkdv_wgmma_kernel<1, 32, 1, 32, 4>,
+    flash_bwd_dkdv_wgmma_kernel<1, 64, 1, 64, 4>,
+    flash_bwd_dkdv_wgmma_kernel<1, 32, 2, 64, 2>,
+    flash_bwd_dkdv_wgmma_kernel<2, 16, 2, 64, 2>};
+// by instantiation: inner tile rows, boxes of the outputs a block owns,
+// stages
+constexpr int DQ_TILE[] = {64, 64, 64, 16}, DQ_BOXES[] = {1, 1, 2, 8},
+              DQ_STAGES[] = {4, 3, 2, 2};
+constexpr int DKDV_TILE[] = {32, 64, 32, 16}, DKDV_BOXES[] = {1, 1, 2, 4},
+              DKDV_STAGES[] = {4, 4, 2, 2};
 
 struct WgPlan {
-  int nwg, tile, chunks, idx, threads;
+  int nwg, tile, chunks, idx, threads, box, stages;
   dim3 grid;
   size_t smem;
 };
@@ -974,26 +1065,32 @@ struct WgPlan {
 bool plans_wg(WgPlan& pq, WgPlan& pkv, int B, int H, int Tq, int Tk,
               int D) {
   if (D > WG_MAX_D) return false;
-  const bool narrow = D <= 64;
-  const int nbox = nboxes(D);
-  for (WgPlan* p : {&pq, &pkv}) {
-    p->nwg = narrow ? 1 : 2;
-    p->tile = narrow ? 64 : 16;
-    p->idx = narrow ? 0 : 1;
-    p->threads = 128 * p->nwg;
-    p->smem = wg_layout(2, nbox, p->tile, WG_STAGES, p->nwg, p->tile).total;
-  }
-  pq.chunks = 1;
-  pq.grid = dim3(B * H, (Tq + WG_ROWS - 1) / WG_ROWS, 1);
-  const int per_chunk = narrow ? 1 : 2 * 2;  // warpgroups x boxes
-  pkv.chunks = (nbox + per_chunk - 1) / per_chunk;
+  const int bc = box_cols(D), nbox = nboxes(D, bc);
+  // two warpgroups splitting D's steps
+  const bool split = D > 256 || (D > 64 && Tq <= 16 && Tk <= 16);
+  pq.idx = split ? 3 : bc == 32 ? 0 : nbox == 1 ? 1 : 2;
+  pkv.idx = split ? 3 : bc == 32 ? 0 : nbox == 1 ? 1 : 2;
+  pq.chunks = (nbox + DQ_BOXES[pq.idx] - 1) / DQ_BOXES[pq.idx];
+  pkv.chunks = (nbox + DKDV_BOXES[pkv.idx] - 1) / DKDV_BOXES[pkv.idx];
+  pq.stages = DQ_STAGES[pq.idx];
+  pkv.stages = DKDV_STAGES[pkv.idx];
+  pq.tile = DQ_TILE[pq.idx];
+  pkv.tile = DKDV_TILE[pkv.idx];
+  pq.grid = dim3(B * H, (Tq + WG_ROWS - 1) / WG_ROWS, pq.chunks);
   pkv.grid = dim3(B * H, (Tk + WG_ROWS - 1) / WG_ROWS, pkv.chunks);
+  for (WgPlan* p : {&pq, &pkv}) {
+    p->nwg = split ? 2 : 1;
+    p->box = bc;
+    p->threads = 128 * p->nwg;
+    p->smem = wg_layout(2, nbox, p->tile, p->stages, p->nwg, p->tile, 2 * bc)
+                  .total;
+  }
   return true;
 }
 
 cudaError_t prepare_wg(const WgPlan& pq, const WgPlan& pkv) {
-  static size_t opted_q[MAX_DEVICES][2] = {};
-  static size_t opted_kv[MAX_DEVICES][2] = {};
+  static size_t opted_q[MAX_DEVICES][4] = {};
+  static size_t opted_kv[MAX_DEVICES][4] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
   cudaError_t err =
@@ -1375,16 +1472,16 @@ extern "C" int t2p_flash_bwd_bf16(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgPlan wq{}, wkv{};
   if (plans_wg(wq, wkv, B, H, Tq, Tk, D)) {
-    const int bh = B * H;
+    const int bh = B * H, bc = wq.box;
     CUtensorMap mq, mdo, mk, mv, mq_t, mdo_t, mk_t, mv_t;
-    if (!tensor_map(&mq, q, bh, Tq, D, WG_ROWS) ||
-        !tensor_map(&mdo, dout, bh, Tq, D, WG_ROWS) ||
-        !tensor_map(&mk_t, k, bh, Tk, D, wq.tile) ||
-        !tensor_map(&mv_t, v, bh, Tk, D, wq.tile) ||
-        !tensor_map(&mk, k, bh, Tk, D, WG_ROWS) ||
-        !tensor_map(&mv, v, bh, Tk, D, WG_ROWS) ||
-        !tensor_map(&mq_t, q, bh, Tq, D, wkv.tile) ||
-        !tensor_map(&mdo_t, dout, bh, Tq, D, wkv.tile))
+    if (!tensor_map(&mq, q, bh, Tq, D, WG_ROWS, bc, 2) ||
+        !tensor_map(&mdo, dout, bh, Tq, D, WG_ROWS, bc, 2) ||
+        !tensor_map(&mk_t, k, bh, Tk, D, wq.tile, bc, 2) ||
+        !tensor_map(&mv_t, v, bh, Tk, D, wq.tile, bc, 2) ||
+        !tensor_map(&mk, k, bh, Tk, D, WG_ROWS, bc, 2) ||
+        !tensor_map(&mv, v, bh, Tk, D, WG_ROWS, bc, 2) ||
+        !tensor_map(&mq_t, q, bh, Tq, D, wkv.tile, bc, 2) ||
+        !tensor_map(&mdo_t, dout, bh, Tq, D, wkv.tile, bc, 2))
       return (int)cudaErrorInvalidValue;
     cudaError_t err = prepare_wg(wq, wkv);
     if (err != cudaSuccess) return (int)err;
@@ -1417,7 +1514,8 @@ extern "C" int t2p_flash_bwd_bf16(const void* q, const void* k, const void* v,
 }
 
 // The bf16 kernels' launch plans, the dq kernel's then the dkdv kernel's,
-// each in t2p_flash_fwd_bf16_plan's layout of ten.
+// each in t2p_flash_fwd_bf16_plan's layout of twelve (box columns 0 and a
+// cluster of 1 for the mma.sync kernels).
 extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
                                        int* out) {
   if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
@@ -1446,10 +1544,10 @@ extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
                          p[1].smem);
     if (err != cudaSuccess) per_sm = -1;
     const dim3 grid = wgmma ? w[i].grid : p[i].grid;
-    int* o = out + 10 * i;
+    int* o = out + 12 * i;
     o[0] = wgmma ? w[i].nwg : 0;
     o[1] = wgmma ? w[i].chunks : p[i].nchunk;
-    o[2] = 2;
+    o[2] = wgmma ? w[i].stages : 2;
     o[3] = wgmma ? w[i].tile : p[i].t;
     o[4] = wgmma ? WG_ROWS : ROWS * p[i].warps;
     o[5] = (int)(grid.x * grid.y * grid.z);
@@ -1457,6 +1555,8 @@ extern "C" int t2p_flash_bwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
     o[7] = per_sm;
     o[8] = wgmma ? w[i].threads : 32 * p[i].warps;
     o[9] = wgmma;
+    o[10] = wgmma ? w[i].box : 0;
+    o[11] = 1;
   }
   return 0;
 }
@@ -2122,14 +2222,14 @@ extern "C" int t2p_flash_bwd_f32(const void* q, const void* k, const void* v,
       plan_bwd_tf(wkv, B, H, Tk, Tq, D, true)) {
     const int bh = B * H;
     CUtensorMap mq, mdo, mk, mv, mq_t, mdo_t, mk_t, mv_t;
-    if (!tensor_map_f32(&mq, q, bh, Tq, D, WG_ROWS) ||
-        !tensor_map_f32(&mdo, dout, bh, Tq, D, WG_ROWS) ||
-        !tensor_map_f32(&mk_t, k, bh, Tk, D, wq.tile) ||
-        !tensor_map_f32(&mv_t, v, bh, Tk, D, wq.tile) ||
-        !tensor_map_f32(&mk, k, bh, Tk, D, WG_ROWS) ||
-        !tensor_map_f32(&mv, v, bh, Tk, D, WG_ROWS) ||
-        !tensor_map_f32(&mq_t, q, bh, Tq, D, wkv.tile) ||
-        !tensor_map_f32(&mdo_t, dout, bh, Tq, D, wkv.tile))
+    if (!tensor_map(&mq, q, bh, Tq, D, WG_ROWS, F32_BOX, 4) ||
+        !tensor_map(&mdo, dout, bh, Tq, D, WG_ROWS, F32_BOX, 4) ||
+        !tensor_map(&mk_t, k, bh, Tk, D, wq.tile, F32_BOX, 4) ||
+        !tensor_map(&mv_t, v, bh, Tk, D, wq.tile, F32_BOX, 4) ||
+        !tensor_map(&mk, k, bh, Tk, D, WG_ROWS, F32_BOX, 4) ||
+        !tensor_map(&mv, v, bh, Tk, D, WG_ROWS, F32_BOX, 4) ||
+        !tensor_map(&mq_t, q, bh, Tq, D, wkv.tile, F32_BOX, 4) ||
+        !tensor_map(&mdo_t, dout, bh, Tq, D, wkv.tile, F32_BOX, 4))
       return (int)cudaErrorInvalidValue;
     cudaError_t err = prepare_tf(wq, wkv);
     if (err != cudaSuccess) return (int)err;

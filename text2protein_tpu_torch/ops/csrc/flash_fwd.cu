@@ -26,7 +26,7 @@
 // evaluation against SDPA's 1.191 (chip_smoke.py, NVIDIA H100 80GB HBM3,
 // 700 W).
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_f32_ab.py, device
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; scripts/flash_ab.py, device
 // time by CUDA-graph replay, against the mma.sync kernels these replace and
 // SDPA): the AttnBlock 32x32 of test_config (B=4, D=512) 0.396 ms a call
 // (mma.sync 1.244, SDPA 0.274: the route's bound is 0.052), its 8 heads of
@@ -309,62 +309,77 @@ bool valid_shape(int B, int H, int Tq, int Tk, int D) {
 // H*D = 512) one call moves at most 16.8 MB of bf16 (5.0 us at 3.35 TB/s)
 // and does at most 4 B H Tq Tk D = 8.6 GFLOP (8.7 us at 989 TFLOP/s), both
 // at the AttnBlock 32x32 (H=1, T=1024, D=512). The mma work this design
-// issues there is S once (4.3 GFLOP) and P V twice (hi and lo, 8.6 GFLOP):
-// 13.0 us, against 26.1 us for the mma.sync kernel it replaces, whose 4
-// column chunks each recomputed S.
+// issues there is S once per column chunk (two: 8.6 GFLOP) and P V twice
+// (hi and lo, 8.6 GFLOP): 17.4 us. At the L=128 shapes and at
+// test_config_large's 8x8 calls (B=1, T=64, D=1024) the bound is a few
+// microseconds: those calls are latency-bound.
 //
-// Design (D <= 512): a block owns 64 query rows (D > 64) or 128 (D <= 64),
-// all D output columns, and walks the keys.
-//   * TMA keeps K and V tiles in flight (two stages; K and V each with a
-//     full and an empty mbarrier); the Q tile is loaded once. One thread
-//     issues every copy, refilling a slot once every warp has released it:
-//     a producer warp of its own would be a ninth warp, and three warps in
-//     one of the SM's four register partitions cap every thread at 168
-//     registers (ptxas spilled O). TMA's zero fill replaces the row limit
-//     of ragged tiles and pads D to the 64-column boxes.
+// Design: every width on `wgmma`. A block owns 64 query rows (D > 64) or
+// 128 (D <= 64) and walks the keys.
+//   * TMA keeps K and V tiles in flight (K and V each with a full and an
+//     empty mbarrier a stage; four stages at D <= 64, two above); the Q
+//     tile is loaded once. A slot is refilled once every warp has released
+//     it, by thread 0 (D > 64) or by the last warp to release it (D <= 64,
+//     where the two warpgroups own separate rows and waiting would run
+//     them in step): a producer warp of its own would be a ninth warp,
+//     and three warps in one of the SM's four register partitions cap
+//     every thread at 168 registers (ptxas spilled O).
+//     TMA's zero fill replaces the row limit of ragged tiles and pads D to
+//     the boxes: 32 columns (64-byte swizzle) at D <= 32, so the L=128
+//     heads of 32 issue half the k-steps of S and N = 32 products with P,
+//     else 64 (wgmma_bf16.cuh).
 //   * S = Q K^T is an SS wgmma (m64nBKk16, both operands K-major in shared
-//     memory), O += P V an RS wgmma (m64n64k16): P in registers as hi and
+//     memory), O += P V an RS wgmma (m64nBCk16): P in registers as hi and
 //     lo halves, two wgmmas into one accumulator, V read MN-major through
-//     the transpose bit. The softmax runs in log2 units (one exp2f a
-//     score); a fully masked row keeps lse = -1e30 exactly.
-//   * D > 64 (the AttnBlock, D = 512): two warpgroups. Each computes S over
-//     its half of the D steps; the partial sums meet in shared memory (one
-//     named barrier a tile, buffers by tile parity), so S is computed once
-//     per 64-row tile and both warpgroups hold it. Each runs the same
-//     online softmax and owns half of O's column boxes (256 columns at
-//     D = 512: 128 f32 registers a thread). The tile loop is pipelined:
-//     S(it + 1) and P(it) V(it) are issued together, and the exchange and
-//     softmax of S(it + 1) run while P(it) V(it) does.
-//     Shared memory at D = 512, 32-key tiles: Q 64 KB + 2 stages x (K 32 KB
-//     + V 32 KB) + the S exchange (2 parities x 2 warpgroups x 16 floats
-//     x 128 threads, 32 KB) = 224 KB, + 1 KB of alignment and 72 bytes of
-//     mbarriers: 230,472 of 232,448 bytes, one block of 256 threads an SM.
-//     Registers (ptxas): 193 of the 255 that 256 threads may hold (O 128,
-//     S 16, P 16). Grid at the AttnBlock 32x32: 4 x 16 = 64 blocks on 132
-//     SMs. Splitting O's columns over two blocks would fill the card but
-//     compute S twice per tile (or need a 2-block cluster exchanging S
-//     through distributed shared memory, not built).
-//   * D <= 64 (self- and cross-attention, D = 64): a block owns 128 query
-//     rows, each of its two warpgroups 64 of them and all of D, sharing
-//     every K and V tile (half the L2 traffic and barrier waits a row of
-//     64-row blocks; device time at the self 32x32, B=4, chip_smoke.py on
-//     an H100 80GB HBM3 at 700 W: 53.9 against 59.3 us). 64-key tiles,
-//     50,248 bytes of shared memory, 113 registers: two blocks an SM (the
-//     self 32x32 at B=4: 256 blocks). Its tile loop runs S, softmax and
-//     P V in turn: pipelining it needs more registers than two blocks an
-//     SM leave.
+//     the transpose bit. The softmax runs in log2 units, one `ex2.approx.
+//     ftz` a score (exp2f's denormal handling around the SFU cost a
+//     quarter of the L=128 calls' time); a tile whose keys are all live
+//     skips the mask's selects; a fully masked row keeps lse = -1e30.
+//   * D > 64 (the AttnBlocks, D = 256 and 512; test_config_large's heads of
+//     128): two warpgroups. Each computes S over its half of the D steps;
+//     the partial sums meet in shared memory (one named barrier a tile,
+//     buffers by tile parity), so both warpgroups hold S. Each runs the
+//     same online softmax and owns half of the block's boxes of O (256
+//     columns at D = 512: 128 f32 registers a thread). Where the row tiles
+//     leave half the SMs idle, the boxes of O are split over grid z into
+//     chunks of two or more boxes, each block computing S over all of D
+//     (the L=128 AttnBlock 16x16 at B=16: 64 row tiles, 128 blocks; the
+//     N=256 AttnBlock 32x32 at B=4 likewise; its 16x16 and 8x8: four
+//     chunks). Key tiles of 64 up to D = 256 (over more than 32 keys: the
+//     L=128 4x4 mid block's 16 keys keep 32), of 32 above, where Q and two
+//     stages of 64-key K and V tiles would not fit. The tile loop is
+//     pipelined: S(it + 1) and P(it) V(it) are issued together, and the
+//     exchange and softmax of S(it + 1) run while P(it) V(it) does.
+//     Shared memory at D = 512, 32-key tiles: Q 64 KB +
+//     2 stages x (K 32 KB + V 32 KB) + the S exchange (2 parities x 2
+//     warpgroups x 16 floats x 128 threads, 32 KB) = 224 KB, + 1 KB of
+//     alignment and the mbarriers: 230,472 of 232,448 bytes, one block of
+//     256 threads an SM; 189 registers.
+//   * D > 512 (test_config_large's 8x8 AttnBlock in bf16, D = 1024, the
+//     most the JAX rule admits): the same kernel on a thread block cluster
+//     of two blocks (grid z, `cudaLaunchKernelEx`), block r loading,
+//     multiplying and owning the r-th half of D's boxes (the D = 512
+//     layout, unchanged). The four partial sums of S (two blocks x two
+//     warpgroups) meet through distributed shared memory: each warpgroup
+//     writes its own, and after one cluster barrier every thread adds the
+//     four in one fixed order, so both blocks hold bit-equal S and the
+//     same softmax; a last cluster barrier keeps a block's shared memory
+//     alive until its peer has read it. (At D = 256 and 512 the cluster
+//     lost to one block: a cluster barrier every 32-key tile against one
+//     named barrier, 31.1 against 22.3 us at the L=128 AttnBlock 16x16.)
+//   * D <= 64 (self- and cross-attention, heads of 32 and 64): a block
+//     owns 128 query rows, each of its two warpgroups 64 of them and all
+//     of D, sharing every K and V tile; 64-key tiles (32 over at most 32
+//     keys, the 16-token caption), two blocks an SM (118 registers at
+//     D = 64). Its tile loop runs S, softmax and P V in turn (pipelined as
+//     the D-split loop, on 32-key tiles to keep two blocks an SM, it was
+//     slower: 58.4 against 46.4 us at N=256's heads of 64 at 32x32).
 //   * The key mask is read once per tile into a bit set per thread (the
 //     2 BK / 8 keys its accumulator columns hold), not per score.
-// D > 512 (test_config_large.yml's 8x8 AttnBlock in bf16 is D = 1024, the
-// most the JAX rule admits) keeps the mma.sync kernel below:
-// `mma.sync.m16n8k16`, 16 rows a warp, column chunks of 128 that each
-// recompute S, cp.async double buffering.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py, PERF.md section
-// 6): ptxas reports no spill and no stack frame. Per call at B=4 (device
-// time): AttnBlock 32x32 0.100 ms (the mma.sync kernel: 0.676; SDPA
-// 0.086), self 32x32 0.054 ms (0.157; SDPA 0.025-0.034); 2.52 ms per N=256
-// PC step over its 96 calls (11.42).
+// Measured against the previous design and SDPA on an H100 (device time
+// per step of each bf16 path, scripts/flash_ab.py --dtype bf16): PERF.md
+// section 6. ptxas: no spill, no stack frame.
 
 namespace {
 
@@ -372,29 +387,32 @@ using namespace t2p;
 
 
 // S (64 x BK) += Q K^T over this warpgroup's 16-column steps of D: with
-// DSPLIT the steps [ks0, ks1) of its half, else the whole 64-column box
-// (D <= 64; the columns past D are TMA's zeros).
-template <bool DSPLIT, int NS>
+// DSPLIT the steps [ks0, ks1) of its half of the block's boxes, else the
+// whole BC-column box (D <= BC; the columns past D are TMA's zeros).
+template <bool DSPLIT, int BC, int NS>
 __device__ __forceinline__ void issue_s(float (&sc)[NS], uint32_t sq,
                                         uint32_t sk, uint32_t ktile,
                                         int ks0, int ks1) {
+  constexpr int SPB = BC / 16;            // 16-column steps of a box
+  constexpr int SHIFT = BC == 64 ? 2 : 1;  // log2(SPB)
   if (!DSPLIT) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_ss(sc, sw128_desc(sq + kk * 32), sw128_desc(sk + kk * 32));
+    for (int kk = 0; kk < SPB; ++kk)
+      wgmma_ss(sc, sw_desc<BC>(sq + kk * 32), sw_desc<BC>(sk + kk * 32));
   } else {
     for (int kk = ks0; kk < ks1; ++kk)
       wgmma_ss(sc,
-               sw128_desc(sq + (kk >> 2) * WG_ROWS * BOX_ROW_BYTES +
-                          (kk & 3) * 32),
-               sw128_desc(sk + (kk >> 2) * ktile + (kk & 3) * 32));
+               sw_desc<BC>(sq + (kk >> SHIFT) * WG_ROWS * 2 * BC +
+                           (kk & (SPB - 1)) * 32),
+               sw_desc<BC>(sk + (kk >> SHIFT) * ktile +
+                           (kk & (SPB - 1)) * 32));
   }
 }
 
 // O (this warpgroup's nob boxes) += P V: P as hi + lo A fragments per
 // 16-key slice, V MN-major.
-template <int NOB, int NSL>
-__device__ __forceinline__ void issue_pv(float (&o)[NOB][32],
+template <int BC, int NOB, int NA, int NSL>
+__device__ __forceinline__ void issue_pv(float (&o)[NOB][NA],
                                          uint32_t (&ph)[NSL][4],
                                          uint32_t (&pl)[NSL][4], uint32_t sv,
                                          uint32_t ktile, int ob0, int nob) {
@@ -404,7 +422,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[NOB][32],
 #pragma unroll
       for (int j = 0; j < NSL; ++j) {
         const uint64_t db =
-            sw128_desc(sv + (ob0 + n) * ktile + j * 16 * BOX_ROW_BYTES);
+            sw_desc<BC>(sv + (ob0 + n) * ktile + j * 16 * 2 * BC);
         wgmma_rs(o[n], pl[j], db);
         wgmma_rs(o[n], ph[j], db);
       }
@@ -413,20 +431,23 @@ __device__ __forceinline__ void issue_pv(float (&o)[NOB][32],
 
 // The scale and mask bias on one tile of S, then its share of the online
 // softmax of rows g and g + 8: the new row maxima and, in place, P and its
-// row sums. Bit 2 j + e of `live` is column 8 j + 2 t + e. The scores are
-// in log2 units (scale2 = scale * log2(e)), so P is one exp2f of a
-// difference: the maxima m_r, m_new are log2(e) times the JAX kernel's.
-template <int NS>
+// row sums. Bit 2 j + e of `live` is column 8 j + 2 t + e (all ones: a
+// whole tile of live keys, the selects left out). The scores are in log2
+// units (scale2 = scale * log2(e)), so P is one exp2 of a difference: the
+// maxima m_r, m_new are log2(e) times the JAX kernel's. FTZ (the bf16
+// kernels): exp2_ftz.
+template <bool FTZ = false, int NS>
 __device__ __forceinline__ void softmax_tile(float (&sc)[NS], uint32_t live,
                                              float scale2,
                                              const float (&m_r)[2],
                                              float (&m_new)[2],
                                              float (&sum)[2]) {
+  const bool all = FTZ && live == ~0u;
   float mx[2] = {-1e30f, -1e30f};
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
-    const bool lv = (live >> (2 * (i >> 2) + (i & 1))) & 1u;
-    sc[i] = fmaf(sc[i], scale2, lv ? 0.f : -1e30f);
+    const bool lv = all || ((live >> (2 * (i >> 2) + (i & 1))) & 1u);
+    sc[i] = all ? sc[i] * scale2 : fmaf(sc[i], scale2, lv ? 0.f : -1e30f);
     mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
   }
 #pragma unroll
@@ -438,8 +459,9 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NS], uint32_t live,
   }
 #pragma unroll
   for (int i = 0; i < NS; ++i) {
-    const bool lv = (live >> (2 * (i >> 2) + (i & 1))) & 1u;
-    const float p = lv ? exp2f(sc[i] - m_new[(i >> 1) & 1]) : 0.f;
+    const bool lv = all || ((live >> (2 * (i >> 2) + (i & 1))) & 1u);
+    const float d = sc[i] - m_new[(i >> 1) & 1];
+    const float p = lv ? (FTZ ? exp2_ftz(d) : exp2f(d)) : 0.f;
     sc[i] = p;
     sum[(i >> 1) & 1] += p;
   }
@@ -450,16 +472,20 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[NS], uint32_t live,
   }
 }
 
-// The wgmma forward: two warpgroups, BK keys a tile, at most NOB 64-column
-// boxes of O a warpgroup; with DSPLIT they split D's steps and boxes over
-// one 64-row tile, else each owns 64 rows. With two warpgroups the tile loop is
-// software-pipelined: iteration `it` issues S(it + 1) and then
-// O += P(it) V(it), and while the second runs exchanges and softmaxes
-// S(it + 1). K and V have barriers of their own, so K(it + 1)'s slot is
-// refilled once S(it + 1) is done, a full iteration before V(it)'s.
+// The wgmma forward: two warpgroups, BK keys a tile, BC-column boxes, at
+// most NOB boxes of O a warpgroup; with DSPLIT they split the D steps and
+// boxes of one 64-row tile, else each owns 64 rows. With DSPLIT a thread
+// block cluster of CL blocks splits D first (block r of the cluster loads,
+// multiplies and owns the r-th share of the boxes), and the four (CL = 2)
+// partial sums of S meet through distributed shared memory. With two
+// warpgroups the tile loop is software-pipelined: iteration `it` issues
+// S(it + 1) and then O += P(it) V(it), and while the second runs exchanges
+// and softmaxes S(it + 1). K and V have barriers of their own, so K(it +
+// 1)'s slot is refilled once S(it + 1) is done, a full iteration before
+// V(it)'s.
 constexpr int NWG = 2;  // warpgroups of a forward block
 
-template <int BK, int NOB, bool DSPLIT>
+template <int BK, int NOB, bool DSPLIT, int BC, int CL, int ST>
 __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
@@ -468,19 +494,27 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
                            bf16* __restrict__ out, float* __restrict__ lse,
                            int H, int Tq, int Tk, int D, float scale) {
   constexpr int NS = BK / 2;  // S accumulator floats a thread
-  constexpr int S = WG_STAGES;
+  constexpr int NA = BC / 2;  // accumulator floats of one box of O
+  constexpr int S = ST;
   constexpr int QT = DSPLIT ? 1 : NWG;  // 64-row Q tiles of the block
+  constexpr uint32_t ROWB = 2 * BC;
+  constexpr int SPB = BC / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nbox = nboxes(D);
-  const WgLayout L = wg_layout(QT, nbox, BK, S, DSPLIT ? NWG : 1, NS);
+  // this block's share of the boxes: nbb boxes from bb0 (all of them
+  // without a cluster); the layout holds the largest share
+  const int nball = nboxes(D, BC), nbs = (nball + CL - 1) / CL;
+  const int rank = CL > 1 ? cluster_rank() : 0;
+  const int bb0 = rank * nbs, nbb = min(nbs, nball - bb0);
+  const WgLayout L = wg_layout(QT, nbs, BK, S, DSPLIT ? NWG : 1, NS, ROWB);
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   const uint32_t sq = base, st0 = base + L.stage0, bar = base + L.bars;
   float* xch = reinterpret_cast<float*>(smem_raw + (base - raw) + L.xch);
   const int bh = blockIdx.x, q0 = blockIdx.y * QT * WG_ROWS;
   const int ntiles = (Tk + BK - 1) / BK;
-  const uint32_t ktile = BK * BOX_ROW_BYTES;  // bytes of one box of a tile
-  const uint32_t half = nbox * ktile;         // bytes of a K (or V) tile
+  const uint32_t ktile = BK * ROWB;     // bytes of one box of a tile
+  const uint32_t half = nbs * ktile;    // bytes between a K and a V tile
+  const uint32_t bytes = nbb * ktile;   // bytes this block loads a tile
   const int lane = threadIdx.x & 31;
   // mbarriers of tile t: K full, V full, K empty, V empty; then Q's
   auto fk = [&](int t) { return bar + 8 * (t % S); };
@@ -491,22 +525,41 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
   auto k_at = [&](int t) { return st0 + (t % S) * L.stage; };
   auto v_at = [&](int t) { return st0 + (t % S) * L.stage + half; };
 
-  // thread 0 issues every copy
+  // thread 0 issues the first copies (and with DSPLIT every copy)
   const bool issuer = threadIdx.x == 0;
   auto load = [&](const CUtensorMap* map, uint32_t dst, uint32_t full,
                   int t) {
-    mbar_expect_tx(full, half);
-    for (int b = 0; b < nbox; ++b)
-      tma_load(dst + b * ktile, map, full, b * BOX_COLS, t * BK, bh);
+    mbar_expect_tx(full, bytes);
+    for (int b = 0; b < nbb; ++b)
+      tma_load(dst + b * ktile, map, full, (bb0 + b) * BC, t * BK, bh);
   };
-  // a warp's release of K (or V) of tile t; thread 0 then refills the slot
-  // with tile t + S once every warp has released it
+  // per slot, the warps that have released K (or V) of its tile (D <= 64)
+  int* kcnt = reinterpret_cast<int*>(smem_raw + (base - raw) + L.bars +
+                                     8 * (4 * S + 1));
+  int* vcnt = kcnt + S;
+  // a warp's release of K (or V) of tile t; the slot is then refilled with
+  // tile t + S once every warp has released it. D <= 64: by the last warp
+  // to release it, so no thread waits for the others (a waiting thread 0
+  // held its whole warpgroup at the next wgmma and ran the block's two
+  // warpgroups, which own separate rows, in step: 46.2 against 42.6 us at
+  // N=256's heads of 64 at 32x32 on an H100). With DSPLIT, whose
+  // warpgroups meet every tile in the exchange anyway, by thread 0 (the
+  // last-warp refill measured 95.9 us at the AttnBlock 32x32, thread 0
+  // 85.6, in separate runs).
   auto release = [&](const CUtensorMap* map, uint32_t empty, uint32_t dst,
-                     uint32_t full, int t) {
+                     uint32_t full, int* cnt, int t) {
     __syncwarp();
     if (lane == 0) mbar_arrive(empty);
-    if (issuer && t + S < ntiles) {
+    if (DSPLIT) {
+      if (issuer && t + S < ntiles) {
+        mbar_wait(empty, (t / S) & 1);
+        load(map, dst, full, t + S);
+      }
+    } else if (lane == 0 && t + S < ntiles &&
+               atomicAdd(cnt + t % S, 1) == 4 * NWG - 1) {
+      // every warp arrived before it counted: the phase is complete
       mbar_wait(empty, (t / S) & 1);
+      cnt[t % S] = 0;
       load(map, dst, full, t + S);
     }
   };
@@ -515,14 +568,15 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
       mbar_init(bar + 8 * i, i < 2 * S ? 1 : 4 * NWG);
     mbar_init(bar_q, 1);
     mbar_fence_init();
+    for (int i = 0; i < 2 * S; ++i) kcnt[i] = 0;
   }
   __syncthreads();
   if (issuer) {
-    mbar_expect_tx(bar_q, QT * nbox * WG_ROWS * BOX_ROW_BYTES);
+    mbar_expect_tx(bar_q, QT * nbb * WG_ROWS * ROWB);
     for (int w = 0; w < QT; ++w)
-      for (int b = 0; b < nbox; ++b)
-        tma_load(sq + (w * nbox + b) * WG_ROWS * BOX_ROW_BYTES, &tm_q, bar_q,
-                 b * BOX_COLS, q0 + w * WG_ROWS, bh);
+      for (int b = 0; b < nbb; ++b)
+        tma_load(sq + (w * nbs + b) * WG_ROWS * ROWB, &tm_q, bar_q,
+                 (bb0 + b) * BC, q0 + w * WG_ROWS, bh);
     for (int t = 0; t < S && t < ntiles; ++t) {
       load(&tm_k, k_at(t), fk(t), t);
       load(&tm_v, v_at(t), fv(t), t);
@@ -536,15 +590,22 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
   const int ct = threadIdx.x & 127;
   const int warp = ct >> 5, g = lane >> 2, t = lane & 3;
   // this warpgroup's Q tile, 16-column steps of S and boxes of O: with
-  // DSPLIT a half of D's steps and boxes of the block's one Q tile, else
-  // its own 64 rows and all of D
-  const uint32_t sqw = sq + (DSPLIT ? 0 : wg * nbox * WG_ROWS * BOX_ROW_BYTES);
+  // DSPLIT a half of the block's steps and of its chunk's boxes of its one
+  // Q tile (local box indices in shared memory; without a cluster, grid z
+  // splits O's boxes into chunks, each block computing S over all of D),
+  // else its own 64 rows and all of D
+  const uint32_t sqw = sq + (DSPLIT ? 0 : wg * nbs * WG_ROWS * ROWB);
   const int row0 = q0 + (DSPLIT ? 0 : wg * WG_ROWS);
   const int nsp = DSPLIT ? NWG : 1;
-  const int nks = (D + 15) >> 4, kper = (nks + nsp - 1) / nsp;
+  const int nks = min((D + 15) >> 4, (bb0 + nbb) * SPB) - bb0 * SPB;
+  const int kper = (nks + nsp - 1) / nsp;
   const int ks0 = DSPLIT ? wg * kper : 0, ks1 = min(nks, ks0 + kper);
-  const int oper = (nbox + nsp - 1) / nsp, ob0 = DSPLIT ? wg * oper : 0;
-  const int nob = min(oper, nbox - ob0);
+  const int nz = CL > 1 ? 1 : gridDim.z, zc = CL > 1 ? 0 : blockIdx.z;
+  const int zper = (nbb + nz - 1) / nz, zb0 = zc * zper;
+  const int nzb = min(zper, nbb - zb0);  // boxes of O of this block
+  const int oper = (nzb + nsp - 1) / nsp;
+  const int ob0 = zb0 + (DSPLIT ? wg * oper : 0);
+  const int nob = min(oper, nzb - (ob0 - zb0));
   const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
   const float scale2 = scale * LOG2E;
 
@@ -561,21 +622,37 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
       }
     return live;
   };
-  // with DSPLIT, adds the other warpgroup's partial S (buffers by parity)
+  // with DSPLIT, adds the other partial sums of S (buffers by parity): the
+  // other warpgroup's through shared memory; with a cluster, every
+  // warpgroup's of every block through distributed shared memory, summed
+  // in one fixed order, so that all of them hold bit-equal sums
   auto exchange = [&](float (&sc)[NS], int it) {
     if (DSPLIT) {
       float* buf = xch + (it & 1) * NWG * NS * 128;
       xch_put(sc, buf + wg * NS * 128, ct);
-      warpgroups_sync(NWG * 128);
-      xch_add(sc, buf + (1 - wg) * NS * 128, ct);
+      if (CL == 1) {
+        warpgroups_sync(NWG * 128);
+        xch_add(sc, buf + (1 - wg) * NS * 128, ct);
+      } else {
+        cluster_sync();
+        const uint32_t b0 = smem_u32(buf) + 4 * ct;
+#pragma unroll
+        for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+        for (int r = 0; r < CL; ++r)
+#pragma unroll
+          for (int w = 0; w < NWG; ++w)
+#pragma unroll
+            for (int i = 0; i < NS; ++i)
+              sc[i] += ld_cluster(b0 + 4 * ((w * NS + i) * 128), r);
+      }
     }
   };
 
-  float o[NOB][32];
+  float o[NOB][NA];
 #pragma unroll
   for (int n = 0; n < NOB; ++n)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[n][i] = 0.f;
+    for (int i = 0; i < NA; ++i) o[n][i] = 0.f;
   float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
   float m_new[2], sum[2];
   float sc[NS];
@@ -593,12 +670,12 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
       for (int i = 0; i < NS; ++i) sc[i] = 0.f;
       fence_regs(sc);  // zeroed before the fence, not sunk past it
       wgmma_fence();
-      issue_s<DSPLIT>(sc, sqw, k_at(it), ktile, ks0, ks1);
+      issue_s<DSPLIT, BC>(sc, sqw, k_at(it), ktile, ks0, ks1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
-      release(&tm_k, ek(it), k_at(it), fk(it), it);
-      softmax_tile(sc, live_bits(it), scale2, m_r, m_new, sum);
+      release(&tm_k, ek(it), k_at(it), fk(it), kcnt, it);
+      softmax_tile<true>(sc, live_bits(it), scale2, m_r, m_new, sum);
       float alpha[2];
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -609,7 +686,7 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
 #pragma unroll
       for (int n = 0; n < NOB; ++n)
 #pragma unroll
-        for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < NA; ++i) o[n][i] *= alpha[(i >> 1) & 1];
       split_acc(sc, ph, pl);
       mbar_wait(fv(it), (it / S) & 1);
 #pragma unroll
@@ -617,14 +694,14 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
       fence_regs(ph);
       fence_regs(pl);
       wgmma_fence();
-      issue_pv(o, ph, pl, v_at(it), ktile, ob0, nob);
+      issue_pv<BC>(o, ph, pl, v_at(it), ktile, ob0, nob);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
       for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
       fence_regs(ph);
       fence_regs(pl);
-      release(&tm_v, ev(it), v_at(it), fv(it), it);
+      release(&tm_v, ev(it), v_at(it), fv(it), vcnt, it);
     }
   } else {
     // S(0) and its softmax
@@ -634,13 +711,13 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
     for (int i = 0; i < NS; ++i) sc[i] = 0.f;
     fence_regs(sc);  // zeroed before the fence, not sunk past it
     wgmma_fence();
-    issue_s<DSPLIT>(sc, sqw, k_at(0), ktile, ks0, ks1);
+    issue_s<DSPLIT, BC>(sc, sqw, k_at(0), ktile, ks0, ks1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
-    release(&tm_k, ek(0), k_at(0), fk(0), 0);
+    release(&tm_k, ek(0), k_at(0), fk(0), kcnt, 0);
     exchange(sc, 0);
-    softmax_tile(sc, live_bits(0), scale2, m_r, m_new, sum);
+    softmax_tile<true>(sc, live_bits(0), scale2, m_r, m_new, sum);
   #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_r[r] = sum[r];
@@ -659,21 +736,21 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
       fence_regs(ph);
       fence_regs(pl);
       wgmma_fence();
-      issue_s<DSPLIT>(sc, sqw, k_at(it + 1), ktile, ks0, ks1);
+      issue_s<DSPLIT, BC>(sc, sqw, k_at(it + 1), ktile, ks0, ks1);
       wgmma_commit();
-      issue_pv(o, ph, pl, v_at(it), ktile, ob0, nob);
+      issue_pv<BC>(o, ph, pl, v_at(it), ktile, ob0, nob);
       wgmma_commit();
       wgmma_wait<1>();  // S(it + 1) is done; P(it) V(it) may still run
       fence_regs(sc);
-      release(&tm_k, ek(it + 1), k_at(it + 1), fk(it + 1), it + 1);
+      release(&tm_k, ek(it + 1), k_at(it + 1), fk(it + 1), kcnt, it + 1);
       exchange(sc, it + 1);
-      softmax_tile(sc, live_bits(it + 1), scale2, m_r, m_new, sum);
+      softmax_tile<true>(sc, live_bits(it + 1), scale2, m_r, m_new, sum);
       wgmma_wait<0>();
   #pragma unroll
       for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
       fence_regs(ph);
       fence_regs(pl);
-      release(&tm_v, ev(it), v_at(it), fv(it), it);
+      release(&tm_v, ev(it), v_at(it), fv(it), vcnt, it);
       float alpha[2];
   #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -684,7 +761,7 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
   #pragma unroll
       for (int n = 0; n < NOB; ++n)
   #pragma unroll
-        for (int i = 0; i < 32; ++i) o[n][i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < NA; ++i) o[n][i] *= alpha[(i >> 1) & 1];
       split_acc(sc, ph, pl);
     }
 
@@ -695,12 +772,13 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
     fence_regs(ph);
     fence_regs(pl);
     wgmma_fence();
-    issue_pv(o, ph, pl, v_at(ntiles - 1), ktile, ob0, nob);
+    issue_pv<BC>(o, ph, pl, v_at(ntiles - 1), ktile, ob0, nob);
     wgmma_commit();
     wgmma_wait<0>();
   #pragma unroll
     for (int n = 0; n < NOB; ++n) fence_regs(o[n]);
-
+    // the other blocks of the cluster may still read this one's partials
+    if (CL > 1) cluster_sync();
   }
 
   bf16* ob = out + (size_t)bh * Tq * D;
@@ -710,9 +788,9 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
   for (int n = 0; n < NOB; ++n)
     if (n < nob) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
+      for (int i = 0; i < NA; i += 2) {
         const int r = (i >> 1) & 1;
-        const int col = (ob0 + n) * BOX_COLS + 8 * (i >> 2) + 2 * t;
+        const int col = (bb0 + ob0 + n) * BC + 8 * (i >> 2) + 2 * t;
         if (row + 8 * r < Tq && col < D)
           *reinterpret_cast<uint32_t*>(ob + (size_t)(row + 8 * r) * D +
                                        col) =
@@ -721,7 +799,7 @@ __global__ void __launch_bounds__(NWG * 128, DSPLIT ? 1 : 2)
     }
   // lse = m + log(l) in natural units; a fully masked row keeps the JAX
   // kernel's m = -1e30 exactly (its log2-unit maximum never left -1e30)
-  if ((!DSPLIT || wg == 0) && t == 0) {
+  if ((!DSPLIT || (wg == 0 && rank == 0 && zc == 0)) && t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
       if (row + 8 * r < Tq)
@@ -734,226 +812,74 @@ using FwdWgKernel = void (*)(const CUtensorMap, const CUtensorMap,
                              const CUtensorMap, const unsigned char*, bf16*,
                              float*, int, int, int, int, float);
 
-// D <= 64 (two warpgroups on 64 rows each, 64-key tiles), then
-// 64 < D <= 512 (two warpgroups splitting D, 32-key tiles, up to 4 boxes of
-// O each)
-constexpr FwdWgKernel WG_KERNELS[] = {flash_fwd_wgmma_kernel<64, 1, false>,
-                                      flash_fwd_wgmma_kernel<32, 4, true>};
+// D <= 32 and D <= 64 (two warpgroups on 64 rows each, boxes of 32 and 64
+// columns, 4 stages) on 64-key tiles, and on 32-key tiles over at most 32
+// keys (the 16-token caption: half the padded S and P V of a 64-key
+// tile); 64 < D <= 256 over more than 32 keys (two warpgroups splitting
+// D, 64-key tiles, up to 2 boxes of O each); 64 < D <= 512 (32-key tiles,
+// up to 4 boxes of O each); then 512 < D <= 1024 (the same on a cluster
+// of two blocks splitting D); 2 stages
+constexpr FwdWgKernel WG_KERNELS[] = {
+    flash_fwd_wgmma_kernel<64, 1, false, 32, 1, 4>,
+    flash_fwd_wgmma_kernel<64, 1, false, 64, 1, 4>,
+    flash_fwd_wgmma_kernel<32, 1, false, 32, 1, 4>,
+    flash_fwd_wgmma_kernel<32, 1, false, 64, 1, 4>,
+    flash_fwd_wgmma_kernel<64, 2, true, 64, 1, 2>,
+    flash_fwd_wgmma_kernel<32, 4, true, 64, 1, 2>,
+    flash_fwd_wgmma_kernel<32, 4, true, 64, 2, 2>};
+constexpr int NWG_KERNELS = sizeof(WG_KERNELS) / sizeof(WG_KERNELS[0]);
+constexpr int WG_KERNEL_STAGES[] = {4, 4, 4, 4, 2, 2, 2};
 
 struct WgPlan {
-  int nwg, tile, rows, chunks, idx, threads;
+  int nwg, tile, rows, chunks, idx, threads, box, cluster, stages;
   dim3 grid;
   size_t smem;
 };
 
-bool plan_fwd_wg(WgPlan& p, int B, int H, int Tq, int D) {
-  if (D > WG_MAX_D) return false;
+void plan_fwd_wg(WgPlan& p, int B, int H, int Tq, int Tk, int D) {
   const bool narrow = D <= 64;
+  // 64-key tiles (a 64 x 64 S) up to D = 256 where the keys fill them
+  const bool wide_s = !narrow && D <= 256 && Tk > 32;
+  p.box = box_cols(D);
+  p.cluster = D > WG_MAX_D ? 2 : 1;
   p.nwg = NWG;
-  p.tile = narrow ? 64 : 32;
+  const bool short_k = narrow && Tk <= 32;  // 32-key tiles
+  p.tile = (narrow && !short_k) || wide_s ? 64 : 32;
   p.rows = narrow ? 2 * WG_ROWS : WG_ROWS;
-  p.idx = narrow ? 0 : 1;
+  p.idx = narrow ? (p.box == 32 ? 0 : 1) + (short_k ? 2 : 0)
+                 : wide_s ? 4 : p.cluster == 1 ? 5 : 6;
+  p.stages = WG_KERNEL_STAGES[p.idx];
+  // D-split without a cluster: O's boxes in chunks over grid z while the
+  // row tiles leave half the SMs idle, at least one box a warpgroup
   p.chunks = 1;
+  const int nbox = nboxes(D, p.box);
+  const long tiles = (long)B * H * ((Tq + WG_ROWS - 1) / WG_ROWS);
+  if (!narrow && p.cluster == 1)
+    while (tiles * p.chunks * 2 <= sm_count() && nbox >= 4 * p.chunks)
+      p.chunks *= 2;
   p.threads = 128 * p.nwg;
-  p.grid = dim3(B * H, (Tq + p.rows - 1) / p.rows, 1);
-  p.smem = wg_layout(p.rows / WG_ROWS, nboxes(D), p.tile, WG_STAGES,
-                     narrow ? 1 : p.nwg, p.tile / 2)
+  p.grid = dim3(B * H, (Tq + p.rows - 1) / p.rows, p.cluster * p.chunks);
+  const int nbs = (nboxes(D, p.box) + p.cluster - 1) / p.cluster;
+  p.smem = wg_layout(p.rows / WG_ROWS, nbs, p.tile, p.stages,
+                     narrow ? 1 : p.nwg, p.tile / 2, 2 * p.box)
                .total;
-  return true;
 }
 
 cudaError_t prepare_wg(int idx, size_t smem) {
-  static size_t opted[MAX_DEVICES][2] = {};
+  static size_t opted[MAX_DEVICES][NWG_KERNELS] = {};
   const int dev = current_device();
   if (dev < 0) return cudaErrorInvalidDevice;
   return opt_in(WG_KERNELS[idx], smem, &opted[dev][idx]);
 }
 
-// The mma.sync kernel for D > 512. Shared bytes: q rows, then two stages
-// of (k tile, v tile).
-size_t fwd16_smem(int D, int dc, int warps, int bk) {
-  const int ldq = pad_ld16(round16(D)), ldv = pad_ld16(dc);
-  return sizeof(bf16) *
-         ((size_t)warps * ROWS * ldq + (size_t)2 * bk * (ldq + ldv));
-}
-
-bool plan_fwd16(Bf16Plan& p, int B, int H, int Tq, int Tk, int D) {
-  p.dc = 128;
-  p.nchunk = (D + p.dc - 1) / p.dc;
-  p.idx = 0;
-  return plan_bf16(p, B * H, Tq, Tk, 64, [&](int warps, int bk) {
-    return fwd16_smem(D, p.dc, warps, bk);
-  });
-}
-
-// NO: 8-column tiles of O a warp holds (the chunk's dc <= 8 NO columns).
-template <int NO>
-__global__ void __launch_bounds__(4 * 32) flash_fwd_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const unsigned char* __restrict__ mask,
-    bf16* __restrict__ out, float* __restrict__ lse, int H, int Tq, int Tk,
-    int D, int dc, int bk, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int D16 = round16(D);
-  const int ldq = pad_ld16(D16), ldv = pad_ld16(dc);
-  const int rows = (blockDim.x >> 5) * ROWS;
-  const int nn = bk >> 3;
-  const int stage = bk * (ldq + ldv);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  bf16* sq = smem;                 // rows x ldq
-  bf16* stage0 = sq + rows * ldq;  // 2 stages x (k tile, v tile)
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * rows;
-  const int c0 = blockIdx.z * dc;
-  const int cols = min(dc, D - c0);
-  const bf16* qb = q + (size_t)bh * Tq * D;
-  const bf16* kb = k + (size_t)bh * Tk * D;
-  const bf16* vb = v + (size_t)bh * Tk * D;
-  const unsigned char* mb = mask ? mask + (size_t)(bh / H) * Tk : nullptr;
-  const int ntiles = (Tk + bk - 1) / bk;
-
-  if (D16 != D) {
-    zero_pad16(sq, ldq, rows, D);
-    zero_pad16(stage0, ldq, bk, D);
-    zero_pad16(stage0 + stage, ldq, bk, D);
-  }
-  auto load_kv = [&](int it, int s) {
-    bf16* sk = stage0 + s * stage;
-    load_tile_async16(sk, ldq, kb, D, it * bk, bk, Tk, 0, D);
-    load_tile_async16(sk + bk * ldq, ldv, vb, D, it * bk, bk, Tk, c0, cols);
-  };
-  load_tile_async16(sq, ldq, qb, D, q0, rows, Tq, 0, D);
-  load_kv(0, 0);
-  cp_async_commit();
-
-  const bf16* sqw = sq + warp * ROWS * ldq;
-  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};  // rows g, g + 8
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) {
-      load_kv(it + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* sk = stage0 + (it & 1) * stage;
-    const bf16* sv = sk + bk * ldq;
-
-    float sc[8][4];  // S (16 x bk <= 64) as 8 accumulator fragments
-#pragma unroll
-    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-    for (int kk = 0; kk < D16; kk += 16) {
-      uint32_t a[4];
-      load_a16(a, sqw, ldq, kk, lane);
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (n < nn) {
-          uint32_t b[2];
-          load_bt16(b, sk, ldq, n * 8, kk, lane);
-          mma_bf16(sc[n], a, b);
-        }
-    }
-
-    // scale and mask bias, then the online softmax of rows g and g + 8
-    const int k0 = it * bk;
-    float mx[2] = {-1e30f, -1e30f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
-        sc[n][i] = sc[n][i] * scale + (live ? 0.f : -1e30f);
-        mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
-      }
-    float m_new[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      m_new[r] = fmaxf(m_r[r], mx[r]);
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + n * 8 + 2 * t + (i & 1);
-        const bool live = n < nn && key < Tk && (mb == nullptr || mb[key]);
-        const float p = live ? expf(sc[n][i] - m_new[i >> 1]) : 0.f;
-        sc[n][i] = p;
-        sum[i >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      alpha[r] = expf(m_r[r] - m_new[r]);
-      l_r[r] = l_r[r] * alpha[r] + sum[r];
-      m_r[r] = m_new[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V, P from registers as hi + lo bf16 A fragments
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (2 * j < nn) {
-        const SplitA16 pa = split_c_to_a(sc[2 * j], sc[2 * j + 1]);
-#pragma unroll
-        for (int n = 0; n < NO; ++n)
-          if (n * 8 < cols) {
-            uint32_t b[2];
-            load_bn16(b, sv, ldv, n * 8, j * 16, lane);
-            mma_split(o[n], pa, b);
-          }
-      }
-    __syncthreads();  // the stage is read; the next prefetch may refill it
-  }
-
-  bf16* ob = out + (size_t)bh * Tq * D;
-  const int row = q0 + warp * ROWS + g;
-  const float l_top = fmaxf(l_r[0], 1e-30f), l_bot = fmaxf(l_r[1], 1e-30f);
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-    if (n * 8 < cols) {
-      const int col = c0 + n * 8 + 2 * t;
-      if (row < Tq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)row * D + col) =
-            pack_bf16(o[n][0] / l_top, o[n][1] / l_top);
-      if (row + 8 < Tq)
-        *reinterpret_cast<uint32_t*>(ob + (size_t)(row + 8) * D + col) =
-            pack_bf16(o[n][2] / l_bot, o[n][3] / l_bot);
-    }
-  if (blockIdx.z == 0 && t == 0) {
-    if (row < Tq) lse[(size_t)bh * Tq + row] = m_r[0] + logf(l_top);
-    if (row + 8 < Tq) lse[(size_t)bh * Tq + row + 8] = m_r[1] + logf(l_bot);
-  }
-}
-
-using Fwd16Kernel = void (*)(const bf16*, const bf16*, const bf16*,
-                             const unsigned char*, bf16*, float*, int, int,
-                             int, int, int, int, float);
-
-constexpr Fwd16Kernel KERNELS16[] = {flash_fwd_bf16_kernel<16>};
-
-cudaError_t prepare16(size_t smem) {
-  static size_t opted[MAX_DEVICES] = {};
-  const int dev = current_device();
-  if (dev < 0) return cudaErrorInvalidDevice;
-  return opt_in(KERNELS16[0], smem, &opted[dev]);
+// Blocks of the plan's kernel an SM holds, -1 where it cannot say.
+int per_sm_wg(const WgPlan& w) {
+  int per_sm = -1;
+  if (prepare_wg(w.idx, w.smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, WG_KERNELS[w.idx], w.threads, w.smem) != cudaSuccess)
+    return -1;
+  return per_sm;
 }
 
 }  // namespace
@@ -967,66 +893,55 @@ extern "C" int t2p_flash_fwd_bf16(const void* q, const void* k, const void* v,
   if (!aligned16({q, k, v, out})) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   WgPlan w{};
-  if (plan_fwd_wg(w, B, H, Tq, D)) {
-    CUtensorMap mq, mk, mv;
-    if (!tensor_map(&mq, q, B * H, Tq, D, WG_ROWS) ||
-        !tensor_map(&mk, k, B * H, Tk, D, w.tile) ||
-        !tensor_map(&mv, v, B * H, Tk, D, w.tile))
-      return (int)cudaErrorInvalidValue;
-    cudaError_t err = prepare_wg(w.idx, w.smem);
-    if (err != cudaSuccess) return (int)err;
+  plan_fwd_wg(w, B, H, Tq, Tk, D);
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, B * H, Tq, D, WG_ROWS, w.box, 2) ||
+      !tensor_map(&mk, k, B * H, Tk, D, w.tile, w.box, 2) ||
+      !tensor_map(&mv, v, B * H, Tk, D, w.tile, w.box, 2))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_wg(w.idx, w.smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned char* mp = static_cast<const unsigned char*>(mask);
+  bf16* op = static_cast<bf16*>(out);
+  float* lp = static_cast<float*>(lse);
+  if (w.cluster == 1) {
     WG_KERNELS[w.idx]<<<w.grid, w.threads, w.smem, s>>>(
-        mq, mk, mv, static_cast<const unsigned char*>(mask),
-        static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, D,
-        scale);
+        mq, mk, mv, mp, op, lp, H, Tq, Tk, D, scale);
     return (int)cudaGetLastError();
   }
-  Bf16Plan p{};
-  if (!plan_fwd16(p, B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare16(p.smem);
+  // the blocks of a row tile's cluster along z
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = w.grid;
+  cfg.blockDim = dim3(w.threads, 1, 1);
+  cfg.dynamicSmemBytes = w.smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = (unsigned)w.cluster;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, WG_KERNELS[w.idx], mq, mk, mv, mp, op, lp,
+                           H, Tq, Tk, D, scale);
   if (err != cudaSuccess) return (int)err;
-  KERNELS16[0]<<<p.grid, 32 * p.warps, p.smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const unsigned char*>(mask),
-      static_cast<bf16*>(out), static_cast<float*>(lse), H, Tq, Tk, D, p.dc,
-      p.t, scale);
   return (int)cudaGetLastError();
 }
 
-// The bf16 kernel's launch plan: {warpgroups (0: the mma.sync
-// kernel), column chunks (blocks per row tile, each computing S), pipeline
-// stages, inner tile rows, rows a block owns, blocks, dynamic shared bytes,
-// blocks per SM, threads per block, wgmma (1) or mma.sync (0)}.
+// The bf16 kernel's launch plan: {warpgroups, column chunks (blocks per
+// row tile, each computing S), pipeline stages, inner tile rows, rows a
+// block owns, blocks, dynamic shared bytes, blocks per SM, threads per
+// block, wgmma (1), box columns (32 or 64), blocks of a cluster (1 or 2,
+// splitting D)}.
 extern "C" int t2p_flash_fwd_bf16_plan(int B, int H, int Tq, int Tk, int D,
                                        int* out) {
   if (!valid_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
   WgPlan w{};
-  Bf16Plan p{};
-  const bool wgmma = plan_fwd_wg(w, B, H, Tq, D);
-  if (!wgmma && !plan_fwd16(p, B, H, Tq, Tk, D))
-    return (int)cudaErrorInvalidValue;
-  int per_sm = -1;
-  const bool ok =
-      wgmma ? prepare_wg(w.idx, w.smem) == cudaSuccess &&
-                  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, WG_KERNELS[w.idx], w.threads, w.smem) ==
-                      cudaSuccess
-            : prepare16(p.smem) == cudaSuccess &&
-                  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, KERNELS16[0], 32 * p.warps, p.smem) ==
-                      cudaSuccess;
-  if (!ok) per_sm = -1;
-  const dim3 grid = wgmma ? w.grid : p.grid;
-  out[0] = wgmma ? w.nwg : 0;
-  out[1] = wgmma ? w.chunks : p.nchunk;
-  out[2] = 2;
-  out[3] = wgmma ? w.tile : p.t;
-  out[4] = wgmma ? w.rows : ROWS * p.warps;
-  out[5] = (int)(grid.x * grid.y * grid.z);
-  out[6] = (int)(wgmma ? w.smem : p.smem);
-  out[7] = per_sm;
-  out[8] = wgmma ? w.threads : 32 * p.warps;
-  out[9] = wgmma;
+  plan_fwd_wg(w, B, H, Tq, Tk, D);
+  const int v[12] = {w.nwg, w.chunks, w.stages, w.tile, w.rows,
+                     (int)(w.grid.x * w.grid.y * w.grid.z), (int)w.smem,
+                     per_sm_wg(w), w.threads, 1, w.box, w.cluster};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
   return 0;
 }
 
@@ -1428,9 +1343,9 @@ extern "C" int t2p_flash_fwd_f32(const void* q, const void* k, const void* v,
   TfPlan w{};
   if (plan_fwd_tf(w, B, H, Tq, Tk, D)) {
     CUtensorMap mq, mk, mv;
-    if (!tensor_map_f32(&mq, q, B * H, Tq, D, WG_ROWS) ||
-        !tensor_map_f32(&mk, k, B * H, Tk, D, w.bk) ||
-        !tensor_map_f32(&mv, v, B * H, Tk, D, w.bk))
+    if (!tensor_map(&mq, q, B * H, Tq, D, WG_ROWS, F32_BOX, 4) ||
+        !tensor_map(&mk, k, B * H, Tk, D, w.bk, F32_BOX, 4) ||
+        !tensor_map(&mv, v, B * H, Tk, D, w.bk, F32_BOX, 4))
       return (int)cudaErrorInvalidValue;
     cudaError_t err = prepare_tf(w.idx, w.smem);
     if (err != cudaSuccess) return (int)err;

@@ -3,28 +3,32 @@
 // accumulators, TMA tile loads (`cp.async.bulk.tensor`) completing on
 // `mbarrier`s, and the host-side encoding of the TMA tensor maps.
 //
-// Tiles. A (rows, D) bf16 operand is loaded as boxes of 64 columns (128
-// bytes a row), each box a TMA copy with the 128-byte swizzle: box b of a
-// tile of R rows lies at b * R * 128 bytes from the tile's base, every base
-// 1024-byte aligned, so the swizzle's XOR of address bits [4, 7) with bits
-// [7, 10) is the one a wgmma descriptor of layout "128B" undoes. Columns at
-// or past D and rows at or past T (the tensor map is (BH, T, D), so a tile
-// never reads the next head) arrive as zeros: a ragged tile and the padding
-// of D (D % 64 != 0, D % 16 == 8 included) add exact zeros to every sum.
+// Tiles. A (rows, D) bf16 operand is loaded as boxes of BC = 64 columns
+// (128 bytes a row, the 128-byte swizzle) or, where D <= 32, of BC = 32
+// columns (64 bytes a row, the 64-byte swizzle), each box one TMA copy: box
+// b of a tile of R rows lies at b * R * 2 BC bytes from the tile's base,
+// every base 1024-byte aligned, so the swizzle's XOR of address bits [4, 7)
+// (128B) or [4, 6) (64B) with bits [7, 10) is the one a wgmma descriptor of
+// layout "128B" or "64B" undoes. Columns at or past D and rows at or past T
+// (the tensor map is (BH, T, D), so a tile never reads the next head)
+// arrive as zeros: a ragged tile and the padding of D (D % BC != 0,
+// D % 16 == 8 included) add exact zeros to every sum. 32-column boxes halve
+// the k-steps of S (and dP) and the N of every product with P or dS at
+// D = 32, where 64-column boxes multiplied 32 columns of TMA's zeros.
 //
 // Descriptors (PTX ISA, "Matrix Descriptor Format"): start address >> 4 in
 // bits [0, 14), leading byte offset >> 4 in [16, 30), stride byte offset
-// >> 4 in [32, 46), layout 1 (128-byte swizzle) in [62, 64).
+// >> 4 in [32, 46), layout 1 (128-byte swizzle) or 2 (64-byte) in [62, 64).
+// Both offsets are the bytes of 8 rows of a box (1024 or 512):
 //   K-major (Q, K, dO, V as the operands of Q K^T, dO V^T, K Q^T, V dO^T):
-//     8-row groups 1024 bytes apart (stride offset); the k-th 16-column
-//     step of a box starts 32 k bytes into it (the swizzle is applied to
-//     the address, so the step is a plain offset).
+//     8-row groups 8 x 2 BC bytes apart (stride offset); the k-th
+//     16-column step of a box starts 32 k bytes into it (the swizzle is
+//     applied to the address, so the step is a plain offset).
 //   MN-major (V, K, Q, dO as the B operand of P V, dS K, P^T dO, dS^T Q,
-//     with the transpose bit): the 64 columns of a box are the N side, its
-//     rows the K side; 8-row groups of K are 1024 bytes apart and the next
-//     16 rows of K start 2048 bytes on. Both offsets are set to 1024 bytes:
-//     an n64 product reads one 64-column atom, so only the K-group stride
-//     is read.
+//     with the transpose bit): the BC columns of a box are the N side, its
+//     rows the K side; 8-row groups of K are 8 x 2 BC bytes apart and the
+//     next 16 rows of K start 2 x that on. An nBC product reads one
+//     BC-column atom, so only the K-group stride is read.
 //
 // Fragments. The accumulator of m64nNk16 (f32) gives warp w of the
 // warpgroup rows 16 w + g and 16 w + g + 8 (g = lane / 4, t = lane % 4):
@@ -41,50 +45,65 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "mma_bf16.cuh"
 
 namespace t2p {
 
 constexpr int WG_ROWS = 64;       // rows of a wgmma tile (a warpgroup's M)
-constexpr int WG_STAGES = 2;      // stages of the inner tiles' TMA ring
-constexpr int WG_MAX_D = 512;     // the largest D of the wgmma kernels
+constexpr int WG_MAX_D = 512;     // the largest D of the backward's wgmma kernels
 constexpr int BOX_COLS = 64;      // columns of a TMA box (128 bytes of bf16)
 constexpr int BOX_ROW_BYTES = 128;
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__host__ __device__ inline int nboxes(int d) {
-  return (d + BOX_COLS - 1) / BOX_COLS;
+__host__ __device__ inline int nboxes(int d, int bc = BOX_COLS) {
+  return (d + bc - 1) / bc;
 }
+
+// Columns of the bf16 kernels' TMA boxes for a width: 32 up to D = 32, else
+// 64.
+__host__ __device__ inline int box_cols(int d) { return d <= 32 ? 32 : 64; }
 
 // Byte offsets of a wgmma kernel's shared memory from its 1024-byte aligned
 // base: `nres` resident tiles of 64 rows (Q; Q and dO; K and V), `stages`
 // stages of two tiles of `tile` rows, and for two warpgroups the exchange
 // of the S (and dP) partial sums: two buffers (by tile parity) of `nxch`
 // floats a thread per warpgroup; then the mbarriers (full and empty per
-// stage for each of the stage's two tiles, one for the resident tiles).
-// `total` includes the 1024 bytes of alignment slack.
+// stage for each of the stage's two tiles, one for the resident tiles) and
+// two ints a stage (the forward's release counts). Rows of `rowb` bytes
+// (2 BC). `total` includes the 1024 bytes of alignment slack.
 struct WgLayout {
   uint32_t stage0, stage, xch, bars, total;
 };
 
 __host__ __device__ inline WgLayout wg_layout(int nres, int nbox, int tile,
-                                              int stages, int nwg,
-                                              int nxch) {
+                                              int stages, int nwg, int nxch,
+                                              int rowb = BOX_ROW_BYTES) {
   WgLayout l;
-  l.stage0 = (uint32_t)(nres * nbox * WG_ROWS * BOX_ROW_BYTES);
-  l.stage = (uint32_t)(2 * nbox * tile * BOX_ROW_BYTES);
+  l.stage0 = (uint32_t)(nres * nbox * WG_ROWS * rowb);
+  l.stage = (uint32_t)(2 * nbox * tile * rowb);
   l.xch = l.stage0 + stages * l.stage;
   const uint32_t xch_bytes =
       nwg > 1 ? (uint32_t)(2 * nwg * nxch * 128 * sizeof(float)) : 0u;
   l.bars = l.xch + xch_bytes;
-  l.total = l.bars + 8u * (4 * stages + 1) + 1024u;
+  l.total = l.bars + 8u * (4 * stages + 1) + 8u * stages + 1024u;
   return l;
 }
 
 // ------------------------------------------------------------ device side
+
+// 2^x by the SFU's approximation, a result below 2^-126 flushed to 0 (no
+// denormal scaling around it): the bf16 kernels' exp, whose results enter
+// f32 sums of terms at least 2^-24 of the largest, where such a result
+// was already lost to rounding.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -146,10 +165,51 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The descriptor of an operand of BC-column boxes starting at `addr`:
+// 128-byte swizzle for BC = 64, 64-byte for BC = 32.
+template <int BC>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr) {
+  static_assert(BC == 64 || BC == 32, "boxes of 64 or 32 bf16 columns");
+  constexpr uint64_t group = (8 * 2 * BC) >> 4;  // 8 rows, in 16 bytes
+  constexpr uint64_t layout = BC == 64 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (group << 16) | (group << 32) |
+         (layout << 62);
+}
+
 // The descriptor of a 128-byte-swizzled operand starting at `addr`.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+  return sw_desc<64>(addr);
+}
+
+// Thread block clusters: the rank of this block in its cluster, and the
+// cluster-wide barrier (every thread of every block; release and acquire
+// at cluster scope, so memory writes before it, distributed shared memory
+// included, are seen by the peers' reads after it).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The float at shared address `addr` of this block, read in the shared
+// memory of block `rank` of the cluster.
+__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -224,7 +284,7 @@ __device__ __forceinline__ void split_acc(const float (&d)[8 * NS],
 
 // wgmma.mma_async m64nNk16, f32 += bf16 x bf16. `wgmma_ss`: A and B from
 // shared memory, both K-major (N = 16, 32, 64 by the accumulator's size).
-// `wgmma_rs`: A from registers, B MN-major (N = 64). The scale-d predicate
+// `wgmma_rs`: A from registers, B MN-major (N = 32, 64). The scale-d predicate
 // is 1: the accumulators are zeroed by the caller.
 __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da,
                                          uint64_t db) {
@@ -270,6 +330,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs(float (&d)[32],
@@ -320,21 +395,80 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a contiguous (bh, t, d) bf16 tensor read in boxes of
-// 64 columns x `rows` rows, 128-byte swizzle, zeros out of bounds.
+// The tensor map of a contiguous (bh, t, d) tensor of `elem` bytes an
+// element (2: bf16, 4: f32) read in boxes of `cols` columns x `rows` rows,
+// swizzled by the box's row bytes (128 or 64), zeros out of bounds.
+// Encoding a map is a call into libcuda that costs microseconds of the
+// host's time, which paces the small calls, so the maps of both dtypes are
+// kept in one cache per thread, by (pointer, shape, dtype, box): the same
+// key always encodes the same map. The cache has SETS sets of WAYS entries,
+// a key's set drawn from a 64-bit mix of all its fields (the tensors of a
+// call often differ only in address bits that a plain XOR fold drops),
+// and a miss replaces the set's entries in turn.
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int bh, int t,
-                       int d, int rows) {
+                       int d, int rows, int cols, int elem) {
+  struct Entry {
+    const void* ptr;
+    int bh, t, d, rows, cols, elem;
+    CUtensorMap map;
+  };
+  constexpr int SETS = 128, WAYS = 4;
+  thread_local Entry cache[SETS][WAYS] = {};
+  thread_local uint8_t next[SETS] = {};
+  auto mix = [](uint64_t x) {  // splitmix64's finalizer
+    x ^= x >> 30;
+    x *= 0xBF58476D1CE4E5B9ull;
+    x ^= x >> 27;
+    x *= 0x94D049BB133111EBull;
+    return x ^ (x >> 31);
+  };
+  uint64_t h = mix(reinterpret_cast<uintptr_t>(ptr));
+  h = mix(h ^ ((uint64_t)(uint32_t)t << 32 | (uint32_t)d));
+  h = mix(h ^ ((uint64_t)(uint32_t)bh << 32 |
+               (uint32_t)(rows << 16 | cols << 4 | elem)));
+  const int set = (int)(h % SETS);
+  for (int w = 0; w < WAYS; ++w) {
+    const Entry& e = cache[set][w];
+    if (e.ptr == ptr && e.bh == bh && e.t == t && e.d == d &&
+        e.rows == rows && e.cols == cols && e.elem == elem) {
+      memcpy(map, &e.map, sizeof(CUtensorMap));
+      return true;
+    }
+  }
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
+  // libcuda encodes a map in the calling thread's current context, which
+  // a thread that never set its device (autograd's worker threads for the
+  // device that is current) does not have yet: set it
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return false;
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)t * (cuuint64_t)d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)BOX_COLS, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint64_t strides[2] = {(cuuint64_t)d * elem,
+                                 (cuuint64_t)t * (cuuint64_t)d * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)rows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  if (fn(map,
+         elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                   : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+         3, const_cast<void*>(ptr), dims, strides, box, step,
+         CU_TENSOR_MAP_INTERLEAVE_NONE,
+         cols * elem == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[set][next[set]];
+  next[set] = (uint8_t)((next[set] + 1) % WAYS);
+  e.ptr = ptr;
+  e.bh = bh;
+  e.t = t;
+  e.d = d;
+  e.rows = rows;
+  e.cols = cols;
+  e.elem = elem;
+  memcpy(&e.map, map, sizeof(CUtensorMap));
+  return true;
 }
 
 }  // namespace t2p

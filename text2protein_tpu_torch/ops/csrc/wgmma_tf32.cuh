@@ -10,7 +10,7 @@
 // the route's least time is 3 x 4 B H Tq Tk D FLOPs forward and 3 x 10 B H
 // Tq Tk D backward at 495 TFLOP/s (or the bytes at 3.35 TB/s): 0.052 ms
 // and 0.065 ms at test_config's AttnBlock 32x32 (D = 512, T = 1024, B = 4
-// and 2). Measured (NVIDIA H100 80GB HBM3, 700.00 W, scripts/flash_f32_ab.py,
+// and 2). Measured (NVIDIA H100 80GB HBM3, 700.00 W, scripts/flash_ab.py,
 // device time): 0.396 and 0.854 ms there (SDPA 0.274 and 1.082); the notes
 // of flash_fwd.cu and flash_bwd.cu give the rest.
 //
@@ -319,22 +319,6 @@ __device__ __forceinline__ void issue_abt(float (&s)[N], uint32_t a,
   }
 }
 
-// Thread block clusters: the rank of this block in its cluster, and the
-// cluster-wide barrier (every thread of every block; release and acquire
-// at cluster scope, so memory writes before it are seen by the peers'
-// reads after it).
-__device__ __forceinline__ int cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return (int)r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // The sums over the `ncl` blocks of a cluster (each holding a partial over
 // its share of D) of x and y, in every block, through device memory: each
 // block writes its partials (2 N floats a thread) to its slot of `buf`,
@@ -409,55 +393,6 @@ inline int sm_count() {
     if (slot >= 0) cached[slot] = sms;
   }
   return sms;
-}
-
-// The tensor map of a contiguous (bh, t, d) f32 tensor read in boxes of 32
-// columns x `rows` rows, 128-byte swizzle, zeros out of bounds. Encoding a
-// map is a call into libcuda that costs microseconds of the host's time,
-// which paces the small calls, so the maps are kept per thread, by
-// (pointer, shape, rows): the same key always encodes the same map.
-inline bool tensor_map_f32(CUtensorMap* map, const void* ptr, int bh, int t,
-                           int d, int rows) {
-  struct Entry {
-    const void* ptr;
-    int bh, t, d, rows;
-    CUtensorMap map;
-  };
-  constexpr int SLOTS = 256;
-  thread_local Entry cache[SLOTS] = {};
-  const uint64_t key = reinterpret_cast<uintptr_t>(ptr) ^
-                       ((uint64_t)t << 17) ^ ((uint64_t)d << 37) ^
-                       ((uint64_t)bh << 43) ^ ((uint64_t)rows << 55);
-  Entry& e = cache[(key ^ (key >> 9) ^ (key >> 23)) % SLOTS];
-  if (e.ptr == ptr && e.bh == bh && e.t == t && e.d == d && e.rows == rows) {
-    memcpy(map, &e.map, sizeof(CUtensorMap));
-    return true;
-  }
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  // libcuda encodes a map in the calling thread's current context, which
-  // a thread that never set its device (autograd's worker threads for the
-  // device that is current) does not have yet: set it
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
-    return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 4,
-                                 (cuuint64_t)t * (cuuint64_t)d * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)F32_BOX, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
-         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  e.ptr = ptr;
-  e.bh = bh;
-  e.t = t;
-  e.d = d;
-  e.rows = rows;
-  memcpy(&e.map, map, sizeof(CUtensorMap));
-  return true;
 }
 
 }  // namespace t2p

@@ -81,12 +81,14 @@ def launch_plan(kind, b, h, tq, tk, d, dtype=torch.float32):
     Tk = 16 at D = 256), D boxes of 32 columns a pipeline step,
     blocks of a cluster, clusters the device holds at once (-1 where no
     cluster)}. bfloat16: {warpgroups (0
-    for the mma.sync kernel of D > 512), column chunks (the
+    for the backward's mma.sync kernels of D > 512), column chunks (the
     blocks of one row tile, each computing S), pipeline stages, inner tile
     rows, rows a block owns, blocks, shared bytes, blocks per SM, threads
-    per block, wgmma (1, TMA-fed wgmma) or mma.sync (0)}. The backward
-    gives the same keys for the dq kernel and for the dkdv kernel, prefixed
-    `dq_` and `dkdv_`. Needs a GPU."""
+    per block, wgmma (1, TMA-fed wgmma) or mma.sync (0), TMA box columns
+    (32 or 64; 0 on mma.sync), blocks of a cluster (2 where the forward's
+    D > 512 is split over two blocks, else 1)}. The backward gives the
+    same keys for the dq kernel and for the dkdv kernel, prefixed `dq_`
+    and `dkdv_`. Needs a GPU."""
     if dtype == torch.float32:
         names, plan = _PLAN_KEYS, "_plan"
     else:
@@ -107,7 +109,8 @@ _PLAN_KEYS = ("tile", "stages", "chunks", "blocks", "smem", "per_sm",
               "threads", "narrow", "wgmma", "step_boxes", "cluster",
               "max_clusters")
 _BF16_PLAN_KEYS = ("warpgroups", "chunks", "stages", "tile", "rows",
-                   "blocks", "smem", "per_sm", "threads", "wgmma")
+                   "blocks", "smem", "per_sm", "threads", "wgmma", "box",
+                   "cluster")
 
 
 _DEFAULT_BQ = 256
